@@ -1,0 +1,577 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA engine (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--json REPORT]
+
+Every run goes through all the phases, in order; any failure raises and the
+script exits non-zero:
+
+  build     compile ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
+  kernels   each CUDA kernel against its plain PyTorch version on the card,
+            at the engine's shapes; the kernel's own device time per launch
+            and the plain version's device time per call from
+            torch.profiler, and each one's time per call with CUDA events;
+  full      the LSQB social graph at the paper's SF 0.3 size (scale 160,
+            about 7.3M triples) on the card; q1, q2, q6 and q7 through
+            ``Engine.execute``, each count held against a closed form computed
+            with numpy from the generated quads; every kernel's launch
+            counter must rise; a second run of each counts its host syncs,
+            and a third of q1 under torch.profiler gives the device's
+            busy time and the top device and host ops;
+  breadth   all nine LSQB queries at scale 1 on the card and on the CPU (the
+            kernels' plain versions), with equal counts required.
+
+Each phase header carries the seconds since the start. The line before
+the last is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32 rate
+# outside the tensor cores, used for every elementwise or integer operation
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+KERNEL_INFO = {
+    "join_expand": ("src/repro_torch/csrc/join_expand.cu",
+                    "src/repro/kernels/join_expand.py:64"),
+    "gather_emit": ("src/repro_torch/csrc/gather_emit.cu",
+                    "src/repro/kernels/gather_emit.py:88"),
+    "expr_eval": ("src/repro_torch/csrc/expr_eval.cu",
+                  "src/repro/kernels/expr_eval.py:43"),
+    "segment_scan": ("src/repro_torch/csrc/segment_scan.cu",
+                     "src/repro/kernels/segment_reduce.py:63"),
+}
+SEED = 42
+FULL_SCALE = 160.0  # the LSQB generator's size of the paper's SF 0.3: ~7.3M triples
+BREADTH_SCALE = 1.0
+FULL_QUERIES = ("q1", "q2", "q6", "q7")
+PROFILED_QUERY = "q1"  # the profiled run costs ~10x the query; q1 is the shortest
+
+
+T_START = time.perf_counter()
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def elapsed() -> str:
+    return f"(t={time.perf_counter() - T_START:.1f} s)"
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def call_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call over ``iters`` back-to-back calls, timed
+    with CUDA events: at the engine's sizes this is the host's per-call work
+    (Python, ctypes, allocation), not the device's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel=None):
+    """Device milliseconds from torch.profiler over ``iters`` calls: per
+    launch of ``kernel`` (its ``*_kernel`` events' self device time) when it
+    is named, else per call summed over every device op. None when the
+    profiler recorded no such device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    evs = [e for e in prof.key_averages()
+           if e.device_type != cpu and e.self_device_time_total > 0]
+    if kernel is not None:
+        evs = [e for e in evs if f"{kernel}_kernel" in e.key]
+    n = sum(e.count for e in evs) if kernel is not None else iters
+    if not evs or n == 0:
+        return None
+    return sum(e.self_device_time_total for e in evs) / n / 1e3
+
+
+def timings(name, kernel_fn, plain_fn, plain_iters: int) -> dict:
+    """The kernel's and its plain version's device and per-call times. Where
+    the profiler records no device time, the per-call time stands in and
+    the log says so."""
+    t = {"call_ms": call_ms(kernel_fn, 200), "plain_call_ms": call_ms(plain_fn, plain_iters)}
+    t["ms"] = device_ms(kernel_fn, 200, kernel=name)
+    t["plain_ms"] = device_ms(plain_fn, plain_iters)
+    for key, fallback in (("ms", "call_ms"), ("plain_ms", "plain_call_ms")):
+        if t[key] is None:
+            log(f"  {name}: the profiler recorded no device time; {key} is {fallback}")
+            t[key] = t[fallback]
+    return t
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+
+def _groups(rng, g, lmax, rmax, dev, unit_left=False):
+    from repro_torch.core.vecops import group_output_offsets
+
+    llens = np.ones(g, np.int32) if unit_left else rng.randint(1, lmax + 1, g).astype(np.int32)
+    rlens = rng.randint(1, rmax + 1, g).astype(np.int32)
+    lstarts = np.concatenate([[0], np.cumsum(llens)[:-1]]).astype(np.int32)
+    rstarts = np.concatenate([[0], np.cumsum(rlens)[:-1]]).astype(np.int32)
+    ts = [torch.from_numpy(x).to(dev) for x in (lstarts, llens, rstarts, rlens)]
+    return (*ts, group_output_offsets(ts[1], ts[3]))
+
+
+def check_join_expand(rng, dev):
+    from repro_torch.kernels import join_expand as JE
+
+    err = 0
+    cases = [
+        ("groups=40000", _groups(rng, 40000, 4, 8, dev), None, 4096),
+        ("unit-left runs", _groups(rng, 4096, 1, 64, dev, unit_left=True), 0, 4096),
+        ("unit-right runs", _groups(rng, 4096, 64, 1, dev), 0, 4096),
+        ("count=2^20", _groups(rng, 40000, 4, 8, dev), 0, 1 << 20),
+        ("cum > 2^31", _groups(rng, 20000, 1000, 1000, dev), None, 4096),
+    ]
+    for label, args, base, count in cases:
+        total = int(args[4][-1])
+        if base is None:
+            base = total - 2048 if "2^31" in label else total // 2
+        if "2^31" in label:
+            require(total > 2 ** 31, "join_expand: the wide case must pass 2^31 slots")
+        li, ri = JE.join_expand(*args, base, count)
+        pli, pri = JE.join_expand_plain(*args, base, count)
+        require(torch.equal(li, pli) and torch.equal(ri, pri),
+                f"join_expand disagrees with its plain version ({label})")
+        err = max(err, int((li - pli).abs().max()), int((ri - pri).abs().max()))
+        log(f"  join_expand {label}: total={total} base={base} count={count} ok")
+    args = cases[0][1]
+    base = int(args[4][-1]) // 2
+    t = timings("join_expand", lambda: JE.join_expand(*args, base, 4096),
+                lambda: JE.join_expand_plain(*args, base, 4096), 20)
+    cum = args[4].cpu().numpy()
+    g0 = int(np.searchsorted(cum, base, side="right")) - 1
+    g1 = int(np.searchsorted(cum, base + 4096, side="left"))
+    nbytes = (g1 - g0) * 24 + 4096 * 8
+    ops = 4096 * (np.log2(len(cum)) + 8)
+    return err, t, bound(nbytes, ops)
+
+
+def check_gather_emit(rng, dev):
+    from repro_torch.kernels import gather_emit as GE
+
+    nsrc, c = 1_000_000, 4096
+    lcols = torch.from_numpy(rng.randint(0, 4, (3, nsrc)).astype(np.int32)).to(dev)
+    rcols = torch.from_numpy(rng.randint(0, 4, (3, nsrc)).astype(np.int32)).to(dev)
+    li = torch.from_numpy(rng.randint(0, nsrc, c).astype(np.int32)).to(dev)
+    ri_np = rng.randint(0, nsrc, c).astype(np.int32)
+    ri_np[rng.rand(c) < 0.1] = -1  # virtual NULL rows (left_outer padding)
+    ri = torch.from_numpy(ri_np).to(dev)
+    empty_r = torch.zeros((3, 0), dtype=torch.int32, device=dev)
+    sel = lambda rows: GE.index_tensor(rows, dev)  # noqa: E731
+    pairs = lambda ps: GE.pairs_tensor(ps, dev)  # noqa: E731
+    cases = [
+        ("join emit", (lcols, rcols, li, ri, sel([0, 1, 2]), sel([1, 2]), pairs([(0, 0)])), None),
+        ("-1 rows, 2 pairs", (lcols, rcols, li, ri, sel([0, -1, 2]), sel([-1, 1]),
+                              pairs([(0, 0), (1, 1)])), None),
+        ("mask only", (lcols, rcols, li, ri, sel([]), sel([]), pairs([(0, 0)])), None),
+        ("empty right", (lcols, empty_r, li, ri, sel([0, 1]), sel([0, 2]), pairs([(0, 0)])), None),
+        ("concat (no ri)", (lcols, None, li, None, sel([2, -1, 0]), sel([]), pairs([])), None),
+        ("out offset", (lcols, rcols, li, ri, sel([0, 1, 2]), sel([1, 2]), pairs([(0, 0)])), 4096),
+    ]
+    err = 0
+    for label, args, off in cases:
+        if off is None:
+            blk, m = GE.gather_emit(*args)
+            pblk, pm = GE.gather_emit_plain(*args)
+        else:
+            out = torch.full((6, 2 * c), 7, dtype=torch.int32, device=dev)
+            pout = out.clone()
+            blk, m = GE.gather_emit(*args, out=out, out_offset=off)
+            pblk, pm = GE.gather_emit_plain(*args, out=pout, out_offset=off)
+            require(torch.equal(out, pout), "gather_emit: out= buffers differ")
+        require(torch.equal(blk, pblk) and torch.equal(m, pm),
+                f"gather_emit disagrees with its plain version ({label})")
+        if blk.numel():
+            err = max(err, int((blk - pblk).abs().max()))
+        log(f"  gather_emit {label}: C={c} src rows={nsrc} ok")
+    args = cases[0][1]
+    out = torch.empty((5, c), dtype=torch.int32, device=dev)
+    t = timings("gather_emit", lambda: GE.gather_emit(*args, out=out),
+                lambda: GE.gather_emit_plain(*args, out=out), 20)
+    # source cells read once each: every left row that is emitted or
+    # compared, at every slot, and every such right row at the slots whose
+    # ri is valid; a pair's row that is also emitted is not read again
+    lsel, rsel, prs = args[4].tolist(), args[5].tolist(), args[6].tolist()
+    left_rows = {r for r in lsel if r >= 0} | {lr for lr, _ in prs}
+    right_rows = {r for r in rsel if r >= 0} | {rr for _, rr in prs}
+    valid_r = int((ri >= 0).sum())
+    cells = len(left_rows) * c + len(right_rows) * valid_r
+    small = 4 * (len(lsel) + len(rsel) + 2 * len(prs))
+    # li, ri read; the emitted block written as int32, the mask as bool
+    nbytes = 8 * c + small + 4 * cells + 4 * (len(lsel) + len(rsel)) * c + c
+    return err, t, bound(nbytes, 8 * c)
+
+
+def all_opcode_program():
+    """A FILTER program that uses each of the 23 opcodes, over code
+    columns ?v0 ?v1 ?v3 and numeric columns ?v0 ?v1 ?v2."""
+    from repro_torch.core import algebra as A
+    from repro_torch.core.dictionary import Dictionary
+    from repro_torch.core.exprs import compile_expr
+
+    d = Dictionary()
+    for v in range(21):
+        d.encode(int(v))
+    for t in ['"apple"', '"applesauce"', '"banana"', '""', ":iri1", ":iri2", 2.5]:
+        d.encode(t)
+    V, L = A.VarRef, A.Lit
+    e = A.And((
+        A.Or((A.Cmp("=", V(0), V(1)), A.Cmp("!=", V(0), V(3)))),
+        A.Or((A.Cmp("=", V(0), L(3)), A.Not(A.Cmp("!=", V(1), L(5))))),
+        A.Or((A.Bound(1), A.Func("strstarts", (V(3), L('"app"'))))),
+        A.Func("if", (A.Cmp("<", V(0), L(10)),
+                      A.Cmp("<=", A.Arith("+", V(0), V(1)), L(30)),
+                      A.Cmp(">", A.Arith("-", V(0), V(1)), L(-2)))),
+        A.Func("coalesce", (A.Cmp(">=", A.Arith("/", V(0), V(2)), L(1)),
+                            A.Cmp("=", A.Arith("*", V(0), V(1)), L(12)))),
+        A.Cmp("!=", A.Arith("*", V(1), V(2)), L(4)),
+    ))
+    prog = compile_expr(e, d, "mask")
+    require({i[0] for i in prog.instrs} == set(range(23)),
+            "the expr_eval check program must use all 23 opcodes")
+    return prog, d
+
+
+def check_expr_eval(rng, dev):
+    from repro_torch.core.batch import ColumnBatch
+    from repro_torch.core.exprs.vm import prepare_inputs
+    from repro_torch.kernels import expr_eval as EE
+
+    prog, d = all_opcode_program()
+    n = 4096
+    cols = [rng.randint(-1, 21, n), rng.randint(-1, 21, n),
+            rng.choice([0, 1, 2, 4], n), rng.randint(-1, len(d), n)]
+    batch = ColumnBatch.from_columns(
+        (0, 1, 2, 3), [torch.from_numpy(c.astype(np.int32)).to(dev) for c in cols], dev)
+    icols, fcols = prepare_inputs(prog, batch, d)
+    fcols[:, ::97] = float("nan")  # non-numeric rows beside the NULL codes
+    val, err_ = EE.expr_eval(prog, icols, fcols)
+    pval, perr = EE.expr_eval_plain(prog, icols, fcols)
+    require(torch.equal(err_, perr), "expr_eval: error planes differ")
+    torch.testing.assert_close(val, pval, rtol=0, atol=0, equal_nan=True)
+    mask = (val != 0) & ~err_
+    require(torch.equal(mask, (pval != 0) & ~perr), "expr_eval: masks differ")
+    both = ~torch.isnan(val)
+    max_err = float((val[both] - pval[both]).abs().max()) if bool(both.any()) else 0.0
+    log(f"  expr_eval 23-opcode program ({len(prog.instrs)} instrs, {prog.n_regs} regs): "
+        f"n={n} rows true={int(mask.sum())} ok")
+    t = timings("expr_eval", lambda: EE.expr_eval(prog, icols, fcols),
+                lambda: EE.expr_eval_plain(prog, icols, fcols), 10)
+    nbytes = icols.numel() * 4 + fcols.numel() * 4 + n * 5
+    return max_err, t, bound(nbytes, n * len(prog.instrs))
+
+
+def _sorted_keys(rng, n, max_run):
+    lens = rng.randint(1, max_run + 1, n)
+    keys = np.repeat(np.arange(len(lens)), lens)[:n]
+    return keys.astype(np.int32)
+
+
+def check_segment_scan(rng, dev):
+    from repro_torch.kernels import segment_scan as SS
+
+    n = 4096
+    key_sets = {
+        "runs<=64": _sorted_keys(rng, n, 64),
+        "runs across 1024": _sorted_keys(rng, n, 3000),
+        "one run": np.zeros(n, np.int32),
+        "all distinct": np.arange(n, dtype=np.int32),
+        "n=100000": _sorted_keys(rng, 100_000, 500),
+    }
+    err = 0.0
+    for label, keys_np in key_sets.items():
+        keys = torch.from_numpy(keys_np).to(dev)
+        m = len(keys_np)
+        vals = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev)
+        ints = torch.from_numpy(rng.randint(-50, 50, m).astype(np.float32)).to(dev)
+        for op in ("sum", "count", "min", "max"):
+            v = torch.ones_like(vals) if op == "count" else vals
+            got = SS.segment_scan(keys, v, op)
+            want = SS.segment_scan_plain(keys, v, op)
+            if op == "sum":
+                # another summation order than the doubling scan: rounding
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                err = max(err, float((got - want).abs().max()))
+                gi, wi = SS.segment_scan(keys, ints, op), SS.segment_scan_plain(keys, ints, op)
+                require(torch.equal(gi, wi), "segment_scan: integer-valued sums must be exact")
+            else:
+                require(torch.equal(got, want), f"segment_scan {op} differs ({label})")
+        log(f"  segment_scan {label}: n={m} sum/count/min/max ok")
+    keys = torch.from_numpy(key_sets["runs<=64"]).to(dev)
+    vals = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    t = timings("segment_scan", lambda: SS.segment_scan(keys, vals, "sum"),
+                lambda: SS.segment_scan_plain(keys, vals, "sum"), 10)
+    return err, t, bound(12 * n, 2 * n)
+
+
+def kernel_phase(dev, seed):
+    rng = np.random.RandomState(seed)
+    rows = {}
+    for name, fn in (("join_expand", check_join_expand), ("gather_emit", check_gather_emit),
+                     ("expr_eval", check_expr_eval), ("segment_scan", check_segment_scan)):
+        err, t, (bound_ms, bound_by) = fn(rng, dev)
+        src, repl = KERNEL_INFO[name]
+        # launches: set from the full phase's run of the main path
+        rows[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": None, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
+        }
+        log(f"  {name}: kernel {t['ms']:.6f} ms on the device ({t['call_ms']:.5f} ms per "
+            f"call), plain {t['plain_ms']:.5f} ms on the device ({t['plain_call_ms']:.5f} ms "
+            f"per call), bound {bound_ms:.6f} ms ({bound_by}), max |err| {err}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# full-size and breadth phases
+# ---------------------------------------------------------------------------
+
+
+def closed_form_counts(store):
+    """LSQB counts straight from the generated quads (numpy only)."""
+    q = store.index_array("spoc").astype(np.int64)
+    d = store.dict
+    n_terms = len(d)
+    knows = q[q[:, 1] == d.lookup(":knows")]
+    ks, ko = knows[:, 0], knows[:, 2]
+    interests = np.bincount(q[q[:, 1] == d.lookup(":hasInterest"), 0], minlength=n_terms)
+    located = q[q[:, 1] == d.lookup(":isLocatedIn")]
+    per_city = np.bincount(located[:, 2], minlength=n_terms).astype(np.int64)
+    # q6: sum over 2-hop paths p1->p2->p3 of interests(p3), minus p1 == p3
+    out_interest = np.bincount(ks, weights=interests[ko], minlength=n_terms)
+    two_hop = int(round(float(out_interest[ko].sum())))
+    key = ks * n_terms + ko
+    rev = np.sort(ko * n_terms + ks)
+    pos = np.minimum(np.searchsorted(rev, key), len(rev) - 1)
+    mutual = rev[pos] == key
+    return {
+        "q1": int(interests[ko].sum()),
+        "q2": int((per_city ** 2).sum() - len(located)),
+        "q6": two_hop - int(interests[ks[mutual]].sum()),
+        "q7": int(np.maximum(interests[ko], 1).sum()),
+    }
+
+
+def run_count(engine, text):
+    t0 = time.perf_counter()
+    res = engine.execute(text)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (row,) = res.decoded(engine.store.dict)
+    return int(row["count"]), wall
+
+
+def count_syncs(fn):
+    """Run ``fn`` with PyTorch's CUDA sync debugging on; returns the number
+    of synchronising operations it reported."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def full_phase(dev, scale, seed, report):
+    import repro_torch
+    from repro_torch import kernels as K
+
+    t0 = time.perf_counter()
+    store, _ = repro_torch.generate_social_graph(scale=scale, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"  scale={scale}: {store.n_quads} triples, {store.device_bytes()} device bytes "
+        f"(four index orders), generated and loaded in {load_s:.1f} s")
+    report["full"] = {"scale": scale, "triples": store.n_quads,
+                      "device_bytes": store.device_bytes(), "load_s": load_s, "queries": {}}
+    t0 = time.perf_counter()
+    want = closed_form_counts(store)
+    log(f"  closed forms from the quads in {time.perf_counter() - t0:.1f} s: {want}")
+    engine = repro_torch.Engine(store, device=dev)
+    K.reset_launch_counts()
+    for name in FULL_QUERIES:
+        before = K.launch_counts()
+        got, wall = run_count(engine, repro_torch.LSQB_QUERIES[name])
+        after = K.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        log(f"  {name}: count={got} closed form={want[name]} wall={wall:.3f} s launches={delta}")
+        require(got == want[name], f"{name}: engine count {got} != closed form {want[name]}")
+        report["full"]["queries"][name] = {"count": got, "wall_s": wall, "launches": delta}
+    launches = K.launch_counts()
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was never launched on the main path")
+    for name in FULL_QUERIES:
+        text = repro_torch.LSQB_QUERIES[name]
+        t0 = time.perf_counter()
+        syncs = count_syncs(lambda: run_count(engine, text))
+        report["full"]["queries"][name]["syncs"] = syncs
+        log(f"  {name}: {syncs} host syncs (a second run, torch sync debug mode, "
+            f"{time.perf_counter() - t0:.1f} s)")
+    name = PROFILED_QUERY
+    prof = device_profile(lambda: run_count(engine, repro_torch.LSQB_QUERIES[name]))
+    report["full"]["queries"][name]["profile"] = prof
+    if prof["device_busy_s"] is None:
+        log(f"  {name} profile: the profiler recorded no device time (not measured)")
+        return launches
+    wall = report["full"]["queries"][name]["wall_s"]
+    prof["idle_share"] = 1.0 - prof["device_busy_s"] / wall
+    log(f"  {name} profile (a third run): device busy {prof['device_busy_s']:.3f} s of "
+        f"{wall:.3f} s unprofiled wall, idle share {prof['idle_share']:.4f}, "
+        f"profiled run {prof['profiled_wall_s']:.1f} s")
+    for key, count, us in prof["device_ops"]:
+        log(f"    device {us / 1e3:10.1f} ms {count:8d}x {key[:90]}")
+    for kname, (count, us) in prof["kernels"].items():
+        log(f"    kernel {kname}: {count} launches, {us / max(count, 1):.2f} us each on the device")
+    for key, count, us in prof["host_ops"]:
+        log(f"    host   {us / 1e3:10.1f} ms {count:8d}x {key[:90]}")
+    return launches
+
+
+def device_profile(fn, top: int = 8):
+    """One run under torch.profiler: device busy seconds (the sum of every
+    device op's self time; None when the profiler saw no device), the top
+    device and host ops by self time, and each port kernel's launches and
+    device microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    profiled_wall = time.perf_counter() - t0
+    # device-side events (kernels, copies) only: a host op's self device
+    # time repeats the time of the kernels it launched
+    cpu = torch.autograd.DeviceType.CPU
+    avg = prof.key_averages()
+    dev = sorted(((e.key, e.count, e.self_device_time_total) for e in avg
+                  if e.device_type != cpu and e.self_device_time_total > 0),
+                 key=lambda r: -r[2])
+    host = sorted(((e.key, e.count, e.self_cpu_time_total) for e in avg
+                   if e.device_type == cpu), key=lambda r: -r[2])
+    busy = sum(r[2] for r in dev) / 1e6 if dev else None
+    kernels = {name: [sum(r[1] for r in dev if f"{name}_kernel" in r[0]),
+                      sum(r[2] for r in dev if f"{name}_kernel" in r[0])]
+               for name in KERNEL_INFO}
+    return {"device_busy_s": busy, "profiled_wall_s": profiled_wall,
+            "device_ops": dev[:top], "host_ops": host[:top], "kernels": kernels}
+
+
+def breadth_phase(dev, scale, seed, report):
+    import repro_torch
+
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        store, _ = repro_torch.generate_social_graph(scale=scale, seed=seed, device=device)
+        engine = repro_torch.Engine(store, device=device)
+        for name, text in repro_torch.LSQB_QUERIES.items():
+            got, wall = run_count(engine, text)
+            results.setdefault(name, {})[device.type] = (got, wall)
+    report["breadth"] = {"scale": scale, "queries": {}}
+    for name, r in results.items():
+        (gc, wc), (cc, wcpu) = r["cuda"], r["cpu"]
+        log(f"  {name}: cuda count={gc} ({wc:.3f} s)  cpu count={cc} ({wcpu:.3f} s)")
+        require(gc == cc, f"{name}: cuda count {gc} != cpu count {cc}")
+        report["breadth"]["queries"][name] = {"count": gc, "cuda_s": wc, "cpu_s": wcpu}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", help="also write the full report to this file")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build as KB
+
+    card = card_line()
+    log(card)
+    dev = torch.device("cuda", 0)
+    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    t0 = time.perf_counter()
+    KB.build()
+    KB.library()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"build: {report['build_s']:.1f} s ({len(KB.sources())} sources, sm_90a)")
+
+    log(f"kernels: {elapsed()}")
+    rows = kernel_phase(dev, SEED)
+    log(f"full-size: {elapsed()}")
+    launches = full_phase(dev, FULL_SCALE, SEED, report)
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    log(f"breadth: {elapsed()}")
+    breadth_phase(dev, BREADTH_SCALE, SEED, report)
+    log(f"done: {elapsed()}")
+
+    report["kernels"] = list(rows.values())
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(report, indent=1))
+    log(json.dumps({"kernels": report["kernels"]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

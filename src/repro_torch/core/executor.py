@@ -1,0 +1,293 @@
+"""Translator + executor: physical plan → device operator tree → result.
+
+``Engine(store).execute(sparql)`` parses and plans on the host exactly as
+the reference package does, lowers the plan to the batch operators of this
+package, drains the root on the store's device, and copies the projected
+rows to the host once, at the end of the query.
+
+This package covers the sort-merge main path: scans with seek, merge and
+lookup joins (inner / left_outer / semi / anti), FILTER and BIND through
+the expression VM, streaming and sort-based GROUP BY, DISTINCT, ORDER BY,
+LIMIT/OFFSET and UNION. A configuration or plan node outside it raises
+``NotImplementedError`` naming the part of the port that will bring it; the
+engine never evaluates a query some other way.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import algebra as A
+from repro_torch.core import planner as PL
+from repro_torch.core.adaptive import AdaptiveBatchSizer
+from repro_torch.core.batch import NULL_ID, BatchPool, bucket_for
+from repro_torch.core.device import resolve_device
+from repro_torch.core.dictionary import Dictionary
+from repro_torch.core.operators.aggregate import (
+    SortDistinct,
+    SortGroupBy,
+    StreamingDistinct,
+    StreamingGroupBy,
+)
+from repro_torch.core.operators.base import BatchOperator, close_tree
+from repro_torch.core.operators.lookup_join import LookupJoin
+from repro_torch.core.operators.merge_join import MergeJoin
+from repro_torch.core.operators.scan import IndexScan
+from repro_torch.core.operators.simple import (
+    ExtendOp,
+    FilterOp,
+    ProjectOp,
+    SliceOp,
+    UnionOp,
+)
+from repro_torch.core.operators.sort import OrderByOp, SortByVarOp
+from repro_torch.core.stats import GraphStats
+from repro_torch.core.storage import QuadStore
+
+# the only values this package implements, and the part of the port that
+# brings each other value
+_SUPPORTED = {
+    "engine": ("barq", "the legacy row engine with the batch/row adapters"),
+    "join_strategy": ("merge", "the hash-join slice"),
+    "sip": ("off", "the SIP (bloom filter) slice"),
+    "memory_budget": (None, "the out-of-core slice"),
+    "spill_dir": (None, "the out-of-core slice"),
+    "adaptive_join": ("off", "the out-of-core and adaptive slice"),
+    "cardinality_feedback": ("off", "the telemetry slice"),
+}
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Engine settings, with the reference's field names."""
+
+    engine: str = "barq"
+    adaptive_batching: bool = True
+    initial_batch: int = 64
+    max_batch: int = 4096
+    allow_child_skip: bool = True
+    spill_dir: Optional[str] = None
+    # join emission batch size: None = default (256)
+    join_initial_batch: Optional[int] = None
+    join_strategy: Optional[str] = "merge"
+    sip: Optional[str] = "off"
+    # buffer pooling: recycle batch buffers through an Engine-owned arena
+    pool_buffers: bool = True
+    pool_max_per_bucket: int = 32
+    cardinality_feedback: str = "off"
+    memory_budget: Optional[int] = None
+    adaptive_join: str = "off"
+
+    def check(self) -> None:
+        """Raise NotImplementedError for any value outside this package."""
+        for name, (value, later) in _SUPPORTED.items():
+            got = getattr(self, name)
+            if got != value:
+                raise NotImplementedError(
+                    f"EngineConfig.{name}={got!r} is not ported yet: it comes "
+                    f"with {later} (this package runs {name}={value!r})"
+                )
+
+
+def _not_ported(what: str, later: str):
+    return NotImplementedError(f"{what} is not ported yet: it comes with {later}")
+
+
+class Translator:
+    def __init__(self, store: QuadStore, cfg: EngineConfig, device: torch.device,
+                 pool: Optional[BatchPool] = None):
+        self.store = store
+        self.cfg = cfg
+        self.device = device
+        self.pool = pool
+
+    def translate(self, plan: PL.Phys) -> BatchOperator:
+        return self._build(plan)
+
+    def _sizer(self, initial: Optional[int] = None) -> AdaptiveBatchSizer:
+        # clamp the configured size to the capacity buckets
+        return AdaptiveBatchSizer(
+            initial=min(
+                bucket_for(initial or self.cfg.initial_batch),
+                bucket_for(self.cfg.max_batch),
+            ),
+            max_size=self.cfg.max_batch,
+            enabled=self.cfg.adaptive_batching,
+        )
+
+    def _join_sizer(self) -> AdaptiveBatchSizer:
+        return self._sizer(self.cfg.join_initial_batch or 256)
+
+    def _build(self, n: PL.Phys) -> BatchOperator:
+        """Lower one Phys node (and its subtree) to a batch operator."""
+        dev, pool, d = self.device, self.pool, self.store.dict
+        if isinstance(n, PL.PScan):
+            if n.sip:
+                raise _not_ported("a SIP prefilter on a scan", "the SIP slice")
+            return IndexScan(self.store, n.pattern, n.sort_var, sizer=self._sizer(), pool=pool)
+        if isinstance(n, PL.PSort):
+            return SortByVarOp(self._build(n.child), n.var, dev, self.cfg.max_batch, pool=pool)
+        if isinstance(n, PL.PMergeJoin):
+            if n.sip_exports:
+                raise _not_ported("a SIP export from a merge join", "the SIP slice")
+            return MergeJoin(
+                self._build(n.left), self._build(n.right), n.var, dev,
+                mode=n.mode, post_filter=n.post_filter, dictionary=d,
+                sizer=self._join_sizer(), allow_child_skip=self.cfg.allow_child_skip,
+                pool=pool, post_program=n.post_program,
+            )
+        if isinstance(n, PL.PLookupJoin):
+            return LookupJoin(
+                self._build(n.probe), self._build(n.build), n.var, dev, n.mode, pool=pool
+            )
+        if isinstance(n, PL.PHashJoin):
+            raise _not_ported("the hash join", "the hash-join slice")
+        if isinstance(n, (PL.PPathExpand, PL.PPathScan)):
+            raise _not_ported("property paths", "the property-path slice")
+        if isinstance(n, PL.PCross):
+            raise _not_ported("the cross join", "the remaining sort-join operators")
+        if isinstance(n, PL.PFilter):
+            return FilterOp(self._build(n.child), n.expr, d, program=n.program)
+        if isinstance(n, PL.PExtend):
+            return ExtendOp(
+                self._build(n.child), n.var, n.expr, d, dev, pool=pool, program=n.program
+            )
+        if isinstance(n, PL.PProject):
+            return ProjectOp(self._build(n.child), n.vars, dev, pool=pool)
+        if isinstance(n, PL.PDistinct):
+            if n.grace:
+                raise _not_ported("partitioned DISTINCT", "the out-of-core slice")
+            child = self._build(n.child)
+            if n.streaming_var is not None and child.sorted_by() == n.streaming_var:
+                return StreamingDistinct(child, n.streaming_var, dev)
+            return SortDistinct(child, dev, self.cfg.max_batch)
+        if isinstance(n, PL.PGroup):
+            if n.grace:
+                raise _not_ported("partitioned GROUP BY", "the out-of-core slice")
+            child = self._build(n.child)
+            if n.streaming and len(n.group_vars) <= 1:
+                gv = n.group_vars[0] if n.group_vars else None
+                if gv is None or child.sorted_by() == gv:
+                    return StreamingGroupBy(
+                        child, gv, n.aggs, d, dev, self.cfg.max_batch, pool=pool
+                    )
+            return SortGroupBy(
+                child, n.group_vars, n.aggs, d, dev, self.cfg.max_batch, pool=pool
+            )
+        if isinstance(n, PL.PHaving):
+            return FilterOp(self._build(n.child), n.expr, d, program=n.program, name="Having")
+        if isinstance(n, PL.POrderBy):
+            return OrderByOp(self._build(n.child), n.keys, d, dev, self.cfg.max_batch, pool=pool)
+        if isinstance(n, PL.PSlice):
+            return SliceOp(self._build(n.child), n.limit, n.offset)
+        if isinstance(n, PL.PUnion):
+            return UnionOp(self._build(n.left), self._build(n.right), dev, pool=pool)
+        raise TypeError(type(n))
+
+
+class QueryResult:
+    def __init__(self, var_table: A.VarTable, proj: Tuple[int, ...], rows: np.ndarray):
+        self.var_table = var_table
+        self.proj = proj
+        self.rows = rows  # (n, n_proj) int32 codes, on the host
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.rows.shape[0])
+
+    def decoded(self, dictionary: Dictionary) -> List[dict]:
+        names = [self.var_table.name(v) for v in self.proj]
+        return [
+            {
+                nm: (None if c == NULL_ID else dictionary.decode(int(c)))
+                for nm, c in zip(names, row)
+            }
+            for row in self.rows.tolist()
+        ]
+
+
+class Engine:
+    """Public API: ``Engine(store, cfg, device).execute(sparql_text | plan)``.
+
+    ``device=None`` is the CUDA card; it raises where there is none. Pass
+    ``device="cpu"`` to run the kernels' plain PyTorch versions."""
+
+    def __init__(self, store: QuadStore, cfg: Optional[EngineConfig] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg or EngineConfig()
+        self.cfg.check()
+        if store.device != self.device:
+            raise ValueError(
+                f"the store lies on {store.device}, the engine on {self.device}"
+            )
+        self.store = store
+        self.stats = GraphStats(store)
+        self.planner = PL.Planner(
+            self.stats,
+            barq_enabled=True,
+            dictionary=store.dict,
+            join_strategy=self.cfg.join_strategy,
+            sip=self.cfg.sip,
+            memory_budget=self.cfg.memory_budget,
+            adaptive_join=self.cfg.adaptive_join,
+        )
+        # Engine-owned warm arena shared across this engine's queries
+        self.pool: Optional[BatchPool] = (
+            BatchPool(self.device, self.cfg.pool_max_per_bucket)
+            if self.cfg.pool_buffers else None
+        )
+
+    def parse(self, text: str) -> Tuple[A.PlanNode, A.VarTable]:
+        from repro_torch.core.parser import parse_query
+
+        return parse_query(text)
+
+    def plan(self, node: A.PlanNode) -> PL.Phys:
+        return self.planner.plan(node)
+
+    def explain(self, node_or_text: Union[str, A.PlanNode],
+                var_table: Optional[A.VarTable] = None) -> str:
+        if isinstance(node_or_text, str):
+            node_or_text, var_table = self.parse(node_or_text)
+        return PL.explain(self.plan(node_or_text), var_table)
+
+    def execute(self, node_or_text: Union[str, A.PlanNode],
+                var_table: Optional[A.VarTable] = None) -> QueryResult:
+        if isinstance(node_or_text, str):
+            node, var_table = self.parse(node_or_text)
+        else:
+            node = node_or_text
+        return self.execute_plan(self.plan(node), var_table)
+
+    def execute_plan(self, phys: PL.Phys,
+                     var_table: Optional[A.VarTable] = None) -> QueryResult:
+        op = Translator(self.store, self.cfg, self.device, pool=self.pool).translate(phys)
+        proj = tuple(PL.phys_vars(phys))
+        try:
+            # streaming drain: keep each batch's projection on the device,
+            # give the buffers straight back to the arena
+            blocks = []
+            while True:
+                b = op.next_batch()
+                if b is None:
+                    break
+                if not b.n_active:
+                    b.release()
+                    continue
+                cb = b.compact()
+                order = [cb.col_index(v) for v in proj]
+                blocks.append(cb.columns[order, : cb.n_rows].T)  # row gather copies
+                cb.release()
+            dev_rows = (
+                torch.cat(blocks, dim=0) if blocks
+                else torch.zeros((0, len(proj)), dtype=torch.int32, device=self.device)
+            )
+            rows = dev_rows.cpu().numpy()  # the query's one device-to-host copy
+        finally:
+            close_tree(op)
+        return QueryResult(var_table or A.VarTable(), proj, rows)

@@ -1,0 +1,132 @@
+"""Index scan operator: evaluates one triple pattern over a sorted index.
+
+Produces columnar batches on the store's device, sorted by the first free
+role of the chosen index order. Supports ``skip()`` on that role (the
+storage seek), drives the adaptive batch sizer from the received
+next()/skip() pattern (paper §3.4), and counts rows read from storage.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.adaptive import AdaptiveBatchSizer
+from repro_torch.core.algebra import K, TriplePattern, V
+from repro_torch.core.batch import BatchPool, ColumnBatch
+from repro_torch.core.operators.base import BatchOperator
+from repro_torch.core.storage import INDEX_ORDERS, QuadStore, ScanRange
+
+
+class IndexScan(BatchOperator):
+    def __init__(
+        self,
+        store: QuadStore,
+        pattern: TriplePattern,
+        want_sorted_var: Optional[int] = None,
+        sizer: Optional[AdaptiveBatchSizer] = None,
+        pool: Optional[BatchPool] = None,
+    ) -> None:
+        self.store = store
+        self.pattern = pattern
+        self.pool = pool
+
+        # encode constant slots; a constant not present in the dictionary
+        # means the pattern matches nothing
+        self._dead = False
+        bound: List[Optional[int]] = [None, None, None, None]
+        slots = (pattern.s, pattern.p, pattern.o, pattern.g)
+        for role, sl in enumerate(slots):
+            if isinstance(sl, K):
+                tid = store.dict.lookup(sl.term)
+                if tid is None:
+                    self._dead = True
+                    tid = -1
+                bound[role] = tid
+        self.bound = bound
+
+        # free roles and their variables; repeated vars inside one pattern
+        # (e.g. ?x :p ?x) add a residual equality mask
+        self.role_of_var: Dict[int, int] = {}
+        self.residual_pairs: List[Tuple[int, int]] = []  # (role_a, role_b)
+        for role, sl in enumerate(slots):
+            if isinstance(sl, V):
+                if sl.id in self.role_of_var:
+                    self.residual_pairs.append((self.role_of_var[sl.id], role))
+                else:
+                    self.role_of_var[sl.id] = role
+
+        want_role = self.role_of_var.get(want_sorted_var) if want_sorted_var is not None else None
+        self.index = store.choose_index(bound, want_role)
+        self.perm = INDEX_ORDERS[self.index]
+
+        self._var_ids = tuple(self.role_of_var)
+        self.var_col_pos = {
+            v: self.perm.index(self.role_of_var[v]) for v in self._var_ids
+        }
+        # sortedness: the first free position in the index order
+        n_bound = 0
+        while n_bound < 4 and bound[self.perm[n_bound]] is not None:
+            n_bound += 1
+        self._sort_col_pos = n_bound if n_bound < 4 else None
+        self._sorted_var: Optional[int] = None
+        if self._sort_col_pos is not None:
+            role = self.perm[self._sort_col_pos]
+            for v, r in self.role_of_var.items():
+                if r == role:
+                    self._sorted_var = v
+
+        self.range: ScanRange = (
+            ScanRange(self.index, 0, 0)
+            if self._dead
+            else store.range_for_pattern(self.index, bound)
+        )
+        self.offset = 0
+        self.sizer = sizer or AdaptiveBatchSizer()
+        super().__init__("Scan")
+
+    # -- operator API -----------------------------------------------------------
+
+    def var_ids(self) -> Tuple[int, ...]:
+        return self._var_ids
+
+    def sorted_by(self) -> Optional[int]:
+        return self._sorted_var
+
+    def next_batch(self) -> Optional[ColumnBatch]:
+        while True:
+            if self.offset >= len(self.range):
+                return None
+            count = self.sizer.on_next()
+            rows = self.store.read(self.range, self.offset, count)
+            n = int(rows[0].shape[0])
+            self.offset += n
+            cols = [rows[self.var_col_pos[v]] for v in self._var_ids]
+            b = ColumnBatch.from_columns(
+                self._var_ids, cols, self.store.device, self._sorted_var, pool=self.pool
+            )
+            if not self.residual_pairs:
+                return b
+            for ra, rb in self.residual_pairs:
+                pa, pb = self.perm.index(ra), self.perm.index(rb)
+                m = torch.zeros(b.capacity, dtype=torch.bool, device=b.device)
+                m[:n] = rows[pa] == rows[pb]
+                b = b.with_mask(m)
+            if b.n_active or self.offset >= len(self.range):
+                return b
+            # fully masked: read the next chunk instead of bouncing an
+            # empty batch up the pipeline
+            b.release()
+
+    def skip(self, var: int, target: int) -> None:
+        if var is None or var != self._sorted_var or self._sort_col_pos is None:
+            raise ValueError("skip on unsorted variable")
+        self.sizer.on_skip()
+        self.offset = self.store.seek(
+            self.range, self.offset, self._sort_col_pos, target
+        )
+
+    def reset(self) -> None:
+        self.offset = 0
+        self.sizer.on_reset()

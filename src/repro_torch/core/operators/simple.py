@@ -1,0 +1,298 @@
+"""Filter, Project, Extend (BIND), Slice, Union — vectorized unary/binary ops.
+
+FILTER and BIND run their compiled expression program through the
+``expr_eval`` kernel, one launch per batch; FILTER narrows the batch mask
+in place (no copy). An expression outside the compiler's surface needs the
+reference's interpreted tree walk, which this package does not carry: it
+raises instead of evaluating another way.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.algebra import Expr
+from repro_torch.core.batch import NULL_ID, BatchPool, ColumnBatch, concat_batches
+from repro_torch.core.dictionary import Dictionary
+from repro_torch.core.exprs import ExprCompileError, compile_expr
+from repro_torch.core.exprs.vm import eval_program_mask, eval_program_values
+from repro_torch.core.operators.base import BatchOperator
+
+
+def resolve_program(expr: Expr, dictionary: Optional[Dictionary], program,
+                    mode: str):
+    """The planner's compiled program, or a compile for hand-built trees.
+    ``program is False`` is the planner's mark for an uncompilable
+    expression."""
+    if program is not None and program is not False:
+        return program
+    if program is None and dictionary is not None:
+        try:
+            return compile_expr(expr, dictionary, mode)
+        except ExprCompileError as e:
+            raise NotImplementedError(
+                f"expression outside the VM's surface ({e}); the interpreted "
+                "expression walk is not ported"
+            ) from e
+    raise NotImplementedError(
+        "expression outside the VM's surface; the interpreted expression "
+        "walk is not ported"
+    )
+
+
+class FilterOp(BatchOperator):
+    """FILTER through the expression VM: one kernel launch per batch
+    narrows the mask in place."""
+
+    def __init__(
+        self,
+        child: BatchOperator,
+        expr: Expr,
+        dictionary: Optional[Dictionary],
+        program=None,
+        name: str = "Filter",  # "Having" for the post-grouping stage
+    ):
+        self.child = child
+        self.expr = expr
+        self.dictionary = dictionary
+        self.program = resolve_program(expr, dictionary, program, "mask")
+        super().__init__(name)
+
+    def var_ids(self) -> Tuple[int, ...]:
+        return self.child.var_ids()
+
+    def sorted_by(self) -> Optional[int]:
+        return self.child.sorted_by()  # filtering preserves order
+
+    def children(self) -> List[BatchOperator]:
+        return [self.child]
+
+    def next_batch(self) -> Optional[ColumnBatch]:
+        while True:
+            b = self.child.next_batch()
+            if b is None:
+                return None
+            b = b.with_mask(eval_program_mask(self.program, b, self.dictionary))
+            if b.n_active:
+                return b
+            b.release()  # all rows inactive: recycle batch, keep pulling
+
+    def skip(self, var: int, target: int) -> None:
+        self.child.skip(var, target)
+
+    def reset(self) -> None:
+        self.child.reset()
+
+
+class ProjectOp(BatchOperator):
+    def __init__(
+        self,
+        child: BatchOperator,
+        keep: Tuple[int, ...],
+        device: torch.device,
+        pool: Optional[BatchPool] = None,
+    ):
+        self.child = child
+        self.keep = tuple(keep)
+        self.device = device
+        self.pool = pool
+        super().__init__("Project")
+
+    def var_ids(self) -> Tuple[int, ...]:
+        return self.keep
+
+    def sorted_by(self) -> Optional[int]:
+        sb = self.child.sorted_by()
+        return sb if sb in self.keep else None
+
+    def children(self) -> List[BatchOperator]:
+        return [self.child]
+
+    def next_batch(self) -> Optional[ColumnBatch]:
+        b = self.child.next_batch()
+        if b is None:
+            return None
+        if self.pool is None:
+            return b.project(self.keep)
+        # pooled path: copy the kept columns into a recycled buffer and
+        # give the source buffers back
+        idx = [b.col_index(v) for v in self.keep]
+        sb = b.sorted_by if b.sorted_by in self.keep else None
+        out = ColumnBatch.alloc(self.keep, b.capacity, self.device, self.pool, sb)
+        out.columns.copy_(b.columns[idx])
+        out.mask.copy_(b.mask)
+        out.n_rows = b.n_rows
+        self.pool.bytes_copied += out.columns.numel() * 4
+        b.release()
+        return out
+
+    def skip(self, var: int, target: int) -> None:
+        self.child.skip(var, target)
+
+    def reset(self) -> None:
+        self.child.reset()
+
+
+class ExtendOp(BatchOperator):
+    """BIND (expr AS ?v): computes the value expression over the batch,
+    dictionary-encodes the distinct results, appends a column."""
+
+    def __init__(
+        self,
+        child: BatchOperator,
+        var: int,
+        expr: Expr,
+        dictionary: Dictionary,
+        device: torch.device,
+        pool: Optional[BatchPool] = None,
+        program=None,
+    ):
+        self.child = child
+        self.var = var
+        self.expr = expr
+        self.dictionary = dictionary
+        self.device = device
+        self.pool = pool
+        self.program = resolve_program(expr, dictionary, program, "value")
+        super().__init__("Bind")
+
+    def var_ids(self) -> Tuple[int, ...]:
+        return self.child.var_ids() + (self.var,)
+
+    def sorted_by(self) -> Optional[int]:
+        return self.child.sorted_by()
+
+    def children(self) -> List[BatchOperator]:
+        return [self.child]
+
+    def next_batch(self) -> Optional[ColumnBatch]:
+        b = self.child.next_batch()
+        if b is None:
+            return None
+        vals, ok = eval_program_values(self.program, b, self.dictionary)
+        n = b.n_rows
+        codes = torch.full((b.capacity,), NULL_ID, dtype=torch.int32, device=self.device)
+        okn = ok[:n]
+        # encode the few distinct computed values, map back vectorized
+        uniq, inv = torch.unique(vals[:n][okn], return_inverse=True)
+        if uniq.shape[0]:
+            ids = torch.tensor(
+                [self.dictionary.encode(float(u)) for u in uniq.tolist()],
+                dtype=torch.int32, device=self.device,
+            )
+            tmp = torch.full((n,), NULL_ID, dtype=torch.int32, device=self.device)
+            tmp[okn] = ids[inv]
+            codes[:n] = tmp
+        out = ColumnBatch.alloc(self.var_ids(), b.capacity, self.device, self.pool, b.sorted_by)
+        out.columns[:-1] = b.columns
+        out.columns[-1] = codes
+        out.mask.copy_(b.mask)
+        out.n_rows = b.n_rows
+        if self.pool is not None:
+            self.pool.bytes_copied += out.columns.numel() * 4
+        b.release()
+        return out
+
+    def reset(self) -> None:
+        self.child.reset()
+
+
+class SliceOp(BatchOperator):
+    """LIMIT/OFFSET over active rows."""
+
+    def __init__(self, child: BatchOperator, limit: Optional[int], offset: int = 0):
+        self.child = child
+        self.limit = limit
+        self.offset = offset
+        self._seen = 0
+        self._emitted = 0
+        super().__init__("Slice")
+
+    def var_ids(self) -> Tuple[int, ...]:
+        return self.child.var_ids()
+
+    def sorted_by(self) -> Optional[int]:
+        return self.child.sorted_by()
+
+    def children(self) -> List[BatchOperator]:
+        return [self.child]
+
+    def next_batch(self) -> Optional[ColumnBatch]:
+        while True:
+            if self.limit is not None and self._emitted >= self.limit:
+                return None
+            b = self.child.next_batch()
+            if b is None:
+                return None
+            sel = b.selection_vector()
+            n = int(sel.shape[0])
+            lo = max(0, self.offset - self._seen)
+            self._seen += n
+            keep = sel[lo:]
+            if self.limit is not None:
+                keep = keep[: self.limit - self._emitted]
+            if keep.shape[0] == 0:
+                b.release()
+                continue
+            m = torch.zeros(b.capacity, dtype=torch.bool, device=b.device)
+            m[keep.long()] = True
+            self._emitted += int(keep.shape[0])
+            # keep ⊆ active rows, so narrowing the mask is equivalent to
+            # replacing it (and moves pooled-buffer ownership along)
+            return b.with_mask(m)
+
+    def reset(self) -> None:
+        self.child.reset()
+        self._seen = 0
+        self._emitted = 0
+
+
+class UnionOp(BatchOperator):
+    def __init__(
+        self,
+        left: BatchOperator,
+        right: BatchOperator,
+        device: torch.device,
+        pool: Optional[BatchPool] = None,
+    ):
+        self.left = left
+        self.right = right
+        self.device = device
+        self.pool = pool
+        lv = tuple(left.var_ids())
+        self._vars = lv + tuple(v for v in right.var_ids() if v not in lv)
+        self._on_right = False
+        super().__init__("Union")
+
+    def var_ids(self) -> Tuple[int, ...]:
+        return self._vars
+
+    def children(self) -> List[BatchOperator]:
+        return [self.left, self.right]
+
+    def next_batch(self) -> Optional[ColumnBatch]:
+        while True:
+            src = self.right if self._on_right else self.left
+            b = src.next_batch()
+            if b is None:
+                if self._on_right:
+                    return None
+                self._on_right = True
+                continue
+            if set(b.var_ids) == set(self._vars):
+                # cheap path: same schema, reorder columns only
+                order = [b.col_index(v) for v in self._vars]
+                m = b.mask if b.pool is None else b.mask.clone()
+                out = ColumnBatch(self._vars, b.columns[order], m, b.n_rows, None)
+                b.release()  # the row gather copied the columns
+                return out
+            return concat_batches(
+                [b], self.device, self._vars, pool=self.pool, release_inputs=True
+            )
+
+    def reset(self) -> None:
+        self.left.reset()
+        self.right.reset()
+        self._on_right = False

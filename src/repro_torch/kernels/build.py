@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into an
+object file — one ``nvcc`` process per source, all started together — and
+the objects link into one shared library with a plain C interface, loaded
+with ``ctypes``. The library lives in ``build/repro_torch/`` under the
+repository root and is named by a hash of the sources, the flags and the
+compiler, so a changed source or toolkit rebuilds and an unchanged one
+loads at once. The build runs at the first kernel launch of a process,
+never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+]
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest(srcs: List[Path], nvcc: str) -> str:
+    """Hash of the sources, the flags and the compiler (its path and its
+    ``--version``), so a new toolkit rebuilds too."""
+    version = subprocess.run(
+        [nvcc, "--version"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, check=True,
+    ).stdout
+    h = hashlib.sha256(" ".join([nvcc, version, *NVCC_FLAGS]).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources (if this hash is not built yet); returns the
+    shared library's path."""
+    srcs = sources()
+    nvcc = _nvcc()
+    lib_path = BUILD_DIR / f"libbarq_kernels_{_digest(srcs, nvcc)}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(srcs, objs)
+        ]
+        failures = []
+        for s, p in zip(srcs, procs):
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                failures.append(f"{s.name}:\n{out}")
+        if failures:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sigs = {
+        "join_expand_launch": [P, P, P, P, P, I, L, L, P, P, P],
+        "gather_emit_launch": [P, L, P, L, I, P, P, L, P, I, P, I, P, I, P, L, P, P],
+        "expr_eval_launch": [P, P, P, L, P, P, P],
+        "expr_eval_limits": [P, P, P, P],
+        "segment_scan_launch": [P, P, P, L, I, P],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
+def check(status: int, name: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def stream_handle(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,108 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, runs on the card unless asked for the CPU, and refuses what it
+has not ported instead of evaluating it another way."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_files_are_found():
+    assert len(PORT_FILES) > 30
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "join_expand.py") in PORT_FILES
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def _cpu_store():
+    store, _ = repro_torch.generate_social_graph(scale=0.02, seed=1, device="cpu")
+    return store
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    store = _cpu_store()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.Engine(store)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.QuadStore()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("engine", "legacy"),
+    ("engine", "mixed"),
+    ("join_strategy", "hash"),
+    ("join_strategy", None),
+    ("sip", "on"),
+    ("memory_budget", 1 << 20),
+    ("adaptive_join", "on"),
+    ("cardinality_feedback", "observe"),
+])
+def test_config_outside_the_slice_raises(field, value):
+    cfg = repro_torch.EngineConfig(**{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        repro_torch.Engine(_cpu_store(), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("text", [
+    "SELECT ?a ?b { ?a :knows+ ?b }",
+    "SELECT (COUNT(DISTINCT ?t) AS ?n) { ?p :hasInterest ?t }",
+])
+def test_plan_outside_the_slice_raises(text):
+    engine = repro_torch.Engine(_cpu_store(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        engine.execute(text)
+
+
+def test_kernels_take_no_other_device():
+    """Only CPU tensors reach the plain versions; anything else launches
+    the CUDA kernel or raises."""
+    from repro_torch.kernels import join_expand as JE
+    from repro_torch.kernels import segment_scan as SS
+
+    meta = [torch.zeros(3, dtype=torch.int32, device="meta") for _ in range(4)]
+    cum = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        JE.join_expand(*meta, cum, 0, 2)
+    with pytest.raises(ValueError, match="device"):
+        SS.segment_scan(meta[0], torch.zeros(3, device="meta"), "sum")
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, where):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,434 @@
+"""The PyTorch port's kernels (``repro_torch.kernels``) against the JAX
+package's kernel dispatch (``repro.kernels.ops``).
+
+On the CPU each wrapper runs its kernel's plain PyTorch version, so these
+tests pin what the CUDA kernels must compute: the same numpy inputs, made
+from a seed, go through the reference's numpy backend (the oracle) and its
+Pallas backend (interpret mode), and through the port.
+
+Tolerances: integer outputs and code-domain / integer-valued float32
+results are exact; float sums get ``rtol=1e-5`` (another summation order
+than the Pallas doubling scan); against the float64 numpy oracle the
+expression masks are equal and values agree to ``rtol=1e-6``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import algebra as RA  # noqa: E402
+from repro.core import vecops as RV  # noqa: E402
+from repro.core.batch import ColumnBatch as RBatch  # noqa: E402
+from repro.core.dictionary import Dictionary as RDict  # noqa: E402
+from repro.core.exprs import compile_expr as r_compile  # noqa: E402
+from repro.core.exprs import disassemble as r_disassemble  # noqa: E402
+from repro.core.exprs.vm import prepare_inputs as r_prepare  # noqa: E402
+from repro.kernels import ops  # noqa: E402
+from repro.kernels.segment_reduce import segment_scan_pallas  # noqa: E402
+
+from repro_torch.core import algebra as TA  # noqa: E402
+from repro_torch.core import vecops as TV  # noqa: E402
+from repro_torch.core.batch import ColumnBatch as TBatch  # noqa: E402
+from repro_torch.core.dictionary import Dictionary as TDict  # noqa: E402
+from repro_torch.core.exprs import bytecode as TB  # noqa: E402
+from repro_torch.core.exprs import compile_expr as t_compile  # noqa: E402
+from repro_torch.core.exprs import disassemble as t_disassemble  # noqa: E402
+from repro_torch.core.exprs.vm import prepare_inputs as t_prepare  # noqa: E402
+from repro_torch.kernels import expr_eval as EE  # noqa: E402
+from repro_torch.kernels import gather_emit as GE  # noqa: E402
+from repro_torch.kernels import join_expand as JE  # noqa: E402
+from repro_torch.kernels import segment_scan as SS  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+def T(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# ---------------------------------------------------------------------------
+# join_expand
+# ---------------------------------------------------------------------------
+
+
+def _groups(rng, g, max_l, max_r, unit_left=False, unit_right=False):
+    llens = np.ones(g, np.int32) if unit_left else rng.randint(1, max_l + 1, g).astype(np.int32)
+    rlens = np.ones(g, np.int32) if unit_right else rng.randint(1, max_r + 1, g).astype(np.int32)
+    lstarts = np.cumsum(np.concatenate([[0], llens[:-1]])).astype(np.int32)
+    rstarts = np.cumsum(np.concatenate([[0], rlens[:-1]])).astype(np.int32)
+    return lstarts, llens, rstarts, rlens, RV.group_output_offsets(llens, rlens)
+
+
+JOIN_EXPAND_CASES = {
+    # name: (groups, max left run, max right run, unit left, unit right, base, count)
+    "groups beyond G_MAX": (2100, 2, 3, False, False, 5, 3000),
+    "unit left runs": (300, 1, 30, True, False, 0, None),
+    "unit right runs": (300, 30, 1, False, True, 7, None),
+    "count beyond 4096": (90, 9, 9, False, False, 0, 5000),
+    "tail past the total": (40, 3, 3, False, False, 10, 200),
+}
+
+
+@pytest.mark.parametrize("backend", ["numpy", "pallas"])
+@pytest.mark.parametrize("case", sorted(JOIN_EXPAND_CASES))
+def test_join_expand_matches_reference(backend, case):
+    g, ml, mr, ul, ur, base, count = JOIN_EXPAND_CASES[case]
+    rng = np.random.RandomState(g + ml * 7 + mr)
+    ls, ll, rs, rl, cum = _groups(rng, g, ml, mr, ul, ur)
+    total = int(cum[-1])
+    if count is None:
+        count = total - base
+    got_l, got_r = JE.join_expand(T(ls), T(ll), T(rs), T(rl), T(cum), base, count)
+    assert got_l.dtype == torch.int32 and got_r.dtype == torch.int32
+    n_valid = max(0, min(count, total - base))
+    want_l, want_r = ops.join_expand(ls, ll, rs, rl, cum, base, n_valid, backend=backend)
+    np.testing.assert_array_equal(got_l.numpy()[:n_valid], want_l)
+    np.testing.assert_array_equal(got_r.numpy()[:n_valid], want_r)
+    # slots past the grand total are invalid in both outputs
+    assert (got_l.numpy()[n_valid:] == -1).all() and (got_r.numpy()[n_valid:] == -1).all()
+
+
+@pytest.mark.parametrize("where", ["head", "tail"])
+def test_join_expand_totals_beyond_int32(where):
+    """A cum total beyond 2^31: int64 offsets as in the numpy path (the
+    Pallas path narrows cum to int32, so it is not asked)."""
+    rng = np.random.RandomState(5)
+    ls, ll, rs, rl, cum = _groups(rng, 20000, 1000, 1000)
+    total = int(cum[-1])
+    assert total > 2 ** 31
+    base = 3 if where == "head" else total - 4096 - 17
+    want = RV.expand_cross(ls, ll, rs, rl, cum, base, 4096)
+    got = JE.join_expand(T(ls), T(ll), T(rs), T(rl), T(cum), base, 4096)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
+def test_join_expand_checks_its_inputs():
+    rng = np.random.RandomState(1)
+    ls, ll, rs, rl, cum = _groups(rng, 5, 2, 2)
+    with pytest.raises(ValueError, match="cum"):
+        JE.join_expand(T(ls), T(ll), T(rs), T(rl), T(cum.astype(np.int32)), 0, 4)
+    with pytest.raises(ValueError, match="lstarts"):
+        JE.join_expand(T(ls.astype(np.int64)), T(ll), T(rs), T(rl), T(cum), 0, 4)
+    empty = torch.zeros(0, dtype=torch.int32)
+    li, ri = JE.join_expand(empty, empty, empty, empty, torch.zeros(1, dtype=torch.int64), 0, 3)
+    assert li.tolist() == [-1, -1, -1] and ri.tolist() == [-1, -1, -1]
+
+
+# ---------------------------------------------------------------------------
+# gather_emit
+# ---------------------------------------------------------------------------
+
+
+def _ge_case(rng, kl, kr, nl, nr, c, virtual_frac):
+    lcols = rng.randint(0, 6, (kl, nl)).astype(np.int32)
+    rcols = rng.randint(0, 6, (kr, nr)).astype(np.int32)
+    li = rng.randint(0, nl, c).astype(np.int32)
+    if nr == 0:
+        ri = np.full(c, -1, np.int32)
+    else:
+        ri = rng.randint(0, nr, c).astype(np.int32)
+        ri[rng.rand(c) < virtual_frac] = -1
+    return lcols, rcols, li, ri
+
+
+GATHER_CASES = {
+    # name: (kl, kr, nl, nr, c, virtual fraction, lsel, rsel, pairs)
+    "plain emit": (2, 2, 50, 40, 100, 0.0, (0, 1), (1,), ()),
+    "virtual rows, one pair": (3, 3, 700, 300, 1000, 0.25, (0, 1, 2), (2,), ((0, 0),)),
+    "-1 emit rows, two pairs": (3, 3, 80, 60, 200, 0.2, (0, -1, 2), (-1, 1), ((0, 0), (2, 1))),
+    "mask only": (3, 3, 80, 60, 200, 0.2, (), (), ((1, 2),)),
+    "empty right side": (2, 3, 90, 0, 150, 0.0, (0, 1), (0, 2), ((0, 1),)),
+    "long output": (4, 1, 64, 64, 5000, 0.0, (0, 1, 2, 3), (0,), ((3, 0),)),
+}
+
+
+def _port_gather(lcols, rcols, li, ri, lsel, rsel, pairs, **kw):
+    return GE.gather_emit(
+        T(lcols), None if rcols is None else T(rcols), T(li), None if ri is None else T(ri),
+        GE.index_tensor(lsel, CPU), GE.index_tensor(rsel, CPU), GE.pairs_tensor(pairs, CPU), **kw,
+    )
+
+
+@pytest.mark.parametrize("backend", ["numpy", "pallas"])
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_gather_emit_matches_reference(backend, case):
+    kl, kr, nl, nr, c, vf, lsel, rsel, pairs = GATHER_CASES[case]
+    rng = np.random.RandomState(kl * 31 + nl + c)
+    lcols, rcols, li, ri = _ge_case(rng, kl, kr, nl, nr, c, vf)
+    want_b, want_m = ops.gather_emit(lcols, rcols, li, ri, lsel, rsel, pairs, backend=backend)
+    got_b, got_m = _port_gather(lcols, rcols, li, ri, lsel, rsel, pairs)
+    assert got_b.shape == (len(lsel) + len(rsel), c) and got_m.dtype == torch.bool
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b).reshape(got_b.shape))
+    np.testing.assert_array_equal(got_m.numpy(), want_m)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "pallas"])
+def test_gather_emit_without_right_side(backend):
+    """The concat path: no right source, -1 emit rows NULL-fill."""
+    rng = np.random.RandomState(7)
+    lcols, _, li, _ = _ge_case(rng, 3, 1, 80, 1, 200, 0.0)
+    want_b, _ = ops.gather_emit(lcols, None, li, None, (0, -1, 2), (), (), backend=backend)
+    got_b, got_m = _port_gather(lcols, None, li, None, (0, -1, 2), (), ())
+    assert (got_b.numpy()[1] == -1).all() and bool(got_m.all())
+    np.testing.assert_array_equal(got_b.numpy(), want_b)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "pallas"])
+def test_gather_emit_out_offset(backend):
+    """The pooled zero-copy path writes into the destination at an offset
+    and leaves the rest of it alone."""
+    rng = np.random.RandomState(3)
+    lcols, rcols, li, ri = _ge_case(rng, 2, 2, 50, 50, 64, 0.1)
+    want_out = np.full((4, 300), 99, np.int32)
+    ops.gather_emit(lcols, rcols, li, ri, (0, 1), (0,), ((1, 1),), backend=backend,
+                    out=want_out, out_offset=100)
+    out = torch.full((4, 300), 99, dtype=torch.int32)
+    view, _ = _port_gather(lcols, rcols, li, ri, (0, 1), (0,), ((1, 1),),
+                           out=out, out_offset=100)
+    np.testing.assert_array_equal(out.numpy(), want_out)
+    assert view.data_ptr() == out[:, 100:].data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# expr_eval (through both compilers)
+# ---------------------------------------------------------------------------
+
+NUM_RANGE = 21
+TERMS = [int(v) for v in range(NUM_RANGE)] + [
+    '"apple"', '"applesauce"', '"banana"', '""', ":iri1", ":iri2", 2.5,
+]
+
+
+def _expr(A, name):
+    """Expression ``name`` built from the algebra module ``A`` (the
+    reference's or the port's: the same tree in both packages)."""
+    V, L = A.VarRef, A.Lit
+    if name == "code domain":
+        return A.And((A.Or((A.Cmp("=", V(0), V(1)), A.Cmp("!=", V(0), V(3)))),
+                      A.Or((A.Cmp("=", V(0), L(3)), A.Not(A.Cmp("!=", V(1), L(5))))),
+                      A.Or((A.Bound(1), A.Func("strstarts", (V(3), L('"app"')))))))
+    if name == "arithmetic":
+        return A.Or((A.Cmp("<", A.Arith("+", V(0), V(1)), L(12)),
+                     A.Cmp(">=", A.Arith("-", V(0), V(1)), L(4)),
+                     A.Cmp("<=", A.Arith("*", V(0), V(2)), L(9)),
+                     A.Cmp(">", A.Arith("/", V(1), V(2)), L(3))))
+    if name == "division by zero":
+        return A.Cmp("!=", A.Arith("/", V(0), V(2)), L(2))
+    if name == "if / coalesce":
+        return A.Func("if", (A.Cmp("=", A.Arith("*", V(0), V(1)), L(12)),
+                             A.Func("coalesce", (A.Cmp(">", A.Arith("/", V(0), V(2)), L(1)),
+                                                 A.Cmp("!=", V(1), L(4)))),
+                             A.Cmp("<", V(1), V(0))))
+    if name == "numeric tests":
+        return A.And((A.Func("isnumeric", (V(3),)), A.Cmp(">", V(3), L(2))))
+    if name == "all opcodes":
+        return A.And((
+            _expr(A, "code domain"),
+            A.Func("if", (A.Cmp("<", V(0), L(10)),
+                          A.Cmp("<=", A.Arith("+", V(0), V(1)), L(30)),
+                          A.Cmp(">", A.Arith("-", V(0), V(1)), L(-2)))),
+            A.Func("coalesce", (A.Cmp(">=", A.Arith("/", V(0), V(2)), L(1)),
+                                A.Cmp("=", A.Arith("*", V(0), V(1)), L(12)))),
+            A.Cmp("!=", A.Arith("*", V(1), V(2)), L(4)),
+        ))
+    raise KeyError(name)
+
+
+EXPRS = ("code domain", "arithmetic", "division by zero", "if / coalesce",
+         "numeric tests", "all opcodes")
+
+
+def _inputs(name, n=300, seed=0):
+    """The same program and input block in both packages."""
+    rd, td = RDict(), TDict()
+    for t in TERMS:
+        assert rd.encode(t) == td.encode(t)
+    rprog = r_compile(_expr(RA, name), rd, "mask")
+    tprog = t_compile(_expr(TA, name), td, "mask")
+    rng = np.random.RandomState(seed)
+    cols = [rng.randint(0, NUM_RANGE, n), rng.randint(0, NUM_RANGE, n),
+            rng.choice([0, 1, 2, 4], n), rng.randint(0, len(TERMS), n)]
+    for c in (cols[0], cols[1], cols[3]):
+        c[rng.rand(n) < 0.15] = -1  # NULL codes
+    cols = [c.astype(np.int32) for c in cols]
+    rbatch = RBatch.from_columns((0, 1, 2, 3), cols, capacity=n)
+    tbatch = TBatch.from_columns((0, 1, 2, 3), [T(c) for c in cols], CPU, capacity=n)
+    return rprog, tprog, rd, td, rbatch, tbatch
+
+
+@pytest.mark.parametrize("name", EXPRS)
+def test_expr_programs_compile_identically(name):
+    rprog, tprog, *_ = _inputs(name)
+    assert t_disassemble(tprog) == r_disassemble(rprog)
+    assert tprog.instrs == rprog.instrs and tprog.consts == rprog.consts
+
+
+def test_expr_programs_reach_every_opcode():
+    seen = set()
+    for name in EXPRS:
+        seen |= {i[0] for i in _inputs(name)[1].instrs}
+    assert seen == set(range(23))
+    assert {i[0] for i in _inputs("all opcodes")[1].instrs} == set(range(23))
+
+
+@pytest.mark.parametrize("name", EXPRS)
+def test_expr_prepare_inputs_matches_reference(name):
+    """Code columns, predicate tables and numeric decodes (NaN for NULL
+    and non-numeric terms) as the reference builds them, in float32."""
+    rprog, tprog, rd, td, rbatch, tbatch = _inputs(name)
+    ri, rf = r_prepare(rprog, rbatch, rd)
+    ti, tf = t_prepare(tprog, tbatch, td)
+    np.testing.assert_array_equal(ti.numpy(), ri)
+    assert tf.dtype == torch.float32
+    np.testing.assert_array_equal(tf.numpy(), rf.astype(np.float32))
+
+
+@pytest.mark.parametrize("name", EXPRS)
+def test_expr_eval_matches_pallas_exactly(name):
+    rprog, tprog, rd, td, rbatch, tbatch = _inputs(name)
+    icols, fcols = r_prepare(rprog, rbatch, rd)
+    want_v, want_e = ops.expr_eval(rprog, icols, fcols, backend="pallas")
+    got_v, got_e = EE.expr_eval(tprog, T(icols), T(fcols.astype(np.float32)))
+    assert got_v.dtype == torch.float32 and got_e.dtype == torch.bool
+    np.testing.assert_array_equal(got_e.numpy(), want_e)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+
+
+@pytest.mark.parametrize("name", EXPRS)
+def test_expr_eval_matches_numpy_oracle(name):
+    rprog, tprog, rd, td, rbatch, tbatch = _inputs(name, seed=1)
+    icols, fcols = r_prepare(rprog, rbatch, rd)
+    want_v, want_e = ops.expr_eval(rprog, icols, fcols, backend="numpy")
+    got_v, got_e = EE.expr_eval(tprog, T(icols), T(fcols.astype(np.float32)))
+    got_v, got_e = got_v.numpy(), got_e.numpy()
+    np.testing.assert_array_equal((got_v != 0) & ~got_e, (want_v != 0) & ~want_e)
+    ok = ~want_e
+    np.testing.assert_array_equal(got_e, want_e)
+    np.testing.assert_allclose(got_v[ok], want_v[ok], rtol=1e-6)
+
+
+def test_expr_eval_special_rows():
+    """NULL codes, NaN numerics and 1/0 on hand-picked rows."""
+    rd, td = RDict(), TDict()
+    for t in TERMS:
+        rd.encode(t), td.encode(t)
+    e = lambda A: A.Or((A.Cmp(">", A.Arith("/", A.VarRef(0), A.VarRef(1)), A.Lit(1)),  # noqa: E731
+                        A.Cmp("=", A.VarRef(0), A.Lit(3))))
+    rprog, tprog = r_compile(e(RA), rd, "mask"), t_compile(e(TA), td, "mask")
+    a = np.array([3, 3, -1, 4, rd.lookup('"apple"'), 6], np.int32)
+    b = np.array([0, 1, 2, 0, 2, rd.lookup('"banana"')], np.int32)
+    rbatch = RBatch.from_columns((0, 1), [a, b], capacity=len(a))
+    icols, fcols = r_prepare(rprog, rbatch, rd)
+    want = ops.expr_eval(rprog, icols, fcols, backend="numpy")
+    got = EE.expr_eval(tprog, T(icols), T(fcols.astype(np.float32)))
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    np.testing.assert_array_equal(got[0].numpy() != 0, want[0] != 0)
+    # 3/0 errs but 3 = 3 is true; NULL and 4/0 and "apple"/2 and 6/"banana" err
+    assert ((got[0].numpy() != 0) & ~got[1].numpy()).tolist() == [
+        True, True, False, False, False, False]
+
+
+def test_expr_eval_refuses_programs_beyond_its_caps():
+    prog = TB.ExprProgram(
+        instrs=((TB.LOAD_CONST, 0, 0, 0, 0),) * (EE.MAX_INSTR + 1), n_regs=1, out_reg=0,
+        consts=(1.0,), code_vars=(), num_vars=(), tables=(), source_ops=1)
+    with pytest.raises(ValueError, match="instructions"):
+        EE.check_program(prog)
+    wide = TB.ExprProgram(instrs=((TB.LOAD_CONST, 0, 0, 0, 0),), n_regs=EE.MAX_REGS + 1,
+                          out_reg=0, consts=(1.0,), code_vars=(), num_vars=(), tables=(),
+                          source_ops=1)
+    with pytest.raises(ValueError, match="registers"):
+        EE.check_program(wide)
+
+
+# ---------------------------------------------------------------------------
+# segment_scan and the segmented reduction around it
+# ---------------------------------------------------------------------------
+
+
+def _keys(rng, kind, n=3000):
+    if kind == "runs across 1024":
+        return np.sort(rng.randint(0, 4, n)).astype(np.int32)
+    if kind == "one run":
+        return np.full(n, 7, np.int32)
+    if kind == "all distinct":
+        return np.arange(n, dtype=np.int32) * 3
+    return np.sort(rng.randint(0, n // 10, n)).astype(np.int32)
+
+
+KEY_KINDS = ("runs across 1024", "one run", "all distinct", "short runs")
+
+
+@pytest.mark.parametrize("backend", ["numpy", "pallas"])
+@pytest.mark.parametrize("func", ["sum", "count", "min", "max"])
+@pytest.mark.parametrize("kind", KEY_KINDS)
+def test_segment_reduce_matches_reference(backend, func, kind):
+    rng = np.random.RandomState(len(kind) * 13 + len(func))
+    keys = _keys(rng, kind)
+    vals = rng.randn(len(keys)).astype(np.float32).astype(np.float64)
+    want_k, want_v = ops.segment_reduce(keys, vals, func, backend=backend)
+    got_k, got_v = TV.segment_reduce(T(keys), T(vals), func)
+    np.testing.assert_array_equal(got_k.numpy(), want_k)
+    if func == "sum":
+        np.testing.assert_allclose(got_v.numpy(), want_v, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got_v.numpy(), want_v)
+
+
+@pytest.mark.parametrize("op", ["sum", "count", "min", "max"])
+@pytest.mark.parametrize("kind", KEY_KINDS)
+def test_segment_scan_matches_pallas_scan(op, kind):
+    """The whole inclusive scan, not only the run ends, against the Pallas
+    kernel; integer-valued sums are exact."""
+    rng = np.random.RandomState(len(kind) + len(op))
+    keys = _keys(rng, kind)
+    vals = (np.ones(len(keys)) if op == "count" else rng.randint(-40, 40, len(keys)))
+    vals = vals.astype(np.float32)
+    want = np.asarray(segment_scan_pallas(keys, vals, "sum" if op == "count" else op))
+    got = SS.segment_scan(T(keys), T(vals), op)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_segment_scan_checks_its_inputs():
+    keys = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="values"):
+        SS.segment_scan(keys, torch.zeros(4, dtype=torch.float64), "sum")
+    with pytest.raises(ValueError, match="op"):
+        SS.segment_scan(keys, torch.zeros(4), "avg")
+    assert SS.segment_scan(keys[:0], torch.zeros(0), "max").shape == (0,)
+
+
+# ---------------------------------------------------------------------------
+# the plain torch helpers around the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k", [(0, 1), (1, 1), (500, 7), (2000, 900)])
+def test_run_boundaries_and_probe_groups(n, k):
+    rng = np.random.RandomState(n + k)
+    lk = np.sort(rng.randint(0, k, n)).astype(np.int32)
+    rk = np.sort(rng.randint(0, k, n // 2 + 1)).astype(np.int32)
+    for want, got in zip(RV.run_boundaries(lk), TV.run_boundaries(T(lk))):
+        np.testing.assert_array_equal(got.numpy(), want)
+    lv, rv = RV.run_boundaries(lk)[0], RV.run_boundaries(rk)[0]
+    for want, got in zip(RV.probe_groups(lv, rv), TV.probe_groups(T(lv), T(rv))):
+        np.testing.assert_array_equal(got.numpy(), want)
+    ll, rl = rng.randint(0, 5, 40).astype(np.int32), rng.randint(0, 5, 40).astype(np.int32)
+    got = TV.group_output_offsets(T(ll), T(rl))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), RV.group_output_offsets(ll, rl))
+
+
+@pytest.mark.parametrize("k,span", [(1, 50), (3, 50), (2, 2 ** 31 - 2)])
+def test_pack_group_keys_orders_like_reference(k, span):
+    """Packed keys (or the dense-rank fallback) give the same order and
+    the same groups as the reference's."""
+    rng = np.random.RandomState(k)
+    cols = rng.randint(-1, span, (k, 400)).astype(np.int32)
+    want = RV.pack_group_keys(cols)
+    got = TV.pack_group_keys(T(cols)).numpy()
+    np.testing.assert_array_equal(np.argsort(got, kind="stable"), np.argsort(want, kind="stable"))
+    np.testing.assert_array_equal(np.unique(got, return_inverse=True)[1],
+                                  np.unique(want, return_inverse=True)[1])
