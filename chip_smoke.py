@@ -9,17 +9,29 @@ script exits non-zero:
   build     compile ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
   kernels   each CUDA kernel against its plain PyTorch version on the card,
             at the engine's shapes; the kernel's own device time per launch
-            and the plain version's device time per call from
+            and the plain version's (and, where one PyTorch call computes
+            the same function, that call's) device time per call from
             torch.profiler, and each one's time per call with CUDA events;
   full      the LSQB social graph at the paper's SF 0.3 size (scale 160,
-            about 7.3M triples) on the card; q1, q2, q6 and q7 through
-            ``Engine.execute``, each count held against a closed form computed
-            with numpy from the generated quads; every kernel's launch
-            counter must rise; a second run of each counts its host syncs,
-            and a third of q1 under torch.profiler gives the device's
-            busy time and the top device and host ops;
-  breadth   all nine LSQB queries at scale 1 on the card and on the CPU (the
-            kernels' plain versions), with equal counts required.
+            about 7.3M triples) on the card, through ``Engine.execute``,
+            each count held against a closed form computed with numpy from
+            the generated quads. Two paths, each with the launch counters
+            set to 0 just before it and read just after: the merge path
+            (``join_strategy="merge"``, ``sip="off"``; q1, q2, q6, q7),
+            which must launch the four merge-path kernels, and the
+            reference's default configuration (cost-based joins, cost-gated
+            SIP; q1, q2, q4, q5, q6, q7), which must launch the hash join's
+            kernels on every query and the bloom filter's on q4, q5 and q6.
+            Then a second run of each default-path query (and of the merge
+            path's q1) counts its host syncs, and a third of q6 under
+            torch.profiler gives the device's busy time and the top device
+            and host ops;
+  breadth   all nine LSQB queries at scale 1 on the card and on the CPU
+            (the kernels' plain versions) under the default configuration,
+            ``("hash", "off")``, ``("merge", "on")`` and ``("merge",
+            "off")``, with equal counts required. The CPU side runs in a
+            child process (``--cpu-breadth``), started after the full
+            phase's timed runs and joined at the end.
 
 Each phase header carries the seconds since the start. The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -32,6 +44,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -47,21 +60,41 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
+# kernel -> (CUDA source, the TPU kernel it replaces, the path whose run
+# counts its launches)
 KERNEL_INFO = {
     "join_expand": ("src/repro_torch/csrc/join_expand.cu",
-                    "src/repro/kernels/join_expand.py:64"),
+                    "src/repro/kernels/join_expand.py:64", "merge"),
     "gather_emit": ("src/repro_torch/csrc/gather_emit.cu",
-                    "src/repro/kernels/gather_emit.py:88"),
+                    "src/repro/kernels/gather_emit.py:88", "merge"),
     "expr_eval": ("src/repro_torch/csrc/expr_eval.cu",
-                  "src/repro/kernels/expr_eval.py:43"),
+                  "src/repro/kernels/expr_eval.py:43", "merge"),
     "segment_scan": ("src/repro_torch/csrc/segment_scan.cu",
-                     "src/repro/kernels/segment_reduce.py:63"),
+                     "src/repro/kernels/segment_reduce.py:63", "merge"),
+    "radix_partition": ("src/repro_torch/csrc/radix_partition.cu",
+                        "src/repro/kernels/radix_partition.py:46", "default"),
+    "hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
+                   "src/repro/kernels/hash_join.py:70", "default"),
+    "bloom_build": ("src/repro_torch/csrc/bloom_filter.cu",
+                    "src/repro/kernels/bloom_filter.py:83", "default"),
+    "bloom_probe": ("src/repro_torch/csrc/bloom_filter.cu",
+                    "src/repro/kernels/bloom_filter.py:131", "default"),
 }
 SEED = 42
 FULL_SCALE = 160.0  # the LSQB generator's size of the paper's SF 0.3: ~7.3M triples
 BREADTH_SCALE = 1.0
-FULL_QUERIES = ("q1", "q2", "q6", "q7")
-PROFILED_QUERY = "q1"  # the profiled run costs ~10x the query; q1 is the shortest
+# full-size paths: (join_strategy, sip) and their queries
+PATHS = {
+    "merge": (("merge", "off"), ("q1", "q2", "q6", "q7")),
+    "default": ((None, None), ("q1", "q2", "q4", "q5", "q6", "q7")),
+}
+MERGE_SYNC_QUERIES = ("q1",)  # the merge path's sync-counting reruns
+SIP_QUERIES = ("q4", "q5", "q6")  # default-path queries that must run SIP
+PROFILED_QUERY = "q6"  # the profiled run of the default path
+BREADTH_CONFIGS = {
+    "default": (None, None), "hash-off": ("hash", "off"),
+    "merge-on": ("merge", "on"), "merge-off": ("merge", "off"),
+}
 
 
 T_START = time.perf_counter()
@@ -123,14 +156,20 @@ def device_ms(fn, iters: int, kernel=None):
     return sum(e.self_device_time_total for e in evs) / n / 1e3
 
 
-def timings(name, kernel_fn, plain_fn, plain_iters: int) -> dict:
-    """The kernel's and its plain version's device and per-call times. Where
-    the profiler records no device time, the per-call time stands in and
-    the log says so."""
+def timings(name, kernel_fn, plain_fn, plain_iters: int, library_fn=None) -> dict:
+    """The kernel's, its plain version's and (where there is one) the
+    library call's device and per-call times. Where the profiler records no
+    device time, the per-call time stands in and the log says so."""
     t = {"call_ms": call_ms(kernel_fn, 200), "plain_call_ms": call_ms(plain_fn, plain_iters)}
     t["ms"] = device_ms(kernel_fn, 200, kernel=name)
     t["plain_ms"] = device_ms(plain_fn, plain_iters)
-    for key, fallback in (("ms", "call_ms"), ("plain_ms", "plain_call_ms")):
+    keys = [("ms", "call_ms"), ("plain_ms", "plain_call_ms")]
+    t["library_ms"] = t["library_call_ms"] = None
+    if library_fn is not None:
+        t["library_call_ms"] = call_ms(library_fn, 200)
+        t["library_ms"] = device_ms(library_fn, 200)
+        keys.append(("library_ms", "library_call_ms"))
+    for key, fallback in keys:
         if t[key] is None:
             log(f"  {name}: the profiler recorded no device time; {key} is {fallback}")
             t[key] = t[fallback]
@@ -357,23 +396,190 @@ def check_segment_scan(rng, dev):
     return err, t, bound(12 * n, 2 * n)
 
 
+def check_radix_partition(rng, dev):
+    from repro_torch.kernels import radix_partition as RP
+
+    n = 3_891_273  # the full-size q1 build: the :knows scan's subject column
+    keys = torch.from_numpy(rng.randint(0, 2_000_000, n).astype(np.int32)).to(dev)
+    cases = [
+        ("n=3,891,273 P=1024", keys, 1024),
+        ("P=1", keys, 1),
+        ("all -1 keys", torch.full((n,), -1, dtype=torch.int32, device=dev), 1024),
+        ("n=1", keys[:1].clone(), 1024),
+        ("n=0", keys[:0].clone(), 1024),
+    ]
+    for label, k, p in cases:
+        pid, hist = RP.radix_partition(k, p)
+        ppid, phist = RP.radix_partition_plain(k, p)
+        require(torch.equal(pid, ppid) and torch.equal(hist, phist),
+                f"radix_partition disagrees with its plain version ({label})")
+        require(int(hist.sum()) == k.shape[0], f"radix_partition: histogram total ({label})")
+        log(f"  radix_partition {label}: ok")
+    t = timings("radix_partition", lambda: RP.radix_partition(keys, 1024),
+                lambda: RP.radix_partition_plain(keys, 1024), 10)
+    # keys read, pids written, the histogram written; ~6 integer ops a key
+    return 0, t, bound(8 * n + 4 * 1024, 6 * n)
+
+
+def _layout(hi, lo, n_parts):
+    from repro_torch.kernels import hash_join as HJ
+
+    order, starts = HJ.hash_build(hi, lo, n_parts)
+    idx = order.long()
+    return starts, (None if hi is None else hi[idx].contiguous()), lo[idx].contiguous()
+
+
+def _probe_bytes(starts_np, qpid, lo_np, c, key_bytes):
+    """Bytes a probe of ``c`` keys needs: its keys read and (lo, hi) written,
+    one 32-byte sector for its two part_starts entries, and one sector per
+    binary-search step, counted from this data's partition slices."""
+    seg_lo, seg_hi = starts_np[qpid], starts_np[qpid + 1]
+    # a binary search over m rows takes at most bit_length(m) steps
+    steps = np.ceil(np.log2(seg_hi - seg_lo + 1.0)) + np.ceil(np.log2(seg_hi - lo_np + 1.0))
+    return c * (key_bytes + 8 + 32) + 32 * int(steps.sum())
+
+
+def check_hash_probe(rng, dev):
+    from repro_torch.core import vecops as TV
+    from repro_torch.kernels import hash_join as HJ
+
+    n, c, p = 3_891_273, 4096, 1024
+    dom = 500_000
+    # leave partitions 0-7 empty, so some probes find no slice at all
+    cand = rng.randint(0, dom, 2 * n).astype(np.int32)
+    cand_pid = TV.hash_partition(torch.from_numpy(cand), p).numpy()
+    keys_np = cand[cand_pid >= 8][:n]
+    starts, _, skl = _layout(None, torch.from_numpy(keys_np).to(dev), p)
+    in_empty = cand[cand_pid < 8][:64]
+    q_np = np.concatenate([
+        keys_np[rng.randint(0, n, c // 2)],  # present
+        rng.randint(dom, 2 * dom, c // 2 - 128).astype(np.int32),  # absent
+        np.full(64, -1, np.int32), in_empty,  # NULL keys, empty partitions
+    ]).astype(np.int32)
+    q = torch.from_numpy(q_np).to(dev)
+
+    # pair keys: two columns packed with fixed spans; oversized: hi past 2^21
+    def pair_case(m, lo_dom, hi_dom):
+        cols = torch.from_numpy(np.stack([rng.randint(0, hi_dom, m), rng.randint(0, lo_dom, m)])
+                                .astype(np.int32)).to(dev)
+        spans = [int(x) + 3 for x in cols.amax(dim=1).tolist()]
+        packed = TV.pack_group_keys(cols, spans=spans)
+        qcols = torch.cat([cols[:, torch.randint(0, m, (c // 2,), device=dev)],
+                           cols[:, :c // 2] + 1], dim=1)
+        qpacked = TV.pack_group_keys(qcols, spans=spans)
+        split = lambda x: ((x >> 31).to(torch.int32), (x & 0x7FFFFFFF).to(torch.int32))  # noqa: E731
+        return split(packed), split(qpacked)
+
+    (bh, bl), (qh, ql) = pair_case(1_000_000, 3000, 3_000_000)
+    ohi = torch.from_numpy(rng.randint(1 << 21, 1 << 22, 200_000).astype(np.int32)).to(dev)
+    olo = torch.from_numpy(rng.randint(0, 2 ** 31 - 1, 200_000).astype(np.int32)).to(dev)
+    opick = torch.randint(0, 200_000, (c,), device=dev)
+    cases = [
+        ("single keys, 3,891,273 rows, P=1024", (starts, None, skl, None, q)),
+        ("pair keys, 1,000,000 rows", (*_layout(bh, bl, 256), qh, ql)),
+        ("oversized pair keys", (*_layout(ohi, olo, 1024), ohi[opick],
+                                 olo[opick] ^ (opick % 2).to(torch.int32))),
+        ("empty build", (torch.zeros(p + 1, dtype=torch.int32, device=dev), None,
+                         skl[:0], None, q)),
+    ]
+    for label, args in cases:
+        lo, hi = HJ.hash_probe(*args)
+        plo, phi = HJ.hash_probe_plain(*args)
+        require(torch.equal(lo, plo) and torch.equal(hi, phi),
+                f"hash_probe disagrees with its plain version ({label})")
+        log(f"  hash_probe {label}: {int((hi > lo).sum())} of {q.shape[0]} matched, ok")
+    lo, hi = HJ.hash_probe(starts, None, skl, None, q)
+    matched = (hi > lo).cpu().numpy()
+    require(matched[: c // 2].all() and not matched[c // 2:].any(),
+            "hash_probe: present keys must match and absent ones must not")
+    # the library yardstick: two searchsorted calls on the (pid, key) composite
+    shift = TV._pid_shift(p)
+    spid = torch.repeat_interleave(torch.arange(p, device=dev), (starts[1:] - starts[:-1]).long(),
+                                   output_size=n)
+    comp_b = (spid << shift) | TV._pair_comp(None, skl)
+    qpid = TV.hash_partition(q, p)
+    comp_q = (qpid.long() << shift) | TV._pair_comp(None, q)
+    lib = (torch.searchsorted(comp_b, comp_q).to(torch.int32),
+           torch.searchsorted(comp_b, comp_q, right=True).to(torch.int32))
+    require(torch.equal(lib[0], lo) and torch.equal(lib[1], hi),
+            "hash_probe: the library searchsorted yardstick disagrees")
+    t = timings("hash_probe", lambda: HJ.hash_probe(starts, None, skl, None, q),
+                lambda: HJ.hash_probe_plain(starts, None, skl, None, q), 5,
+                library_fn=lambda: (torch.searchsorted(comp_b, comp_q),
+                                    torch.searchsorted(comp_b, comp_q, right=True)))
+    nbytes = _probe_bytes(starts.cpu().numpy().astype(np.int64), qpid.cpu().numpy().astype(np.int64),
+                          lo.cpu().numpy().astype(np.int64), c, 4)
+    return 0, t, bound(nbytes, 60 * c)
+
+
+def check_bloom(rng, dev):
+    """bloom_build and bloom_probe: their checks and timings."""
+    from repro_torch.core import vecops as TV
+    from repro_torch.kernels import bloom_filter as BF
+
+    n, c = 1_369_041, 4096  # the full-size q6 SIP build: the :hasInterest scan
+    keys = torch.from_numpy(rng.randint(0, 300_000, n).astype(np.int32)).to(dev)
+    n_words = TV.bloom_n_words(n)
+    require(n_words == 1 << 20, "bloom: the full-size build should fill 2^20 words")
+    rows = {}
+    for label, k in (("n=1,369,041", keys), ("NULL keys", torch.full((1000,), -1, dtype=torch.int32,
+                                                                        device=dev)),
+                     ("empty", keys[:0].clone())):
+        words, lo, hi = BF.bloom_build(k)
+        pwords, plo, phi = BF.bloom_build(k.cpu())
+        require(torch.equal(words.cpu(), pwords) and (lo, hi) == (plo, phi),
+                f"bloom_build disagrees with its plain version on the CPU ({label})")
+        require(torch.equal(words, BF.bloom_build_plain(k, TV.bloom_n_words(k.shape[0]))),
+                f"bloom_build disagrees with its plain version on the card ({label})")
+        log(f"  bloom_build {label}: {TV.bloom_n_words(k.shape[0])} words, range ({lo}, {hi}) ok")
+    words, _, _ = BF.bloom_build(keys)
+    t = timings("bloom_build", lambda: BF.bloom_build(keys),
+                lambda: BF.bloom_build_plain(keys, n_words), 5)
+    # keys read once, words written once; ~12 integer ops a key
+    rows["bloom_build"] = (0, t, bound(4 * n + 4 * n_words, 12 * n))
+
+    q = torch.cat([keys[torch.randint(0, n, (c // 2,), device=dev)],
+                   torch.randint(300_000, 600_000, (c // 2 - 32,), device=dev, dtype=torch.int32),
+                   torch.full((32,), -1, dtype=torch.int32, device=dev)])
+    got = BF.bloom_probe(words, q)
+    require(torch.equal(got, BF.bloom_probe_plain(words, q)),
+            "bloom_probe disagrees with its plain version")
+    require(bool(got[: c // 2].all()), "bloom_probe: a false negative")
+    log(f"  bloom_probe {c} queries: {int(got[c // 2:].sum())} false positives of "
+        f"{c - c // 2} non-members, ok")
+    t = timings("bloom_probe", lambda: BF.bloom_probe(words, q),
+                lambda: BF.bloom_probe_plain(words, q), 20)
+    # a query read, one 32-byte sector of words, a bool written
+    rows["bloom_probe"] = (0, t, bound(c * (4 + 32 + 1), 12 * c))
+    return rows
+
+
 def kernel_phase(dev, seed):
     rng = np.random.RandomState(seed)
-    rows = {}
+    results = {}
     for name, fn in (("join_expand", check_join_expand), ("gather_emit", check_gather_emit),
-                     ("expr_eval", check_expr_eval), ("segment_scan", check_segment_scan)):
-        err, t, (bound_ms, bound_by) = fn(rng, dev)
-        src, repl = KERNEL_INFO[name]
-        # launches: set from the full phase's run of the main path
+                     ("expr_eval", check_expr_eval), ("segment_scan", check_segment_scan),
+                     ("radix_partition", check_radix_partition),
+                     ("hash_probe", check_hash_probe)):
+        results[name] = fn(rng, dev)
+    results.update(check_bloom(rng, dev))
+    rows = {}
+    for name, (err, t, (bound_ms, bound_by)) in results.items():
+        src, repl, _ = KERNEL_INFO[name]
+        # launches: set from the full phase's run of the kernel's path
         rows[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": None, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library_ms"],
             "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
+            "library_call_ms": t["library_call_ms"],
         }
+        lib = ("" if t["library_ms"] is None else
+               f", library {t['library_ms']:.6f} ms on the device "
+               f"({t['library_call_ms']:.5f} ms per call)")
         log(f"  {name}: kernel {t['ms']:.6f} ms on the device ({t['call_ms']:.5f} ms per "
             f"call), plain {t['plain_ms']:.5f} ms on the device ({t['plain_call_ms']:.5f} ms "
-            f"per call), bound {bound_ms:.6f} ms ({bound_by}), max |err| {err}")
+            f"per call){lib}, bound {bound_ms:.6f} ms ({bound_by}), max |err| {err}")
     return rows
 
 
@@ -382,26 +588,48 @@ def kernel_phase(dev, seed):
 # ---------------------------------------------------------------------------
 
 
+def _member(sorted_keys, keys):
+    """Which of ``keys`` occur in the sorted int64 array ``sorted_keys``."""
+    if len(sorted_keys) == 0:
+        return np.zeros(len(keys), dtype=bool)
+    pos = np.minimum(np.searchsorted(sorted_keys, keys), len(sorted_keys) - 1)
+    return sorted_keys[pos] == keys
+
+
 def closed_form_counts(store):
     """LSQB counts straight from the generated quads (numpy only)."""
     q = store.index_array("spoc").astype(np.int64)
     d = store.dict
     n_terms = len(d)
-    knows = q[q[:, 1] == d.lookup(":knows")]
-    ks, ko = knows[:, 0], knows[:, 2]
-    interests = np.bincount(q[q[:, 1] == d.lookup(":hasInterest"), 0], minlength=n_terms)
+
+    def edges(pred):
+        e = q[q[:, 1] == d.lookup(pred)]
+        return e[:, 0], e[:, 2]
+
+    ks, ko = edges(":knows")
+    interests = np.bincount(edges(":hasInterest")[0], minlength=n_terms)
     located = q[q[:, 1] == d.lookup(":isLocatedIn")]
     per_city = np.bincount(located[:, 2], minlength=n_terms).astype(np.int64)
+    # q4: sum over replyOf edges (m1, m2) of the interests of m2's creators
+    cs, co = edges(":hasCreator")
+    creator_int = np.bincount(cs, weights=interests[co], minlength=n_terms)
+    # q5: knows edges (p1, p2) and universities u of p1 where p2 studies at u
+    ss, so = edges(":studyAt")  # sorted by subject (SPOC order)
+    first = np.searchsorted(ss, ks)
+    runs = np.searchsorted(ss, ks, side="right") - first
+    edge = np.repeat(np.arange(len(ks)), runs)
+    offset = np.arange(len(edge)) - np.repeat(np.cumsum(runs) - runs, runs)
+    u = so[first[edge] + offset]
+    q5 = int(_member(np.sort(ss * n_terms + so), ko[edge] * n_terms + u).sum())
     # q6: sum over 2-hop paths p1->p2->p3 of interests(p3), minus p1 == p3
     out_interest = np.bincount(ks, weights=interests[ko], minlength=n_terms)
     two_hop = int(round(float(out_interest[ko].sum())))
-    key = ks * n_terms + ko
-    rev = np.sort(ko * n_terms + ks)
-    pos = np.minimum(np.searchsorted(rev, key), len(rev) - 1)
-    mutual = rev[pos] == key
+    mutual = _member(np.sort(ko * n_terms + ks), ks * n_terms + ko)
     return {
         "q1": int(interests[ko].sum()),
         "q2": int((per_city ** 2).sum() - len(located)),
+        "q4": int(round(float(creator_int[edges(":replyOf")[1]].sum()))),
+        "q5": q5,
         "q6": two_hop - int(interests[ks[mutual]].sum()),
         "q7": int(np.maximum(interests[ko], 1).sum()),
     }
@@ -430,7 +658,16 @@ def count_syncs(fn):
     return sum(1 for w in caught if "synchroniz" in str(w.message))
 
 
+def _config(path_cfg):
+    import repro_torch
+
+    join_strategy, sip = path_cfg
+    return repro_torch.EngineConfig(join_strategy=join_strategy, sip=sip)
+
+
 def full_phase(dev, scale, seed, report):
+    """The timed runs of both full-size paths; returns the engines and each
+    path's launch counts."""
     import repro_torch
     from repro_torch import kernels as K
 
@@ -441,101 +678,173 @@ def full_phase(dev, scale, seed, report):
     log(f"  scale={scale}: {store.n_quads} triples, {store.device_bytes()} device bytes "
         f"(four index orders), generated and loaded in {load_s:.1f} s")
     report["full"] = {"scale": scale, "triples": store.n_quads,
-                      "device_bytes": store.device_bytes(), "load_s": load_s, "queries": {}}
+                      "device_bytes": store.device_bytes(), "load_s": load_s, "paths": {}}
     t0 = time.perf_counter()
     want = closed_form_counts(store)
     log(f"  closed forms from the quads in {time.perf_counter() - t0:.1f} s: {want}")
-    engine = repro_torch.Engine(store, device=dev)
-    K.reset_launch_counts()
-    for name in FULL_QUERIES:
-        before = K.launch_counts()
-        got, wall = run_count(engine, repro_torch.LSQB_QUERIES[name])
-        after = K.launch_counts()
-        delta = {k: after[k] - before[k] for k in after}
-        log(f"  {name}: count={got} closed form={want[name]} wall={wall:.3f} s launches={delta}")
-        require(got == want[name], f"{name}: engine count {got} != closed form {want[name]}")
-        report["full"]["queries"][name] = {"count": got, "wall_s": wall, "launches": delta}
-    launches = K.launch_counts()
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was never launched on the main path")
-    for name in FULL_QUERIES:
-        text = repro_torch.LSQB_QUERIES[name]
-        t0 = time.perf_counter()
-        syncs = count_syncs(lambda: run_count(engine, text))
-        report["full"]["queries"][name]["syncs"] = syncs
-        log(f"  {name}: {syncs} host syncs (a second run, torch sync debug mode, "
-            f"{time.perf_counter() - t0:.1f} s)")
+    engines, path_launches = {}, {}
+    for path, (cfg, queries) in PATHS.items():
+        engine = engines[path] = repro_torch.Engine(store, _config(cfg), device=dev)
+        log(f"  path {path}: join_strategy={cfg[0]!r} sip={cfg[1]!r} {elapsed()}")
+        rep = report["full"]["paths"][path] = {"config": list(cfg), "queries": {}}
+        K.reset_launch_counts()
+        for name in queries:
+            before = K.launch_counts()
+            got, wall = run_count(engine, repro_torch.LSQB_QUERIES[name])
+            after = K.launch_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            log(f"  {name}: count={got} closed form={want[name]} wall={wall:.3f} s "
+                f"launches={delta}")
+            require(got == want[name], f"{path} {name}: engine count {got} != closed form "
+                                       f"{want[name]}")
+            rep["queries"][name] = {"count": got, "wall_s": wall, "launches": delta}
+            if path == "default":
+                for k in ("radix_partition", "hash_probe") + (
+                        ("bloom_build", "bloom_probe") if name in SIP_QUERIES else ()):
+                    require(delta[k] > 0, f"default {name}: {k} was never launched")
+        path_launches[path] = rep["launches"] = K.launch_counts()
+        for name, (_, _, kpath) in KERNEL_INFO.items():
+            if kpath == path:
+                require(path_launches[path][name] > 0,
+                        f"kernel {name} was never launched on the {path} path")
+    return engines, path_launches
+
+
+def full_followups(engines, report):
+    """The sync-counting reruns and the profiled run of the full phase."""
+    import repro_torch
+
+    for path, queries in (("merge", MERGE_SYNC_QUERIES), ("default", PATHS["default"][1])):
+        engine = engines[path]
+        for name in queries:
+            text = repro_torch.LSQB_QUERIES[name]
+            t0 = time.perf_counter()
+            syncs = count_syncs(lambda: run_count(engine, text))
+            report["full"]["paths"][path]["queries"][name]["syncs"] = syncs
+            log(f"  {path} {name}: {syncs} host syncs (a second run, torch sync debug mode, "
+                f"{time.perf_counter() - t0:.1f} s)")
     name = PROFILED_QUERY
-    prof = device_profile(lambda: run_count(engine, repro_torch.LSQB_QUERIES[name]))
-    report["full"]["queries"][name]["profile"] = prof
+    rep = report["full"]["paths"]["default"]["queries"][name]
+    prof = device_profile(lambda: run_count(engines["default"], repro_torch.LSQB_QUERIES[name]))
+    rep["profile"] = prof
     if prof["device_busy_s"] is None:
-        log(f"  {name} profile: the profiler recorded no device time (not measured)")
-        return launches
-    wall = report["full"]["queries"][name]["wall_s"]
-    prof["idle_share"] = 1.0 - prof["device_busy_s"] / wall
-    log(f"  {name} profile (a third run): device busy {prof['device_busy_s']:.3f} s of "
-        f"{wall:.3f} s unprofiled wall, idle share {prof['idle_share']:.4f}, "
-        f"profiled run {prof['profiled_wall_s']:.1f} s")
+        log(f"  default {name} profile: the profiler recorded no device time (not measured)")
+        return
+    prof["idle_share"] = 1.0 - prof["device_busy_s"] / rep["wall_s"]
+    log(f"  default {name} profile (a third run): device busy {prof['device_busy_s']:.3f} s "
+        f"of {rep['wall_s']:.3f} s unprofiled wall, idle share {prof['idle_share']:.4f}, "
+        f"profiled run {prof['profiled_wall_s']:.1f} s, its events summed in "
+        f"{prof['analysis_s']:.1f} s")
     for key, count, us in prof["device_ops"]:
         log(f"    device {us / 1e3:10.1f} ms {count:8d}x {key[:90]}")
     for kname, (count, us) in prof["kernels"].items():
         log(f"    kernel {kname}: {count} launches, {us / max(count, 1):.2f} us each on the device")
     for key, count, us in prof["host_ops"]:
         log(f"    host   {us / 1e3:10.1f} ms {count:8d}x {key[:90]}")
-    return launches
 
 
 def device_profile(fn, top: int = 8):
     """One run under torch.profiler: device busy seconds (the sum of every
-    device op's self time; None when the profiler saw no device), the top
-    device and host ops by self time, and each port kernel's launches and
-    device microseconds."""
+    device op's time; None when the profiler saw no device), the top device
+    ops and host ops by self time (microseconds), and each port kernel's
+    launches and device microseconds.
+
+    It reads the profiler's raw events and sums them itself: building
+    ``key_averages()`` costs about 0.1 ms per event, and a full-size query
+    records millions of events."""
+    from collections import defaultdict
+
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
     profiled_wall = time.perf_counter() - t0
-    # device-side events (kernels, copies) only: a host op's self device
-    # time repeats the time of the kernels it launched
     cpu = torch.autograd.DeviceType.CPU
-    avg = prof.key_averages()
-    dev = sorted(((e.key, e.count, e.self_device_time_total) for e in avg
-                  if e.device_type != cpu and e.self_device_time_total > 0),
-                 key=lambda r: -r[2])
-    host = sorted(((e.key, e.count, e.self_cpu_time_total) for e in avg
-                   if e.device_type == cpu), key=lambda r: -r[2])
+    dev_t = defaultdict(lambda: [0, 0.0])  # name -> [count, us]
+    host_t = defaultdict(lambda: [0, 0.0])
+    threads = defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cpu:
+            threads[e.start_thread_id()].append((e.start_ns(), e.duration_ns(), e.name()))
+        else:
+            d = dev_t[e.name()]
+            d[0] += 1
+            d[1] += e.duration_ns() / 1e3
+    # host self time: an op's duration less that of the ops nested in it
+    for evs in threads.values():
+        evs.sort(key=lambda r: (r[0], -r[1]))
+        stack = []
+        for start, dur, name in evs:
+            while stack and stack[-1][1] <= start:
+                stack.pop()
+            if stack:
+                host_t[stack[-1][0]][1] -= dur / 1e3
+            h = host_t[name]
+            h[0] += 1
+            h[1] += dur / 1e3
+            stack.append((name, start + dur))
+    del prof, threads
+    dev = sorted(((k, c, us) for k, (c, us) in dev_t.items() if us > 0), key=lambda r: -r[2])
+    host = sorted(((k, c, us) for k, (c, us) in host_t.items()), key=lambda r: -r[2])
     busy = sum(r[2] for r in dev) / 1e6 if dev else None
     kernels = {name: [sum(r[1] for r in dev if f"{name}_kernel" in r[0]),
                       sum(r[2] for r in dev if f"{name}_kernel" in r[0])]
                for name in KERNEL_INFO}
     return {"device_busy_s": busy, "profiled_wall_s": profiled_wall,
+            "analysis_s": time.perf_counter() - t0 - profiled_wall,
             "device_ops": dev[:top], "host_ops": host[:top], "kernels": kernels}
 
 
-def breadth_phase(dev, scale, seed, report):
+def breadth_counts(device, scale, seed):
+    """{config: {query: (count, wall seconds)}} for all nine LSQB queries
+    under every breadth configuration, on ``device``."""
     import repro_torch
 
-    results = {}
-    for device in (dev, torch.device("cpu")):
-        store, _ = repro_torch.generate_social_graph(scale=scale, seed=seed, device=device)
-        engine = repro_torch.Engine(store, device=device)
-        for name, text in repro_torch.LSQB_QUERIES.items():
-            got, wall = run_count(engine, text)
-            results.setdefault(name, {})[device.type] = (got, wall)
-    report["breadth"] = {"scale": scale, "queries": {}}
-    for name, r in results.items():
-        (gc, wc), (cc, wcpu) = r["cuda"], r["cpu"]
-        log(f"  {name}: cuda count={gc} ({wc:.3f} s)  cpu count={cc} ({wcpu:.3f} s)")
-        require(gc == cc, f"{name}: cuda count {gc} != cpu count {cc}")
-        report["breadth"]["queries"][name] = {"count": gc, "cuda_s": wc, "cpu_s": wcpu}
+    store, _ = repro_torch.generate_social_graph(scale=scale, seed=seed, device=device)
+    out = {}
+    for cfg_name, cfg in BREADTH_CONFIGS.items():
+        engine = repro_torch.Engine(store, _config(cfg), device=device)
+        out[cfg_name] = {name: run_count(engine, text)
+                         for name, text in repro_torch.LSQB_QUERIES.items()}
+    return out
+
+
+def start_cpu_breadth(out_path: Path) -> subprocess.Popen:
+    """The breadth phase's CPU side, in a child process of this script."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--cpu-breadth", str(out_path)])
+
+
+def breadth_phase(dev, scale, seed, report, child, child_out: Path):
+    cuda = breadth_counts(dev, scale, seed)
+    log(f"  cuda side done {elapsed()}; waiting for the CPU side")
+    rc = child.wait(timeout=900)
+    require(rc == 0, f"the CPU breadth process failed with exit code {rc}")
+    cpu = json.loads(child_out.read_text())
+    report["breadth"] = {"scale": scale, "configs": {}}
+    for cfg_name in BREADTH_CONFIGS:
+        rep = report["breadth"]["configs"][cfg_name] = {}
+        for name, (gc, wc) in cuda[cfg_name].items():
+            cc, wcpu = cpu[cfg_name][name]
+            log(f"  {cfg_name} {name}: cuda count={gc} ({wc:.3f} s)  cpu count={cc} "
+                f"({wcpu:.3f} s)")
+            require(gc == cc, f"{cfg_name} {name}: cuda count {gc} != cpu count {cc}")
+            rep[name] = {"count": gc, "cuda_s": wc, "cpu_s": wcpu}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the full report to this file")
+    ap.add_argument("--cpu-breadth", metavar="OUT",
+                    help="(the breadth phase's child) write the CPU counts to OUT and exit")
     args = ap.parse_args()
 
+    if args.cpu_breadth:
+        torch.set_num_threads(4)
+        counts = breadth_counts(torch.device("cpu"), BREADTH_SCALE, SEED)
+        Path(args.cpu_breadth).write_text(json.dumps(counts))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -555,11 +864,23 @@ def main() -> int:
     log(f"kernels: {elapsed()}")
     rows = kernel_phase(dev, SEED)
     log(f"full-size: {elapsed()}")
-    launches = full_phase(dev, FULL_SCALE, SEED, report)
-    for name, n in launches.items():
-        rows[name]["launches"] = n
-    log(f"breadth: {elapsed()}")
-    breadth_phase(dev, BREADTH_SCALE, SEED, report)
+    engines, path_launches = full_phase(dev, FULL_SCALE, SEED, report)
+    for name, (_, _, path) in KERNEL_INFO.items():
+        rows[name]["launches"] = path_launches[path][name]
+        rows[name]["launches_by_path"] = {p: n[name] for p, n in path_launches.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        child_out = Path(tmp) / "cpu_breadth.json"
+        child = start_cpu_breadth(child_out)
+        try:
+            log(f"full-size follow-ups (the CPU breadth runs beside them): {elapsed()}")
+            full_followups(engines, report)
+            del engines
+            log(f"breadth: {elapsed()}")
+            breadth_phase(dev, BREADTH_SCALE, SEED, report, child, child_out)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     log(f"done: {elapsed()}")
 
     report["kernels"] = list(rows.values())

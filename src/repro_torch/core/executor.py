@@ -5,10 +5,13 @@ the reference package does, lowers the plan to the batch operators of this
 package, drains the root on the store's device, and copies the projected
 rows to the host once, at the end of the query.
 
-This package covers the sort-merge main path: scans with seek, merge and
-lookup joins (inner / left_outer / semi / anti), FILTER and BIND through
-the expression VM, streaming and sort-based GROUP BY, DISTINCT, ORDER BY,
-LIMIT/OFFSET and UNION. A configuration or plan node outside it raises
+This package covers the reference's default configuration (cost-based
+join strategy, cost-gated SIP) and the forced ``hash`` / ``merge`` and
+SIP ``on`` / ``off`` settings: scans with seek and SIP prefilters, merge,
+lookup and radix-partitioned hash joins (inner / left_outer / semi /
+anti), FILTER and BIND through the expression VM, streaming and
+sort-based GROUP BY, DISTINCT, ORDER BY, LIMIT/OFFSET and UNION. A
+configuration or plan node outside it raises
 ``NotImplementedError`` naming the part of the port that will bring it; the
 engine never evaluates a query some other way.
 """
@@ -16,7 +19,7 @@ engine never evaluates a query some other way.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +37,7 @@ from repro_torch.core.operators.aggregate import (
     StreamingGroupBy,
 )
 from repro_torch.core.operators.base import BatchOperator, close_tree
+from repro_torch.core.operators.hash_join import HashJoin
 from repro_torch.core.operators.lookup_join import LookupJoin
 from repro_torch.core.operators.merge_join import MergeJoin
 from repro_torch.core.operators.scan import IndexScan
@@ -45,19 +49,20 @@ from repro_torch.core.operators.simple import (
     UnionOp,
 )
 from repro_torch.core.operators.sort import OrderByOp, SortByVarOp
+from repro_torch.core.sip import SipFilter
 from repro_torch.core.stats import GraphStats
 from repro_torch.core.storage import QuadStore
 
 # the only values this package implements, and the part of the port that
-# brings each other value
+# brings each other value (None: the reference has no other value)
 _SUPPORTED = {
-    "engine": ("barq", "the legacy row engine with the batch/row adapters"),
-    "join_strategy": ("merge", "the hash-join slice"),
-    "sip": ("off", "the SIP (bloom filter) slice"),
-    "memory_budget": (None, "the out-of-core slice"),
-    "spill_dir": (None, "the out-of-core slice"),
-    "adaptive_join": ("off", "the out-of-core and adaptive slice"),
-    "cardinality_feedback": ("off", "the telemetry slice"),
+    "engine": (("barq",), "the legacy row engine with the batch/row adapters"),
+    "join_strategy": ((None, "hash", "merge"), None),
+    "sip": ((None, "on", "off"), None),
+    "memory_budget": ((None,), "the out-of-core slice"),
+    "spill_dir": ((None,), "the out-of-core slice"),
+    "adaptive_join": (("off",), "the out-of-core and adaptive slice"),
+    "cardinality_feedback": (("off",), "the telemetry slice"),
 }
 
 
@@ -73,8 +78,10 @@ class EngineConfig:
     spill_dir: Optional[str] = None
     # join emission batch size: None = default (256)
     join_initial_batch: Optional[int] = None
-    join_strategy: Optional[str] = "merge"
-    sip: Optional[str] = "off"
+    # binary-join strategy: None = cost-based, "hash" / "merge" force one
+    join_strategy: Optional[str] = None
+    # sideways information passing: None = cost-gated, "on", "off"
+    sip: Optional[str] = None
     # buffer pooling: recycle batch buffers through an Engine-owned arena
     pool_buffers: bool = True
     pool_max_per_bucket: int = 32
@@ -83,13 +90,17 @@ class EngineConfig:
     adaptive_join: str = "off"
 
     def check(self) -> None:
-        """Raise NotImplementedError for any value outside this package."""
-        for name, (value, later) in _SUPPORTED.items():
+        """Raise NotImplementedError for a value this package has not
+        ported, ValueError for one the reference does not accept either."""
+        for name, (values, later) in _SUPPORTED.items():
             got = getattr(self, name)
-            if got != value:
+            if got not in values:
+                allowed = " or ".join(repr(v) for v in values)
+                if later is None:
+                    raise ValueError(f"EngineConfig.{name}={got!r}: expected {allowed}")
                 raise NotImplementedError(
                     f"EngineConfig.{name}={got!r} is not ported yet: it comes "
-                    f"with {later} (this package runs {name}={value!r})"
+                    f"with {later} (this package runs {name}={allowed})"
                 )
 
 
@@ -104,6 +115,16 @@ class Translator:
         self.cfg = cfg
         self.device = device
         self.pool = pool
+        # SIP runtime handles, keyed by annotation sid: consuming scans and
+        # exporting joins resolve to the same SipFilter. Fresh for each
+        # Translator, so a reused plan never sees stale summaries.
+        self._sip_registry: Dict[int, SipFilter] = {}
+
+    def _sip_filter(self, ann: PL.PSipFilter) -> SipFilter:
+        sf = self._sip_registry.get(ann.sid)
+        if sf is None:
+            sf = self._sip_registry[ann.sid] = SipFilter(ann.var)
+        return sf
 
     def translate(self, plan: PL.Phys) -> BatchOperator:
         return self._build(plan)
@@ -126,16 +147,24 @@ class Translator:
         """Lower one Phys node (and its subtree) to a batch operator."""
         dev, pool, d = self.device, self.pool, self.store.dict
         if isinstance(n, PL.PScan):
-            if n.sip:
-                raise _not_ported("a SIP prefilter on a scan", "the SIP slice")
-            return IndexScan(self.store, n.pattern, n.sort_var, sizer=self._sizer(), pool=pool)
+            return IndexScan(
+                self.store, n.pattern, n.sort_var, sizer=self._sizer(), pool=pool,
+                sip_filters=[self._sip_filter(a) for a in n.sip],
+            )
         if isinstance(n, PL.PSort):
             return SortByVarOp(self._build(n.child), n.var, dev, self.cfg.max_batch, pool=pool)
         if isinstance(n, PL.PMergeJoin):
-            if n.sip_exports:
-                raise _not_ported("a SIP export from a merge join", "the SIP slice")
+            left, right = self._build(n.left), self._build(n.right)
+            # SIP export: bloom keys off a Sort's materialization, or a code
+            # range off a sorted scan; anything else stays pass-through
+            for ann in n.sip_exports:
+                sf = self._sip_filter(ann)
+                if isinstance(right, SortByVarOp):
+                    sf.bind(lambda r=right, v=ann.var: ("keys", r.sip_keys(v)))
+                elif isinstance(right, IndexScan) and right.sorted_by() == ann.var:
+                    sf.bind(lambda r=right: ("range",) + r.sip_code_range())
             return MergeJoin(
-                self._build(n.left), self._build(n.right), n.var, dev,
+                left, right, n.var, dev,
                 mode=n.mode, post_filter=n.post_filter, dictionary=d,
                 sizer=self._join_sizer(), allow_child_skip=self.cfg.allow_child_skip,
                 pool=pool, post_program=n.post_program,
@@ -145,7 +174,17 @@ class Translator:
                 self._build(n.probe), self._build(n.build), n.var, dev, n.mode, pool=pool
             )
         if isinstance(n, PL.PHashJoin):
-            raise _not_ported("the hash join", "the hash-join slice")
+            if n.grace:
+                raise _not_ported("the grace (partitioned) hash join", "the out-of-core slice")
+            op = HashJoin(
+                self._build(n.probe), self._build(n.build), n.keys, dev,
+                mode=n.mode, post_filter=n.post_filter, dictionary=d,
+                sizer=self._join_sizer(), pool=pool, post_program=n.post_program,
+            )
+            # SIP export: the materialized build layout gives the bloom keys
+            for ann in n.sip_exports:
+                self._sip_filter(ann).bind(lambda j=op, v=ann.var: ("keys", j.sip_keys(v)))
+            return op
         if isinstance(n, (PL.PPathExpand, PL.PPathScan)):
             raise _not_ported("property paths", "the property-path slice")
         if isinstance(n, PL.PCross):

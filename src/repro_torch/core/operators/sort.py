@@ -140,6 +140,13 @@ class SortByVarOp(BatchOperator):
     def next_batch(self) -> Optional[ColumnBatch]:
         return self._ensure().next_batch()
 
+    def sip_keys(self, var: int) -> torch.Tensor:
+        """Key column for a SipFilter export: the sort is a pipeline
+        breaker anyway, so forcing its materialization from a probe-side
+        scan only moves the same work earlier."""
+        src = self._ensure()
+        return src.cols[src.var_ids().index(var)]
+
     def skip(self, var: int, target: int) -> None:
         self._ensure().skip(var, target)
 

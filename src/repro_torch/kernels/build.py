@@ -113,6 +113,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "expr_eval_launch": [P, P, P, L, P, P, P],
         "expr_eval_limits": [P, P, P, P],
         "segment_scan_launch": [P, P, P, L, I, P],
+        "radix_partition_launch": [P, L, I, P, P, P],
+        "hash_probe_launch": [P, I, P, P, P, P, I, P, P, P],
+        "bloom_build_launch": [P, L, I, P, P],
+        "bloom_probe_launch": [P, I, P, I, P, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -3,10 +3,13 @@ package's batch engine, on the CPU (the kernels' plain versions).
 
 Both engines run over identical dictionary codes: the port's store is
 carried across from the reference store with ``store_from_arrays``. Each
-query must return the same multiset of decoded rows as
-``repro.core.Engine(EngineConfig(join_strategy="merge", sip="off"))`` (the
+query must return the same multiset of decoded rows as the reference's
+``repro.core.Engine`` under the same ``join_strategy`` and ``sip`` (the
 same ordered rows where ORDER BY fixes the order), and the port's buffer
-pool must balance after every query.
+pool must balance after every query. The merge path with SIP off runs in
+the tests without a config in their name; the reference's default
+configuration (cost-based joins, cost-gated SIP), hash joins without SIP
+and merge joins with SIP run in the ``*_under_config`` tests.
 """
 
 from collections import Counter
@@ -31,10 +34,26 @@ def _port_store(ref_store):
     return store_from_arrays(ref_store.index_array("spoc"), terms, device="cpu")
 
 
-def _engines(ref_store):
-    ref = REngine(ref_store, RConfig(join_strategy="merge", sip="off"))
-    port = repro_torch.Engine(_port_store(ref_store), device="cpu")
+# (join_strategy, sip) configurations beside merge/off
+CONFIGS = {"default": (None, None), "hash-off": ("hash", "off"), "merge-on": ("merge", "on")}
+
+
+def _engines(ref_store, join_strategy="merge", sip="off", port_store=None):
+    ref = REngine(ref_store, RConfig(join_strategy=join_strategy, sip=sip))
+    port = repro_torch.Engine(
+        port_store or _port_store(ref_store),
+        repro_torch.EngineConfig(join_strategy=join_strategy, sip=sip), device="cpu",
+    )
     return ref, port
+
+
+def _config_engines(cache, cfg):
+    """The (reference, port) engine pair under ``CONFIGS[cfg]``, sharing
+    the stores of ``cache["merge-off"]``."""
+    if cfg not in cache:
+        ref, port = cache["merge-off"]
+        cache[cfg] = _engines(ref.store, *CONFIGS[cfg], port_store=port.store)
+    return cache[cfg]
 
 
 def _rows(res, store, ordered=False):
@@ -53,9 +72,24 @@ def lsqb_engines(social_store):
     return _engines(social_store[0])
 
 
+@pytest.fixture(scope="module")
+def lsqb_cache(lsqb_engines):
+    return {"merge-off": lsqb_engines}
+
+
 @pytest.mark.parametrize("name", sorted(LSQB_QUERIES))
 def test_lsqb_query_matches_reference(lsqb_engines, name):
     ref, port = lsqb_engines
+    want = ref.execute(LSQB_QUERIES[name])
+    got = port.execute(LSQB_QUERIES[name])
+    assert _rows(got, port.store) == _rows(want, ref.store)
+    _assert_pool_balanced(port)
+
+
+@pytest.mark.parametrize("name", sorted(LSQB_QUERIES))
+@pytest.mark.parametrize("cfg", sorted(CONFIGS))
+def test_lsqb_query_matches_reference_under_config(lsqb_cache, cfg, name):
+    ref, port = _config_engines(lsqb_cache, cfg)
     want = ref.execute(LSQB_QUERIES[name])
     got = port.execute(LSQB_QUERIES[name])
     assert _rows(got, port.store) == _rows(want, ref.store)
@@ -104,6 +138,11 @@ def numeric_engines():
         if i % 3:
             store.add(p, ":nick", f'"n{i}"')
     return _engines(store.build())
+
+
+@pytest.fixture(scope="module")
+def numeric_cache(numeric_engines):
+    return {"merge-off": numeric_engines}
 
 
 NUMERIC_QUERIES = {
@@ -163,6 +202,27 @@ def test_ordered_query_matches_reference(numeric_engines, name):
     _assert_pool_balanced(port)
 
 
+@pytest.mark.parametrize("name", sorted(NUMERIC_QUERIES))
+@pytest.mark.parametrize("cfg", sorted(CONFIGS))
+def test_numeric_query_matches_reference_under_config(numeric_cache, cfg, name):
+    ref, port = _config_engines(numeric_cache, cfg)
+    want = ref.execute(NUMERIC_QUERIES[name])
+    got = port.execute(NUMERIC_QUERIES[name])
+    assert got.n_rows == want.rows.shape[0]
+    assert _rows(got, port.store) == _rows(want, ref.store)
+    _assert_pool_balanced(port)
+
+
+@pytest.mark.parametrize("name", sorted(ORDERED_QUERIES))
+@pytest.mark.parametrize("cfg", sorted(CONFIGS))
+def test_ordered_query_matches_reference_under_config(numeric_cache, cfg, name):
+    ref, port = _config_engines(numeric_cache, cfg)
+    want = ref.execute(ORDERED_QUERIES[name])
+    got = port.execute(ORDERED_QUERIES[name])
+    assert _rows(got, port.store, ordered=True) == _rows(want, ref.store, ordered=True)
+    _assert_pool_balanced(port)
+
+
 def test_plans_match_reference(numeric_engines, lsqb_engines):
     """The host front end is a copy: the same text plans the same way."""
     for (ref, port), queries in ((numeric_engines, NUMERIC_QUERIES),
@@ -171,10 +231,59 @@ def test_plans_match_reference(numeric_engines, lsqb_engines):
             assert port.explain(text) == ref.explain(text)
 
 
-def test_lsqb_launch_counts_on_the_cpu(lsqb_engines):
-    """The plain versions run on CPU tensors: no kernel launch is counted."""
+@pytest.mark.parametrize("cfg", sorted(CONFIGS))
+def test_plans_match_reference_under_config(numeric_cache, lsqb_cache, cfg):
+    for cache, queries in ((numeric_cache, NUMERIC_QUERIES), (lsqb_cache, LSQB_QUERIES)):
+        ref, port = _config_engines(cache, cfg)
+        for text in queries.values():
+            assert port.explain(text) == ref.explain(text)
+
+
+def test_default_config_is_the_references():
+    port, ref = repro_torch.EngineConfig(), RConfig()
+    assert (port.join_strategy, port.sip) == (ref.join_strategy, ref.sip) == (None, None)
+
+
+def test_lsqb_launch_counts_on_the_cpu(lsqb_cache):
+    """The plain versions run on CPU tensors: no kernel launch is counted,
+    for any of the eight kernels, under the default configuration (hash
+    joins and SIP) and on the merge path."""
     from repro_torch import kernels as K
 
     K.reset_launch_counts()
-    lsqb_engines[1].execute(LSQB_QUERIES["q6"])
-    assert set(K.launch_counts().values()) == {0}
+    for cfg in ("default", "merge-off"):
+        _config_engines(lsqb_cache, cfg)[1].execute(LSQB_QUERIES["q6"])
+    counts = K.launch_counts()
+    assert set(counts) == {"join_expand", "gather_emit", "expr_eval", "segment_scan",
+                           "radix_partition", "hash_probe", "bloom_build", "bloom_probe"}
+    assert set(counts.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's closed forms, held against both engines
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def closed_forms(social_store):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.closed_form_counts(social_store[0])
+
+
+def _count(engine, text):
+    res = engine.execute(text)
+    return int(engine.store.dict.decode(int(res.rows[0, 0])))
+
+
+@pytest.mark.parametrize("name", ["q1", "q2", "q4", "q5", "q6", "q7"])
+def test_closed_form_counts_match_the_engines(closed_forms, lsqb_cache, name):
+    ref, port = _config_engines(lsqb_cache, "default")
+    want = closed_forms[name]
+    assert _count(ref, LSQB_QUERIES[name]) == want
+    assert _count(port, LSQB_QUERIES[name]) == want

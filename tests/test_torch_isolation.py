@@ -57,9 +57,9 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("field,value", [
     ("engine", "legacy"),
     ("engine", "mixed"),
-    ("join_strategy", "hash"),
-    ("join_strategy", None),
-    ("sip", "on"),
+    ("spill_dir", "spill"),
+    ("cardinality_feedback", "apply"),
+    ("memory_budget", 0),
     ("memory_budget", 1 << 20),
     ("adaptive_join", "on"),
     ("cardinality_feedback", "observe"),
@@ -67,6 +67,13 @@ def test_entry_points_default_to_the_card():
 def test_config_outside_the_slice_raises(field, value):
     cfg = repro_torch.EngineConfig(**{field: value})
     with pytest.raises(NotImplementedError, match=field):
+        repro_torch.Engine(_cpu_store(), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("join_strategy", "sort"), ("sip", "auto")])
+def test_config_the_reference_lacks_is_refused(field, value):
+    cfg = repro_torch.EngineConfig(**{field: value})
+    with pytest.raises(ValueError, match=field):
         repro_torch.Engine(_cpu_store(), cfg, device="cpu")
 
 
@@ -83,15 +90,29 @@ def test_plan_outside_the_slice_raises(text):
 def test_kernels_take_no_other_device():
     """Only CPU tensors reach the plain versions; anything else launches
     the CUDA kernel or raises."""
+    from repro_torch.kernels import bloom_filter as BF
+    from repro_torch.kernels import hash_join as HJ
     from repro_torch.kernels import join_expand as JE
+    from repro_torch.kernels import radix_partition as RP
     from repro_torch.kernels import segment_scan as SS
 
     meta = [torch.zeros(3, dtype=torch.int32, device="meta") for _ in range(4)]
     cum = torch.zeros(4, dtype=torch.int64, device="meta")
+    starts = torch.zeros(5, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         JE.join_expand(*meta, cum, 0, 2)
     with pytest.raises(ValueError, match="device"):
         SS.segment_scan(meta[0], torch.zeros(3, device="meta"), "sum")
+    with pytest.raises(ValueError, match="device"):
+        RP.radix_partition(meta[0], 4)
+    with pytest.raises(ValueError, match="device"):
+        HJ.hash_build(None, meta[0], 4)
+    with pytest.raises(ValueError, match="device"):
+        HJ.hash_probe(starts, None, meta[0], None, meta[1])
+    with pytest.raises(ValueError, match="device"):
+        BF.bloom_build(meta[0])
+    with pytest.raises(ValueError, match="device"):
+        BF.bloom_probe(meta[0][:2], meta[1])
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
