@@ -21,17 +21,27 @@ script exits non-zero:
             which must launch the four merge-path kernels, and the
             reference's default configuration (cost-based joins, cost-gated
             SIP; q1, q2, q4, q5, q6, q7), which must launch the hash join's
-            kernels on every query and the bloom filter's on q4, q5 and q6.
-            Then a second run of each default-path query (and of the merge
-            path's q1) counts its host syncs, and a third of q6 under
-            torch.profiler gives the device's busy time and the top device
-            and host ops;
-  breadth   all nine LSQB queries at scale 1 on the card and on the CPU
-            (the kernels' plain versions) under the default configuration,
-            ``("hash", "off")``, ``("merge", "on")`` and ``("merge",
-            "off")``, with equal counts required. The CPU side runs in a
-            child process (``--cpu-breadth``), started after the full
-            phase's timed runs and joined at the end.
+            kernels on every query and the bloom filter's on q4, q5 and q6;
+  paths     property paths p1-p5 on the same store under the default
+            configuration (counters set to 0 before, read after), each
+            count against a numpy closed form; frontier_dedup must launch
+            in every query and sorted_search in p1-p4; the frontier
+            counters and the peak device memory are reported;
+  distinct  COUNT(DISTINCT) d1 and d2 on the same store, then the BSBM BI
+            mix at scale 36 (7.2M triples; all but b6, whose 233M-row
+            self-join runs in breadth only), d1, d2, b4 and b8 against
+            closed forms; frontier_dedup must launch in d1, d2, b4 and b8;
+  follow-ups  a second run of each default-path query, of the merge
+            path's q1 and of p1-p5 counts its host syncs, and a third of q6
+            under torch.profiler gives the device's busy time and the top
+            device and host ops;
+  breadth   the nine LSQB queries, p1-p5, d1 and d2 at LSQB scale 1 and
+            the eight BSBM BI queries at BSBM scale 1, on the card and on
+            the CPU (the kernels' plain versions) under the default
+            configuration, ``("hash", "off")``, ``("merge", "on")`` and
+            ``("merge", "off")``, with equal rows required. The CPU side
+            runs in a child process (``--cpu-breadth``), started after the
+            timed runs and joined at the end.
 
 Each phase header carries the seconds since the start. The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -79,10 +89,15 @@ KERNEL_INFO = {
                     "src/repro/kernels/bloom_filter.py:83", "default"),
     "bloom_probe": ("src/repro_torch/csrc/bloom_filter.cu",
                     "src/repro/kernels/bloom_filter.py:131", "default"),
+    "sorted_search": ("src/repro_torch/csrc/sorted_search.cu",
+                      "src/repro/kernels/sorted_search.py:41", "paths"),
+    "frontier_dedup": ("src/repro_torch/csrc/frontier_dedup.cu",
+                       "src/repro/kernels/frontier_dedup.py:52", "paths"),
 }
 SEED = 42
 FULL_SCALE = 160.0  # the LSQB generator's size of the paper's SF 0.3: ~7.3M triples
 BREADTH_SCALE = 1.0
+BSBM_BREADTH_SCALE = 1.0  # ~200K triples
 # full-size paths: (join_strategy, sip) and their queries
 PATHS = {
     "merge": (("merge", "off"), ("q1", "q2", "q6", "q7")),
@@ -95,6 +110,28 @@ BREADTH_CONFIGS = {
     "default": (None, None), "hash-off": ("hash", "off"),
     "merge-on": ("merge", "on"), "merge-off": ("merge", "off"),
 }
+# property paths, run on the full-size LSQB store under EngineConfig()
+P1_TARGET, P2_SOURCE = ":person0", ":person12345"
+PATH_QUERIES = {
+    "p1": f"SELECT (COUNT(*) AS ?n) {{ ?x :knows+ {P1_TARGET} }}",
+    "p2": f"SELECT (COUNT(*) AS ?n) {{ {P2_SOURCE} :knows+ ?x . ?x :hasInterest ?t }}",
+    "p3": "SELECT (COUNT(*) AS ?n) { ?m :replyOf+ ?r }",
+    "p4": "SELECT (COUNT(*) AS ?n) { ?x :knows/:knows ?y }",
+    "p5": "SELECT (COUNT(*) AS ?n) { ?x (:knows|^:knows) ?y }",
+}
+SEARCH_QUERIES = ("p1", "p2", "p3", "p4")  # p5 (a link and its inverse) needs no search
+# DISTINCT aggregates on the same store
+DISTINCT_QUERIES = {
+    "d1": "SELECT (COUNT(DISTINCT ?p2) AS ?n) { ?p1 :knows ?p2 }",
+    "d2": "SELECT ?city (COUNT(DISTINCT ?tag) AS ?n) "
+          "{ ?p :isLocatedIn ?city . ?p :hasInterest ?tag } GROUP BY ?city",
+}
+# the BSBM BI mix: scale 36 is 7,199,185 triples, the LSQB store's size;
+# b6 (the feature self-join) emits 233M rows there and runs in breadth only
+BSBM_SCALE = 36.0
+BSBM_SEED = 7  # the generator's default
+BSBM_FULL_QUERIES = ("b1", "b2", "b3", "b4", "b5", "b7", "b8")
+DEDUP_QUERIES = ("d1", "d2", "b4", "b8")  # distinct-phase queries that must run frontier_dedup
 
 
 T_START = time.perf_counter()
@@ -554,7 +591,99 @@ def check_bloom(rng, dev):
     return rows
 
 
-def kernel_phase(dev, seed):
+def check_sorted_search(rng, dev, keys):
+    """``keys``: the full-size store's :knows subject column (sorted)."""
+    from repro_torch.kernels import sorted_search as SR
+
+    n = int(keys.shape[0])
+    lo_k, hi_k = int(keys[0]), int(keys[-1])
+    qsets = {}
+    for m in (4096, 1 << 20):
+        q = np.concatenate([
+            keys[torch.randint(0, n, (m // 2,), device=dev)].cpu().numpy(),  # on keys
+            rng.randint(lo_k, hi_k + 1, m // 2 - 4),  # between keys
+            [lo_k - 1, lo_k - 1000, hi_k + 1, hi_k + 1000],  # below and above
+        ]).astype(np.int32)
+        qsets[m] = torch.from_numpy(q).to(dev)
+    for m, q in qsets.items():
+        for side in ("left", "right"):
+            got = SR.sorted_search(keys, q, side)
+            require(torch.equal(got, SR.sorted_search_plain(keys, q, side)),
+                    f"sorted_search disagrees with its plain version (m={m}, {side})")
+        log(f"  sorted_search n={n} keys, m={m} queries, both sides: ok")
+    q = qsets[1 << 20]
+    m = int(q.shape[0])
+    t = timings("sorted_search", lambda: SR.sorted_search(keys, q, "left"),
+                lambda: SR.sorted_search_plain(keys, q, "left"), 20,
+                library_fn=lambda: torch.searchsorted(keys, q, out_int32=True))
+    # each query read and its position written once, and each 32-byte
+    # sector of keys that this run's searches touch read once; ~4
+    # operations a search step
+    keys_np, q_np = keys.cpu().numpy(), q.cpu().numpy()
+    sectors = np.unique(np.concatenate(
+        [probes // 8 for probes in _search_probes(lambda i: keys_np[i] < q_np, n, m)]))
+    steps = int(np.ceil(np.log2(n))) + 1
+    return 0, t, bound(8 * m + 32 * len(sectors), 4 * m * steps)
+
+
+def _search_probes(below, n, m):
+    """The key indices that the kernels' branchless lower bound reads, step
+    by step, for ``m`` searches over ``n`` sorted entries; ``below(i)`` says
+    for each search whether entry ``i[j]`` orders below search j's target."""
+    base = np.zeros(m, np.int64)
+    length = n
+    while length > 1:
+        half = length >> 1
+        idx = base + half
+        yield idx
+        base = np.where(below(idx), idx, base)
+        length -= half
+    yield base
+
+
+def _sorted_pairs(hi, lo):
+    order = np.lexsort((lo, hi))
+    return hi[order].astype(np.int32), lo[order].astype(np.int32)
+
+
+def check_frontier_dedup(rng, dev):
+    from repro_torch.kernels import frontier_dedup as FD
+
+    c, v = 1 << 20, 480_000
+    # candidates with duplicates: (seed index, node) pairs from a domain
+    # a little larger than the candidate count
+    ch, cl = _sorted_pairs(rng.randint(0, 4096, c), rng.randint(0, 300, c))
+    uniq = np.unique(ch.astype(np.int64) << 32 | cl.astype(np.int64))
+    others = np.unique(rng.randint(4096, 8192, 2 * v).astype(np.int64) << 32
+                       | rng.randint(0, 300, 2 * v).astype(np.int64))
+    vis = np.sort(np.concatenate([rng.choice(uniq, v // 2, replace=False),
+                                  rng.choice(others, v - v // 2, replace=False)]))
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x).astype(np.int32)).to(dev)  # noqa: E731
+    cand = (T(ch), T(cl))
+    visited = (T(vis >> 32), T(vis & 0xFFFFFFFF))
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    for label, vset in (("visited 480,000", visited), ("empty visited", (none, none))):
+        got = FD.frontier_dedup(*cand, *vset)
+        want = FD.frontier_dedup_plain(*cand, *vset)
+        require(torch.equal(got, want), f"frontier_dedup disagrees with its plain version ({label})")
+        log(f"  frontier_dedup C={c} ({label}): {int(got.sum())} kept, ok")
+    t = timings("frontier_dedup", lambda: FD.frontier_dedup(*cand, *visited),
+                lambda: FD.frontier_dedup_plain(*cand, *visited), 10)
+    t_empty = timings("frontier_dedup", lambda: FD.frontier_dedup(*cand, none, none),
+                      lambda: FD.frontier_dedup_plain(*cand, none, none), 10)
+    t["empty_visited"] = {k: t_empty[k] for k in ("ms", "call_ms", "plain_ms")}
+    # each candidate's pair read and its mask byte written once, and each
+    # 32-byte sector of the two visited columns that this run's searches
+    # (one per first occurrence) touch read once; ~6 operations a step
+    ckey = ch.astype(np.int64) << 32 | cl
+    firsts = ckey[np.diff(ckey, prepend=-1) != 0]
+    sectors = np.unique(np.concatenate(
+        [probes // 8 for probes in _search_probes(lambda i: vis[i] < firsts, v, len(firsts))]))
+    steps = int(np.ceil(np.log2(v))) + 1
+    return 0, t, bound(9 * c + 2 * 32 * len(sectors), 6 * len(firsts) * steps)
+
+
+def kernel_phase(dev, seed, knows_src):
     rng = np.random.RandomState(seed)
     results = {}
     for name, fn in (("join_expand", check_join_expand), ("gather_emit", check_gather_emit),
@@ -563,6 +692,8 @@ def kernel_phase(dev, seed):
                      ("hash_probe", check_hash_probe)):
         results[name] = fn(rng, dev)
     results.update(check_bloom(rng, dev))
+    results["sorted_search"] = check_sorted_search(rng, dev, knows_src)
+    results["frontier_dedup"] = check_frontier_dedup(rng, dev)
     rows = {}
     for name, (err, t, (bound_ms, bound_by)) in results.items():
         src, repl, _ = KERNEL_INFO[name]
@@ -574,6 +705,8 @@ def kernel_phase(dev, seed):
             "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
             "library_call_ms": t["library_call_ms"],
         }
+        if "empty_visited" in t:
+            rows[name]["empty_visited"] = t["empty_visited"]
         lib = ("" if t["library_ms"] is None else
                f", library {t['library_ms']:.6f} ms on the device "
                f"({t['library_call_ms']:.5f} ms per call)")
@@ -642,7 +775,17 @@ def run_count(engine, text):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     (row,) = res.decoded(engine.store.dict)
-    return int(row["count"]), wall
+    (count,) = row.values()
+    return int(count), wall
+
+
+def run_query(engine, text):
+    """(result, wall seconds) of one query, ending in a device sync."""
+    t0 = time.perf_counter()
+    res = engine.execute(text)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
 
 
 def count_syncs(fn):
@@ -665,11 +808,9 @@ def _config(path_cfg):
     return repro_torch.EngineConfig(join_strategy=join_strategy, sip=sip)
 
 
-def full_phase(dev, scale, seed, report):
-    """The timed runs of both full-size paths; returns the engines and each
-    path's launch counts."""
+def load_full_store(dev, scale, seed, report):
+    """The full-size LSQB store on the card."""
     import repro_torch
-    from repro_torch import kernels as K
 
     t0 = time.perf_counter()
     store, _ = repro_torch.generate_social_graph(scale=scale, seed=seed, device=dev)
@@ -679,6 +820,21 @@ def full_phase(dev, scale, seed, report):
         f"(four index orders), generated and loaded in {load_s:.1f} s")
     report["full"] = {"scale": scale, "triples": store.n_quads,
                       "device_bytes": store.device_bytes(), "load_s": load_s, "paths": {}}
+    return store
+
+
+def knows_subjects(store):
+    """The :knows scan's subject column, sorted (the psoc index slice)."""
+    rng = store.range_for_pattern("psoc", (None, store.dict.lookup(":knows"), None, None))
+    return store.index_columns("psoc")[1][rng.lo: rng.hi].contiguous()
+
+
+def full_phase(dev, store, report):
+    """The timed runs of both full-size paths; returns the engines and each
+    path's launch counts."""
+    import repro_torch
+    from repro_torch import kernels as K
+
     t0 = time.perf_counter()
     want = closed_form_counts(store)
     log(f"  closed forms from the quads in {time.perf_counter() - t0:.1f} s: {want}")
@@ -710,19 +866,235 @@ def full_phase(dev, scale, seed, report):
     return engines, path_launches
 
 
+def _edges(q, d, pred):
+    e = q[q[:, 1] == d.lookup(pred)]
+    return e[:, 0], e[:, 2]
+
+
+def _csr(src, dst, n):
+    """Out-neighbour lists of ``n`` nodes: (indptr, neighbours)."""
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
+    return indptr, dst[np.argsort(src, kind="stable")]
+
+
+def _neighbours(indptr, nbrs, nodes):
+    """The concatenated out-neighbours of ``nodes``, and for each the
+    index of its node in ``nodes``."""
+    starts, lens = indptr[nodes], indptr[nodes + 1] - indptr[nodes]
+    owner = np.repeat(np.arange(len(nodes)), lens)
+    offs = np.arange(len(owner)) - np.repeat(np.cumsum(lens) - lens, lens)
+    return nbrs[np.repeat(starts, lens) + offs], owner
+
+
+def _reach(indptr, nbrs, seed, n):
+    """Bool mask of the nodes reached from ``seed`` in one or more hops."""
+    seen = np.zeros(n, dtype=bool)
+    frontier = np.asarray([seed], dtype=np.int64)
+    while len(frontier):
+        nxt, _ = _neighbours(indptr, nbrs, frontier)
+        nxt = np.unique(nxt[~seen[nxt]])
+        seen[nxt] = True
+        frontier = nxt
+    return seen
+
+
+def path_closed_forms(store):
+    """p1-p5 straight from the generated quads (numpy only)."""
+    q = store.index_array("spoc").astype(np.int64)
+    d = store.dict
+    n = len(d)
+    ks, ko = _edges(q, d, ":knows")
+    interests = np.bincount(_edges(q, d, ":hasInterest")[0], minlength=n)
+    fwd, rev = _csr(ks, ko, n), _csr(ko, ks, n)
+    # p3: semi-naive closure of the reply graph over int64 pair keys
+    rs, ro = _edges(q, d, ":replyOf")
+    reply = _csr(rs, ro, n)
+    pairs = delta = np.unique(rs * n + ro)
+    while len(delta):
+        z, owner = _neighbours(*reply, delta % n)
+        delta = np.setdiff1d(np.unique((delta // n)[owner] * n + z), pairs, assume_unique=True)
+        pairs = np.union1d(pairs, delta)
+    z, owner = _neighbours(*fwd, ko)
+    return {
+        "p1": int(_reach(*rev, d.lookup(P1_TARGET), n).sum()),
+        "p2": int(interests[_reach(*fwd, d.lookup(P2_SOURCE), n)].sum()),
+        "p3": len(pairs),
+        "p4": len(np.unique(ks[owner] * n + z)),
+        "p5": len(np.unique(np.concatenate([ks * n + ko, ko * n + ks]))),
+    }
+
+
+def distinct_closed_forms(store):
+    """d1 (a count) and d2 ({city: distinct tags}) from the quads."""
+    q = store.index_array("spoc").astype(np.int64)
+    d = store.dict
+    n = len(d)
+    ls, lc = _edges(q, d, ":isLocatedIn")
+    tags, owner = _neighbours(*_csr(*_edges(q, d, ":hasInterest"), n), ls)
+    cities, counts = np.unique(np.unique(lc[owner] * n + tags) // n, return_counts=True)
+    return {"d1": len(np.unique(_edges(q, d, ":knows")[1])),
+            "d2": {d.decode(int(c)): int(k) for c, k in zip(cities, counts)}}
+
+
+def bsbm_closed_forms(store):
+    """b4 ({vendor: distinct reviewers of its offered products}) and b8
+    (products with a producer and no review) from the quads."""
+    q = store.index_array("spoc").astype(np.int64)
+    d = store.dict
+    n = len(d)
+    vendor_of = np.full(n, -1, np.int64)  # one vendor per offer
+    offers, vendors = _edges(q, d, ":vendor")
+    vendor_of[offers] = vendors
+    reviewer_of = np.full(n, -1, np.int64)  # one reviewer per review
+    reviews, reviewers = _edges(q, d, ":reviewer")
+    reviewer_of[reviews] = reviewers
+    offer, product = _edges(q, d, ":product")
+    review, reviewed = _edges(q, d, ":reviewFor")
+    revs, owner = _neighbours(*_csr(reviewed, reviewer_of[review], n), product)
+    vendors, counts = np.unique(np.unique(vendor_of[offer][owner] * n + revs) // n,
+                                return_counts=True)
+    with_producer = np.unique(_edges(q, d, ":producer")[0])
+    # b6's self-join rows: ordered pairs of distinct products per feature
+    per_feature = np.bincount(_edges(q, d, ":productFeature")[1], minlength=n)
+    return {"b4": {d.decode(int(v)): int(k) for v, k in zip(vendors, counts)},
+            "b8": len(np.setdiff1d(with_producer, reviewed)),
+            "b6_rows": int((per_feature * (per_feature - 1)).sum())}
+
+
+def path_counters(res):
+    """The frontier counters of every PathExpand in a query's operator
+    tree: rounds and dedup in/out summed, the peak frontier the largest."""
+    from repro_torch.core.operators.path import PathExpand
+
+    out = {"frontier_rounds": 0, "frontier_peak": 0, "dedup_in": 0, "dedup_out": 0}
+    stack = [res.root]
+    while stack:
+        op = stack.pop()
+        if isinstance(op, PathExpand):
+            for k, v in op.engine.counters.as_dict().items():
+                out[k] = max(out[k], v) if k == "frontier_peak" else out[k] + v
+        stack.extend(op.children())
+    return out
+
+
+def _require_launches(launches, kpath):
+    for name, (_, _, p) in KERNEL_INFO.items():
+        if p == kpath:
+            require(launches[name] > 0, f"kernel {name} was never launched on the {kpath} path")
+
+
+def paths_phase(engine, store, report):
+    """p1-p5 on the full-size store under ``engine`` (EngineConfig()), each
+    count held against its closed form; returns the phase's launch counts."""
+    from repro_torch import kernels as K
+
+    t0 = time.perf_counter()
+    want = path_closed_forms(store)
+    log(f"  closed forms from the quads in {time.perf_counter() - t0:.1f} s: {want}")
+    rep = report["paths"] = {"queries": {}}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    for name, text in PATH_QUERIES.items():
+        before = K.launch_counts()
+        res, wall = run_query(engine, text)
+        after = K.launch_counts()
+        delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        (row,) = res.decoded(engine.store.dict)
+        got, ctr = int(row["n"]), path_counters(res)
+        del res
+        log(f"  {name}: count={got} closed form={want[name]} wall={wall:.3f} s {ctr} "
+            f"launches={delta}")
+        require(got == want[name], f"paths {name}: engine count {got} != closed form {want[name]}")
+        require(delta.get("frontier_dedup", 0) > 0, f"paths {name}: frontier_dedup never launched")
+        if name in SEARCH_QUERIES:
+            require(delta.get("sorted_search", 0) > 0, f"paths {name}: sorted_search never launched")
+        rep["queries"][name] = {"count": got, "wall_s": wall, "launches": delta, **ctr}
+    launches = rep["launches"] = K.launch_counts()
+    _require_launches(launches, "paths")
+    rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory over the phase: {rep['max_memory_allocated']} bytes "
+        f"(torch.cuda.max_memory_allocated)")
+    return launches
+
+
+def _distinct_run(engine, name, text, rep):
+    """Run one query of the distinct phase; returns its decoded rows."""
+    from repro_torch import kernels as K
+
+    before = K.launch_counts()
+    res, wall = run_query(engine, text)
+    after = K.launch_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    rows = res.decoded(engine.store.dict)
+    rep["queries"][name] = {"rows": len(rows), "wall_s": wall, "launches": delta}
+    log(f"  {name}: {len(rows)} rows wall={wall:.3f} s launches={delta}")
+    if name in DEDUP_QUERIES:
+        require(delta.get("frontier_dedup", 0) > 0, f"distinct {name}: frontier_dedup never launched")
+    return rows
+
+
+def distinct_phase(engine, store, dev, report):
+    """d1 and d2 on the full-size LSQB store, then the BSBM BI mix (all but
+    b6) at scale 36; d1, d2, b4 and b8 against closed forms. Returns the
+    phase's launch counts."""
+    import repro_torch
+    from repro_torch import kernels as K
+    from repro_torch.data import BSBM_BI_QUERIES, generate_ecommerce_graph
+
+    want = distinct_closed_forms(store)
+    rep = report["distinct"] = {"queries": {}}
+    K.reset_launch_counts()
+    (row,) = _distinct_run(engine, "d1", DISTINCT_QUERIES["d1"], rep)
+    require(int(row["n"]) == want["d1"], f"distinct d1: {row['n']} != closed form {want['d1']}")
+    got = {r["city"]: int(r["n"]) for r in _distinct_run(engine, "d2", DISTINCT_QUERIES["d2"], rep)}
+    require(got == want["d2"], "distinct d2: the per-city distinct tag counts differ from the "
+                               "closed form")
+    log(f"  d1 = {want['d1']}; d2: {len(got)} groups summing to {sum(got.values())}, "
+        f"equal to the closed forms")
+    t0 = time.perf_counter()
+    bstore, meta = generate_ecommerce_graph(scale=BSBM_SCALE, seed=BSBM_SEED, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rep["bsbm"] = {"scale": BSBM_SCALE, "triples": bstore.n_quads, "products": meta["n_product"],
+                   "load_s": load_s}
+    log(f"  BSBM scale={BSBM_SCALE}: {bstore.n_quads} triples, {meta['n_product']} products, "
+        f"generated and loaded in {load_s:.1f} s {elapsed()}")
+    bwant = bsbm_closed_forms(bstore)
+    rep["bsbm"]["b6_rows"] = bwant["b6_rows"]
+    log(f"  b6 (breadth only) would emit {bwant['b6_rows']} self-join rows at this scale")
+    bengine = repro_torch.Engine(bstore, repro_torch.EngineConfig(), device=dev)
+    for name in BSBM_FULL_QUERIES:
+        rows = _distinct_run(bengine, name, BSBM_BI_QUERIES[name], rep)
+        if name == "b4":
+            got = {r["vendor"]: int(r["reviewers"]) for r in rows}
+            require(got == bwant["b4"], "bsbm b4: the per-vendor reviewer counts differ from "
+                                        "the closed form")
+            log(f"  b4: {len(got)} vendors, equal to the closed form")
+        elif name == "b8":
+            require(int(rows[0]["n"]) == bwant["b8"],
+                    f"bsbm b8: {rows[0]['n']} != closed form {bwant['b8']}")
+            log(f"  b8: {bwant['b8']} unreviewed products, equal to the closed form")
+    return K.launch_counts()
+
+
 def full_followups(engines, report):
-    """The sync-counting reruns and the profiled run of the full phase."""
+    """The sync-counting reruns (of the full phase's queries and of the
+    property paths) and the profiled run of the full phase."""
     import repro_torch
 
-    for path, queries in (("merge", MERGE_SYNC_QUERIES), ("default", PATHS["default"][1])):
+    reruns = [(path, name, repro_torch.LSQB_QUERIES[name], report["full"]["paths"][path])
+              for path, queries in (("merge", MERGE_SYNC_QUERIES),
+                                    ("default", PATHS["default"][1]))
+              for name in queries]
+    reruns += [("default", name, text, report["paths"]) for name, text in PATH_QUERIES.items()]
+    for path, name, text, rep in reruns:
         engine = engines[path]
-        for name in queries:
-            text = repro_torch.LSQB_QUERIES[name]
-            t0 = time.perf_counter()
-            syncs = count_syncs(lambda: run_count(engine, text))
-            report["full"]["paths"][path]["queries"][name]["syncs"] = syncs
-            log(f"  {path} {name}: {syncs} host syncs (a second run, torch sync debug mode, "
-                f"{time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        syncs = count_syncs(lambda: run_count(engine, text))
+        rep["queries"][name]["syncs"] = syncs
+        log(f"  {path} {name}: {syncs} host syncs (a second run, torch sync debug mode, "
+            f"{time.perf_counter() - t0:.1f} s)")
     name = PROFILED_QUERY
     rep = report["full"]["paths"]["default"]["queries"][name]
     prof = device_profile(lambda: run_count(engines["default"], repro_torch.LSQB_QUERIES[name]))
@@ -796,17 +1168,35 @@ def device_profile(fn, top: int = 8):
             "device_ops": dev[:top], "host_ops": host[:top], "kernels": kernels}
 
 
-def breadth_counts(device, scale, seed):
-    """{config: {query: (count, wall seconds)}} for all nine LSQB queries
-    under every breadth configuration, on ``device``."""
+def canonical_rows(res, dictionary):
+    """A query's decoded rows as sorted lists of values (JSON-safe), so the
+    card's and the CPU's answers compare whole."""
+    rows = [[r[k] for k in sorted(r)] for r in res.decoded(dictionary)]
+    return sorted(rows, key=repr)
+
+
+def breadth_results(device, scale, seed):
+    """{config: {query: (rows, wall seconds)}} for the nine LSQB queries,
+    p1-p5, d1 and d2 at LSQB ``scale`` and the eight BSBM BI queries at
+    BSBM_BREADTH_SCALE, under every breadth configuration, on ``device``."""
     import repro_torch
+    from repro_torch.data import BSBM_BI_QUERIES, generate_ecommerce_graph
 
     store, _ = repro_torch.generate_social_graph(scale=scale, seed=seed, device=device)
+    bstore, _ = generate_ecommerce_graph(scale=BSBM_BREADTH_SCALE, seed=BSBM_SEED, device=device)
+    if device.type == "cuda":
+        log(f"  LSQB scale {scale}: {store.n_quads} triples; BSBM scale {BSBM_BREADTH_SCALE}: "
+            f"{bstore.n_quads} triples")
+    work = [(store, {**repro_torch.LSQB_QUERIES, **PATH_QUERIES, **DISTINCT_QUERIES}),
+            (bstore, BSBM_BI_QUERIES)]
     out = {}
     for cfg_name, cfg in BREADTH_CONFIGS.items():
-        engine = repro_torch.Engine(store, _config(cfg), device=device)
-        out[cfg_name] = {name: run_count(engine, text)
-                         for name, text in repro_torch.LSQB_QUERIES.items()}
+        out[cfg_name] = {}
+        for st, queries in work:
+            engine = repro_torch.Engine(st, _config(cfg), device=device)
+            for name, text in queries.items():
+                res, wall = run_query(engine, text)
+                out[cfg_name][name] = (canonical_rows(res, st.dict), wall)
     return out
 
 
@@ -816,21 +1206,25 @@ def start_cpu_breadth(out_path: Path) -> subprocess.Popen:
                              "--cpu-breadth", str(out_path)])
 
 
+def _short(rows):
+    return f"{rows[0][0]}" if len(rows) == 1 and len(rows[0]) == 1 else f"{len(rows)} rows"
+
+
 def breadth_phase(dev, scale, seed, report, child, child_out: Path):
-    cuda = breadth_counts(dev, scale, seed)
+    cuda = json.loads(json.dumps(breadth_results(dev, scale, seed)))  # the CPU side's types
     log(f"  cuda side done {elapsed()}; waiting for the CPU side")
     rc = child.wait(timeout=900)
     require(rc == 0, f"the CPU breadth process failed with exit code {rc}")
     cpu = json.loads(child_out.read_text())
-    report["breadth"] = {"scale": scale, "configs": {}}
+    report["breadth"] = {"scale": scale, "bsbm_scale": BSBM_BREADTH_SCALE, "configs": {}}
     for cfg_name in BREADTH_CONFIGS:
         rep = report["breadth"]["configs"][cfg_name] = {}
-        for name, (gc, wc) in cuda[cfg_name].items():
-            cc, wcpu = cpu[cfg_name][name]
-            log(f"  {cfg_name} {name}: cuda count={gc} ({wc:.3f} s)  cpu count={cc} "
+        for name, (grows, wc) in cuda[cfg_name].items():
+            crows, wcpu = cpu[cfg_name][name]
+            log(f"  {cfg_name} {name}: cuda {_short(grows)} ({wc:.3f} s)  cpu {_short(crows)} "
                 f"({wcpu:.3f} s)")
-            require(gc == cc, f"{cfg_name} {name}: cuda count {gc} != cpu count {cc}")
-            rep[name] = {"count": gc, "cuda_s": wc, "cpu_s": wcpu}
+            require(grows == crows, f"{cfg_name} {name}: the card's rows differ from the CPU's")
+            rep[name] = {"result": _short(grows), "cuda_s": wc, "cpu_s": wcpu}
 
 
 def main() -> int:
@@ -842,8 +1236,8 @@ def main() -> int:
 
     if args.cpu_breadth:
         torch.set_num_threads(4)
-        counts = breadth_counts(torch.device("cpu"), BREADTH_SCALE, SEED)
-        Path(args.cpu_breadth).write_text(json.dumps(counts))
+        results = breadth_results(torch.device("cpu"), BREADTH_SCALE, SEED)
+        Path(args.cpu_breadth).write_text(json.dumps(results))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -861,10 +1255,16 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {report['build_s']:.1f} s ({len(KB.sources())} sources, sm_90a)")
 
+    log(f"full-size store: {elapsed()}")
+    store = load_full_store(dev, FULL_SCALE, SEED, report)
     log(f"kernels: {elapsed()}")
-    rows = kernel_phase(dev, SEED)
+    rows = kernel_phase(dev, SEED, knows_subjects(store))
     log(f"full-size: {elapsed()}")
-    engines, path_launches = full_phase(dev, FULL_SCALE, SEED, report)
+    engines, path_launches = full_phase(dev, store, report)
+    log(f"paths: {elapsed()}")
+    path_launches["paths"] = paths_phase(engines["default"], store, report)
+    log(f"distinct: {elapsed()}")
+    path_launches["distinct"] = distinct_phase(engines["default"], store, dev, report)
     for name, (_, _, path) in KERNEL_INFO.items():
         rows[name]["launches"] = path_launches[path][name]
         rows[name]["launches_by_path"] = {p: n[name] for p, n in path_launches.items()}
@@ -874,7 +1274,7 @@ def main() -> int:
         try:
             log(f"full-size follow-ups (the CPU breadth runs beside them): {elapsed()}")
             full_followups(engines, report)
-            del engines
+            del engines, store
             log(f"breadth: {elapsed()}")
             breadth_phase(dev, BREADTH_SCALE, SEED, report, child, child_out)
         finally:

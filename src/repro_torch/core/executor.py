@@ -10,8 +10,10 @@ join strategy, cost-gated SIP) and the forced ``hash`` / ``merge`` and
 SIP ``on`` / ``off`` settings: scans with seek and SIP prefilters, merge,
 lookup and radix-partitioned hash joins (inner / left_outer / semi /
 anti), FILTER and BIND through the expression VM, streaming and
-sort-based GROUP BY, DISTINCT, ORDER BY, LIMIT/OFFSET and UNION. A
-configuration or plan node outside it raises
+sort-based GROUP BY with plain and DISTINCT aggregates, DISTINCT, ORDER
+BY, LIMIT/OFFSET, UNION, and property paths through the vectorized
+frontier engine (``PathExpand``). A configuration or plan node outside it
+raises
 ``NotImplementedError`` naming the part of the port that will bring it; the
 engine never evaluates a query some other way.
 """
@@ -40,6 +42,7 @@ from repro_torch.core.operators.base import BatchOperator, close_tree
 from repro_torch.core.operators.hash_join import HashJoin
 from repro_torch.core.operators.lookup_join import LookupJoin
 from repro_torch.core.operators.merge_join import MergeJoin
+from repro_torch.core.operators.path import PathExpand
 from repro_torch.core.operators.scan import IndexScan
 from repro_torch.core.operators.simple import (
     ExtendOp,
@@ -185,8 +188,19 @@ class Translator:
             for ann in n.sip_exports:
                 self._sip_filter(ann).bind(lambda j=op, v=ann.var: ("keys", j.sip_keys(v)))
             return op
-        if isinstance(n, (PL.PPathExpand, PL.PPathScan)):
-            raise _not_ported("property paths", "the property-path slice")
+        if isinstance(n, PL.PPathExpand):
+            # the vectorized frontier engine (DESIGN.md §8): paths run on the
+            # batch pipeline like every other leaf
+            return PathExpand(
+                self.store, n.pattern.expr, n.pattern.s, n.pattern.o,
+                batch_size=self.cfg.max_batch, pool=pool,
+                sip_filters=[self._sip_filter(a) for a in n.sip],
+            )
+        if isinstance(n, PL.PPathScan):
+            raise _not_ported(
+                "the row-based path scan (PPathScan)",
+                "the legacy row engine and the batch/row adapters",
+            )
         if isinstance(n, PL.PCross):
             raise _not_ported("the cross join", "the remaining sort-join operators")
         if isinstance(n, PL.PFilter):
@@ -229,10 +243,12 @@ class Translator:
 
 
 class QueryResult:
-    def __init__(self, var_table: A.VarTable, proj: Tuple[int, ...], rows: np.ndarray):
+    def __init__(self, var_table: A.VarTable, proj: Tuple[int, ...], rows: np.ndarray,
+                 root: Optional[BatchOperator] = None):
         self.var_table = var_table
         self.proj = proj
         self.rows = rows  # (n, n_proj) int32 codes, on the host
+        self.root = root  # the closed operator tree (its counters stay readable)
 
     @property
     def n_rows(self) -> int:
@@ -329,4 +345,4 @@ class Engine:
             rows = dev_rows.cpu().numpy()  # the query's one device-to-host copy
         finally:
             close_tree(op)
-        return QueryResult(var_table or A.VarTable(), proj, rows)
+        return QueryResult(var_table or A.VarTable(), proj, rows, root=op)

@@ -9,10 +9,18 @@ streaming the sorted runs through StreamingGroupBy. StreamingDistinct
 scrolls past duplicates with skip(); SortDistinct sorts and dedups.
 
 Semantics follow the reference: COUNT counts bound terms, SUM/MIN/MAX/AVG
-restrict to numeric terms, and MIN/MAX/AVG over an empty group stay
-unbound. The partials come from the float32 scan (the reference's Pallas
-path); they are exact for integer values below 2^24. DISTINCT aggregates
-need the frontier_dedup kernel, which is not ported yet.
+restrict to numeric terms, DISTINCT dedups bound codes before the function
+applies, and MIN/MAX/AVG over an empty group stay unbound. The partials
+come from the float32 scan (the reference's Pallas path); they are exact
+for integer values below 2^24.
+
+DISTINCT aggregates (DESIGN.md §10.2) sort each batch once by (group,
+code) and take the first occurrence of each pair with the
+``frontier_dedup`` kernel (empty visited set); the per-run distinct stats
+then reduce through ``segment_scan`` like the others. The run spanning a
+batch boundary collects each batch's unique bound codes as device chunks
+and dedups them once, with ``torch.unique``, when the run closes; a global
+group spans every batch of its input that way.
 """
 
 from __future__ import annotations
@@ -29,19 +37,29 @@ from repro_torch.core.dictionary import Dictionary
 from repro_torch.core.exprs.vm import numeric_of
 from repro_torch.core.operators.base import BatchOperator
 from repro_torch.core.operators.sort import MaterializedSource, materialize
+from repro_torch.kernels.frontier_dedup import frontier_dedup
 
 _F64 = torch.float64
 
-# per-run statistics each aggregate consumes: 'cnt' is the run length,
-# 'bnd'/'nn' count bound / numeric rows, 'sum'/'min'/'max' fold numeric values
-_NEEDS: Dict[str, Tuple[str, ...]] = {
-    "count*": ("cnt",),
-    "count": ("bnd",),
-    "sum": ("sum",),
-    "min": ("min", "nn"),
-    "max": ("max", "nn"),
-    "avg": ("sum", "nn"),
+# per-run statistics each (func, distinct) aggregate consumes: 'cnt' is the
+# run length, 'bnd'/'nn' count bound / numeric rows, 'sum'/'min'/'max' fold
+# numeric values, and the d-prefixed stats fold over the run's distinct
+# bound codes
+_NEEDS: Dict[Tuple[str, bool], Tuple[str, ...]] = {
+    ("count*", False): ("cnt",),
+    ("count*", True): ("cnt",),  # hand-built plans only: the parser rejects it
+    ("count", False): ("bnd",),
+    ("count", True): ("dbnd",),
+    ("sum", False): ("sum",),
+    ("sum", True): ("dsum",),
+    ("min", False): ("min", "nn"),
+    ("min", True): ("min", "nn"),  # distinct never changes an extremum
+    ("max", False): ("max", "nn"),
+    ("max", True): ("max", "nn"),
+    ("avg", False): ("sum", "nn"),
+    ("avg", True): ("dsum", "dnn"),
 }
+_DISTINCT_STATS = ("dbnd", "dnn", "dsum")
 _SCALAR_INIT = {
     "cnt": 0.0, "bnd": 0.0, "nn": 0.0, "sum": 0.0,
     "min": float("inf"), "max": float("-inf"),
@@ -49,19 +67,19 @@ _SCALAR_INIT = {
 
 
 def _agg_needs(a: AggSpec) -> Tuple[str, ...]:
-    if a.distinct:
-        raise NotImplementedError(
-            "DISTINCT aggregates need the frontier_dedup kernel (property-path slice)"
-        )
-    return _NEEDS["count*" if a.var is None else a.func]
+    return _NEEDS[("count*" if a.var is None else a.func, a.distinct)]
 
 
 @dataclasses.dataclass
 class _Carry:
-    """Scalar partials for the group run spanning the batch boundary."""
+    """Partials for the group run spanning the batch boundary: scalars for
+    the associative stats, and for DISTINCT count/sum/avg each batch's
+    unique bound codes of the run as device chunks, deduped once when the
+    run closes."""
 
     key: Optional[int] = None
     stats: Optional[List[Dict[str, float]]] = None  # per-agg scalar partials
+    dcodes: Optional[Dict[int, List[torch.Tensor]]] = None  # per-agg code chunks
 
 
 class StreamingGroupBy(BatchOperator):
@@ -88,6 +106,10 @@ class StreamingGroupBy(BatchOperator):
         self.batch_size = batch_size
         self.pool = pool
         self._needs = [_agg_needs(a) for a in self.aggs]
+        self._dset_aggs = tuple(
+            ai for ai, need in enumerate(self._needs)
+            if any(s in _DISTINCT_STATS for s in need)
+        )
         self._out_keys: List[torch.Tensor] = []
         self._out_vals: List[List[torch.Tensor]] = [[] for _ in self.aggs]
         self._carry = _Carry()
@@ -138,9 +160,13 @@ class StreamingGroupBy(BatchOperator):
         self._drained = True
 
     def _batch_stats(self, keys: torch.Tensor, cb: ColumnBatch):
-        """stats[ai][stat]: (n_runs,) float64 per-run partials, one
-        segment_scan launch per distinct (var, stat) pair."""
+        """(stats, dinfo): stats[ai][stat] is a (n_runs,) float64 tensor of
+        per-run partials, one segment_scan launch per distinct (var, stat)
+        pair; dinfo[ai], for each DISTINCT count/sum/avg, is the (group,
+        code)-sorted batch's (keys, codes, first-bound-occurrence mask),
+        from which a boundary run's unique bound codes are sliced."""
         col_cache: Dict[int, Dict[str, torch.Tensor]] = {}
+        dsort_cache: Dict[int, Tuple[torch.Tensor, ...]] = {}
         job_cache: Dict[Tuple[int, str], torch.Tensor] = {}
 
         def cols_of(var: int) -> Dict[str, torch.Tensor]:
@@ -152,6 +178,22 @@ class StreamingGroupBy(BatchOperator):
                 col_cache[var] = c
             return c
 
+        def dsort_of(var: int) -> Tuple[torch.Tensor, ...]:
+            d = dsort_cache.get(var)
+            if d is None:
+                c = cols_of(var)
+                # sorting by (group, code) permutes rows only inside runs
+                order = torch.sort(vecops._pair_comp(keys, c["codes"])).indices
+                skeys, scodes = keys[order], c["codes"][order]
+                # first occurrence of each (group, code) pair: the
+                # frontier_dedup kernel with an empty visited set, over
+                # codes + 1 so that NULL (-1) stays non-negative
+                none = skeys.new_zeros(0)
+                first = frontier_dedup(skeys, scodes + 1, none, none)
+                d = (skeys, scodes, c["vals"][order], first & (scodes >= 0))
+                dsort_cache[var] = d
+            return d
+
         def job(var: Optional[int], stat: str) -> torch.Tensor:
             key = (-1 if var is None else var, stat)
             out = job_cache.get(key)
@@ -159,6 +201,15 @@ class StreamingGroupBy(BatchOperator):
                 return out
             if stat == "cnt":
                 out = self._reduce(keys, None, "count")
+            elif stat in _DISTINCT_STATS:
+                skeys, _, svals, keep = dsort_of(var)
+                if stat == "dbnd":
+                    out = self._reduce(skeys, keep.to(_F64), "sum")
+                else:
+                    dv = keep & ~torch.isnan(svals)
+                    out = self._reduce(
+                        skeys, dv.to(_F64) if stat == "dnn" else torch.where(dv, svals, 0.0),
+                        "sum")
             else:
                 c = cols_of(var)
                 if stat == "bnd":
@@ -176,22 +227,24 @@ class StreamingGroupBy(BatchOperator):
             job_cache[key] = out
             return out
 
-        return [
+        stats = [
             {stat: job(a.var, stat) for stat in need}
             for a, need in zip(self.aggs, self._needs)
         ]
+        dinfo = {ai: dsort_of(self.aggs[ai].var) for ai in self._dset_aggs}
+        return stats, dinfo
 
     def _consume_batch(self, keys: torch.Tensor, cb: ColumnBatch) -> None:
         run_keys, _, _ = vecops.run_boundaries(keys)
         n_runs = int(run_keys.shape[0])
         if n_runs == 0:
             return
-        stats = self._batch_stats(keys, cb)
+        stats, dinfo = self._batch_stats(keys, cb)
         i0 = 0
         if self._carry.key is not None:
             if int(run_keys[0]) == self._carry.key:
                 # first run continues the open group: fold its partials in
-                self._merge_run(stats, 0)
+                self._merge_run(stats, dinfo, 0)
                 i0 = 1
                 if n_runs > 1:
                     self._close_carry()
@@ -207,29 +260,34 @@ class StreamingGroupBy(BatchOperator):
         if last >= i0:
             # the last run may span the batch boundary: it becomes the carry
             self._carry = self._open_carry(int(run_keys[last]))
-            self._merge_run(stats, last)
+            self._merge_run(stats, dinfo, last)
 
     def _open_carry(self, key: int) -> _Carry:
         return _Carry(
             key=key,
-            stats=[{s: _SCALAR_INIT[s] for s in need} for need in self._needs],
+            stats=[{s: _SCALAR_INIT[s] for s in need if s not in _DISTINCT_STATS}
+                   for need in self._needs],
+            dcodes={},
         )
 
-    def _merge_run(self, stats, r: int) -> None:
-        st_all = self._carry.stats
-        names = [(ai, k) for ai in range(len(self.aggs)) for k in stats[ai]]
-        if not names:
-            return
-        # one device read for every partial of run r
-        vals = torch.stack([stats[ai][k][r] for ai, k in names]).tolist()
-        for (ai, k), x in zip(names, vals):
-            st = st_all[ai]
-            if k == "min":
-                st["min"] = min(st["min"], x)
-            elif k == "max":
-                st["max"] = max(st["max"], x)
-            else:
-                st[k] += x
+    def _merge_run(self, stats, dinfo, r: int) -> None:
+        c = self._carry
+        names = [(ai, k) for ai in range(len(self.aggs)) for k in stats[ai]
+                 if k not in _DISTINCT_STATS]
+        if names:
+            # one device read for every scalar partial of run r
+            vals = torch.stack([stats[ai][k][r] for ai, k in names]).tolist()
+            for (ai, k), x in zip(names, vals):
+                st = c.stats[ai]
+                if k == "min":
+                    st["min"] = min(st["min"], x)
+                elif k == "max":
+                    st["max"] = max(st["max"], x)
+                else:
+                    st[k] += x
+        for ai, (skeys, scodes, _, keep) in dinfo.items():
+            # run r's unique bound codes (sorted by construction)
+            c.dcodes.setdefault(ai, []).append(scodes[keep & (skeys == c.key)])
 
     def _close_carry(self) -> None:
         c = self._carry
@@ -243,6 +301,16 @@ class StreamingGroupBy(BatchOperator):
                 k: torch.tensor([v], dtype=_F64, device=self.device)
                 for k, v in c.stats[ai].items()
             }
+            if ai in self._dset_aggs:
+                chunks = c.dcodes.get(ai)
+                codes = (torch.unique(torch.cat(chunks)) if chunks
+                         else torch.zeros(0, dtype=torch.int32, device=self.device))
+                vals = numeric_of(self.dictionary, codes)
+                ok = ~torch.isnan(vals)
+                part["dbnd"] = torch.tensor(
+                    [float(codes.shape[0])], dtype=_F64, device=self.device)
+                part["dnn"] = ok.sum().to(_F64).reshape(1)
+                part["dsum"] = torch.where(ok, vals, 0.0).sum().reshape(1)
             self._out_vals[ai].append(self._final(a, part))
         self._carry = _Carry()
 
@@ -253,15 +321,17 @@ class StreamingGroupBy(BatchOperator):
         if a.var is None:
             return st["cnt"]
         if a.func == "count":
-            return st["bnd"]
+            return st["dbnd"] if a.distinct else st["bnd"]
         if a.func == "sum":
-            return st["sum"]
+            return st["dsum"] if a.distinct else st["sum"]
         if a.func == "min":
             return torch.where(st["nn"] > 0, st["min"], nan)
         if a.func == "max":
             return torch.where(st["nn"] > 0, st["max"], nan)
         if a.func == "avg":
-            return torch.where(st["nn"] > 0, st["sum"] / st["nn"].clamp(min=1.0), nan)
+            num = st["dsum"] if a.distinct else st["sum"]
+            den = st["dnn"] if a.distinct else st["nn"]
+            return torch.where(den > 0, num / den.clamp(min=1.0), nan)
         raise ValueError(a.func)
 
     # -- emission ----------------------------------------------------------------
@@ -340,8 +410,6 @@ class SortGroupBy(BatchOperator):
         batch_size: int = MAX_BATCH,
         pool: Optional[BatchPool] = None,
     ):
-        for a in aggs:
-            _agg_needs(a)
         self.child = child
         self.group_vars = tuple(group_vars)
         self.aggs = list(aggs)

@@ -3,8 +3,9 @@ the reference's ``core/vecops.py``).
 
 These are the per-batch computations the operators run outside the
 kernels: run detection, group probing, group output offsets, composite
-group keys, the run-end pick around the segmented scan, and the hash
-join's and the bloom filter's address arithmetic. Each matches its numpy
+group keys, the run-end pick around the segmented scan, the hash join's
+and the bloom filter's address arithmetic, and the property-path engine's
+pair keys and visited-set merge. Each matches its numpy
 counterpart in the reference on the same inputs.
 
 uint32 arithmetic is written in int64 masked to 32 bits (torch's uint32
@@ -191,8 +192,11 @@ def mix_pair(key_hi: Optional[torch.Tensor], key_lo: torch.Tensor) -> torch.Tens
 
 
 def _pair_comp(key_hi: Optional[torch.Tensor], key_lo: torch.Tensor) -> torch.Tensor:
-    """int64 composite preserving (hi, lo) lexicographic order (hi >= 0);
-    non-negative and below 2^63 (single-column keys below 2^32)."""
+    """int64 composite preserving the lexicographic order of int32 (hi, lo)
+    pairs compared as signed values; non-negative when hi >= 0 (the hash
+    join's keys), and below 2^32 for single-column keys. The reference's
+    numpy pair key ``(hi << 32) | lo`` assumes non-negative pairs; on those
+    the two order alike."""
     lo64 = key_lo.to(_I64) + (1 << 31)
     if key_hi is None:
         return lo64
@@ -248,3 +252,33 @@ def bloom_hash(keys: torch.Tensor, n_words: int) -> Tuple[torch.Tensor, torch.Te
     one = torch.ones_like(h1)
     bits = (one << (h1 & 31)) | (one << ((h2 >> 13) & 31))
     return word, bits
+
+
+# ---------------------------------------------------------------------------
+# sorted (hi, lo) pair sets (property-path BFS rounds, DESIGN.md §8)
+# ---------------------------------------------------------------------------
+
+
+def merge_sorted_pairs(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
+                       b_lo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two lexicographically sorted, mutually disjoint pair sets into
+    one sorted pair set (the visited-set growth step): each element is
+    scattered to its own index plus the number of the other set's elements
+    below it. The result never aliases ``b``, whose callers pass views of
+    recycled buffers."""
+    na, nb = int(a_hi.shape[0]), int(b_hi.shape[0])
+    if nb == 0:
+        return a_hi, a_lo
+    if na == 0:
+        return b_hi.clone(), b_lo.clone()
+    ka, kb = _pair_comp(a_hi, a_lo), _pair_comp(b_hi, b_lo)
+    dev = a_hi.device
+    pa = torch.arange(na, device=dev) + torch.searchsorted(kb, ka)
+    pb = torch.arange(nb, device=dev) + torch.searchsorted(ka, kb)
+    out_hi = torch.empty(na + nb, dtype=_I32, device=dev)
+    out_lo = torch.empty(na + nb, dtype=_I32, device=dev)
+    out_hi[pa] = a_hi
+    out_hi[pb] = b_hi
+    out_lo[pa] = a_lo
+    out_lo[pb] = b_lo
+    return out_hi, out_lo

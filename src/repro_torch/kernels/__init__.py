@@ -15,11 +15,13 @@ from typing import Dict
 from repro_torch.kernels import (
     bloom_filter,
     expr_eval,
+    frontier_dedup,
     gather_emit,
     hash_join,
     join_expand,
     radix_partition,
     segment_scan,
+    sorted_search,
 )
 
 # kernel name -> (module, name of its launch counter)
@@ -32,6 +34,8 @@ KERNEL_MODULES = {
     "hash_probe": (hash_join, "launches"),
     "bloom_build": (bloom_filter, "build_launches"),
     "bloom_probe": (bloom_filter, "probe_launches"),
+    "sorted_search": (sorted_search, "launches"),
+    "frontier_dedup": (frontier_dedup, "launches"),
 }
 
 

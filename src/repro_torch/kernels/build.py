@@ -117,6 +117,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "hash_probe_launch": [P, I, P, P, P, P, I, P, P, P],
         "bloom_build_launch": [P, L, I, P, P],
         "bloom_probe_launch": [P, I, P, I, P, P],
+        "sorted_search_launch": [P, I, P, I, I, P, P],
+        "frontier_dedup_launch": [P, P, L, P, P, I, P, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

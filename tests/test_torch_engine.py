@@ -246,16 +246,21 @@ def test_default_config_is_the_references():
 
 def test_lsqb_launch_counts_on_the_cpu(lsqb_cache):
     """The plain versions run on CPU tensors: no kernel launch is counted,
-    for any of the eight kernels, under the default configuration (hash
-    joins and SIP) and on the merge path."""
+    for any of the ten kernels, under the default configuration (hash
+    joins and SIP) and on the merge path, for a join query, a property
+    path and a DISTINCT aggregate."""
     from repro_torch import kernels as K
 
     K.reset_launch_counts()
     for cfg in ("default", "merge-off"):
-        _config_engines(lsqb_cache, cfg)[1].execute(LSQB_QUERIES["q6"])
+        port = _config_engines(lsqb_cache, cfg)[1]
+        port.execute(LSQB_QUERIES["q6"])
+        port.execute("SELECT (COUNT(*) AS ?n) { ?x :knows+ ?y }")
+        port.execute("SELECT (COUNT(DISTINCT ?t) AS ?n) { ?p :hasInterest ?t }")
     counts = K.launch_counts()
     assert set(counts) == {"join_expand", "gather_emit", "expr_eval", "segment_scan",
-                           "radix_partition", "hash_probe", "bloom_build", "bloom_probe"}
+                           "radix_partition", "hash_probe", "bloom_build", "bloom_probe",
+                           "sorted_search", "frontier_dedup"}
     assert set(counts.values()) == {0}
 
 

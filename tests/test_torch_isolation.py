@@ -77,24 +77,39 @@ def test_config_the_reference_lacks_is_refused(field, value):
         repro_torch.Engine(_cpu_store(), cfg, device="cpu")
 
 
-@pytest.mark.parametrize("text", [
-    "SELECT ?a ?b { ?a :knows+ ?b }",
-    "SELECT (COUNT(DISTINCT ?t) AS ?n) { ?p :hasInterest ?t }",
-])
-def test_plan_outside_the_slice_raises(text):
+def _path_scan_plan():
+    """A hand-built PPathScan: the row engine's `+` node, which the planner
+    no longer emits."""
+    from repro_torch.core import algebra as A
+    from repro_torch.core import planner as PL
+
+    return PL.PPathScan(A.TriplePattern(A.V(0), A.K(":knows"), A.V(1), A.K(":default")))
+
+
+@pytest.mark.parametrize("query,what", [
+    # a disconnected BGP plans a cross product (PCross)
+    ("SELECT ?a ?b ?c ?d { ?a :knows ?b . ?c :hasInterest ?d }", "cross join"),
+    (_path_scan_plan, "PPathScan"),
+], ids=["cross product", "PPathScan"])
+def test_plan_outside_the_slice_raises(query, what):
     engine = repro_torch.Engine(_cpu_store(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.execute(text)
+    with pytest.raises(NotImplementedError, match=what):
+        if isinstance(query, str):
+            engine.execute(query)
+        else:
+            engine.execute_plan(query())
 
 
 def test_kernels_take_no_other_device():
     """Only CPU tensors reach the plain versions; anything else launches
     the CUDA kernel or raises."""
     from repro_torch.kernels import bloom_filter as BF
+    from repro_torch.kernels import frontier_dedup as FD
     from repro_torch.kernels import hash_join as HJ
     from repro_torch.kernels import join_expand as JE
     from repro_torch.kernels import radix_partition as RP
     from repro_torch.kernels import segment_scan as SS
+    from repro_torch.kernels import sorted_search as SR
 
     meta = [torch.zeros(3, dtype=torch.int32, device="meta") for _ in range(4)]
     cum = torch.zeros(4, dtype=torch.int64, device="meta")
@@ -113,6 +128,10 @@ def test_kernels_take_no_other_device():
         BF.bloom_build(meta[0])
     with pytest.raises(ValueError, match="device"):
         BF.bloom_probe(meta[0][:2], meta[1])
+    with pytest.raises(ValueError, match="device"):
+        SR.sorted_search(meta[0], meta[1], "left")
+    with pytest.raises(ValueError, match="device"):
+        FD.frontier_dedup(*meta)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
