@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -169,11 +170,20 @@ def call_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _kernel_event(name: str, key: str, main_only: bool = False) -> bool:
+    """Whether a profiler event is one of kernel ``name``'s CUDA kernels:
+    ``{name}_kernel``, or with ``main_only`` false also a helper kernel of
+    the same launch (``{name}_<part>_kernel``, e.g. sorted_search's
+    sampling pre-pass)."""
+    part = "" if main_only else r"(_[a-z]+)?"
+    return re.search(rf"\b{name}{part}_kernel\b", key) is not None
+
+
 def device_ms(fn, iters: int, kernel=None):
     """Device milliseconds from torch.profiler over ``iters`` calls: per
-    launch of ``kernel`` (its ``*_kernel`` events' self device time) when it
-    is named, else per call summed over every device op. None when the
-    profiler recorded no such device time."""
+    call, the self device time of ``kernel``'s CUDA kernels (one wrapper
+    call is one counted launch) when it is named, else summed over every
+    device op. None when the profiler recorded no such device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -186,11 +196,10 @@ def device_ms(fn, iters: int, kernel=None):
     evs = [e for e in prof.key_averages()
            if e.device_type != cpu and e.self_device_time_total > 0]
     if kernel is not None:
-        evs = [e for e in evs if f"{kernel}_kernel" in e.key]
-    n = sum(e.count for e in evs) if kernel is not None else iters
-    if not evs or n == 0:
+        evs = [e for e in evs if _kernel_event(kernel, e.key)]
+    if not evs:
         return None
-    return sum(e.self_device_time_total for e in evs) / n / 1e3
+    return sum(e.self_device_time_total for e in evs) / iters / 1e3
 
 
 def timings(name, kernel_fn, plain_fn, plain_iters: int, library_fn=None) -> dict:
@@ -390,8 +399,11 @@ def check_expr_eval(rng, dev):
     return max_err, t, bound(nbytes, n * len(prog.instrs))
 
 
-def _sorted_keys(rng, n, max_run):
-    lens = rng.randint(1, max_run + 1, n)
+def _sorted_keys(rng, n, max_run, n_runs=None):
+    """``n`` sorted keys in runs of 1 to ``max_run``; ``n_runs`` run lengths
+    are drawn (``n`` when not given), enough when they sum past ``n``."""
+    lens = rng.randint(1, max_run + 1, n if n_runs is None else n_runs)
+    lens[-1] += max(0, n - int(lens.sum()))
     keys = np.repeat(np.arange(len(lens)), lens)[:n]
     return keys.astype(np.int32)
 
@@ -399,13 +411,17 @@ def _sorted_keys(rng, n, max_run):
 def check_segment_scan(rng, dev):
     from repro_torch.kernels import segment_scan as SS
 
-    n = 4096
+    n, big = 4096, 1 << 20
     key_sets = {
         "runs<=64": _sorted_keys(rng, n, 64),
         "runs across 1024": _sorted_keys(rng, n, 3000),
         "one run": np.zeros(n, np.int32),
         "all distinct": np.arange(n, dtype=np.int32),
         "n=100000": _sorted_keys(rng, 100_000, 500),
+        # above one tile (4096): many blocks joined by the look-back
+        "n=1048576 runs<=500": _sorted_keys(rng, big, 500),
+        "n=1048576 runs across tiles": _sorted_keys(rng, big, 20_000, n_runs=200),
+        "n=1048576 one run": np.full(big, 7, np.int32),
     }
     err = 0.0
     for label, keys_np in key_sets.items():
@@ -418,19 +434,42 @@ def check_segment_scan(rng, dev):
             got = SS.segment_scan(keys, v, op)
             want = SS.segment_scan_plain(keys, v, op)
             if op == "sum":
-                # another summation order than the doubling scan: rounding
+                # float sums: within 1e-5 of the plain version, which keeps the
+                # kernel's summation order
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
                 err = max(err, float((got - want).abs().max()))
                 gi, wi = SS.segment_scan(keys, ints, op), SS.segment_scan_plain(keys, ints, op)
                 require(torch.equal(gi, wi), "segment_scan: integer-valued sums must be exact")
             else:
                 require(torch.equal(got, want), f"segment_scan {op} differs ({label})")
-        log(f"  segment_scan {label}: n={m} sum/count/min/max ok")
-    keys = torch.from_numpy(key_sets["runs<=64"]).to(dev)
-    vals = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
-    t = timings("segment_scan", lambda: SS.segment_scan(keys, vals, "sum"),
-                lambda: SS.segment_scan_plain(keys, vals, "sum"), 10)
-    return err, t, bound(12 * n, 2 * n)
+        got = SS.segment_scan(keys, None, "count")
+        require(torch.equal(got, SS.segment_scan_plain(keys, None, "count")),
+                f"segment_scan count without values differs ({label})")
+        log(f"  segment_scan {label}: n={m} sum/count/min/max and count without values ok")
+
+    def timed(label, values, op, plain_iters=5):
+        keys = torch.from_numpy(key_sets[label]).to(dev)
+        m = keys.shape[0]
+        vals = (None if values is None else
+                torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev))
+        fn = lambda: SS.segment_scan(keys, vals, op)  # noqa: E731
+        t = timings("segment_scan", fn, lambda: SS.segment_scan_plain(keys, vals, op), plain_iters)
+        # every device op of one call, the look-back's zeroed scratch included
+        t["call_device_ms"] = device_ms(fn, 200)
+        return t, bound((8 if values is None else 12) * m, 2 * m)
+
+    t, main_bound = timed("runs<=64", "values", "sum", plain_iters=10)
+    for key, label, values, op in (("count_without_values", "runs<=64", None, "count"),
+                                   ("n=100000", "n=100000", "values", "sum"),
+                                   ("n=1048576", "n=1048576 runs<=500", "values", "sum"),
+                                   ("n=1048576 one run", "n=1048576 one run", "values", "sum")):
+        te, (b_ms, b_by) = timed(label, values, op)
+        t[key] = {**{f: te[f] for f in ("ms", "call_ms", "plain_ms", "call_device_ms")},
+                  "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  segment_scan {key}: kernel {te['ms']:.6f} ms on the device "
+            f"({te['call_ms']:.5f} ms per call, {te['call_device_ms']} ms of device ops per "
+            f"call), bound {b_ms:.6f} ms ({b_by})")
+    return err, t, main_bound
 
 
 def check_radix_partition(rng, dev):
@@ -591,39 +630,87 @@ def check_bloom(rng, dev):
     return rows
 
 
+def _search_bound(keys_np, q_np, sides):
+    """Each query read and its positions written once, and each 32-byte
+    sector of keys that this run's searches (of ``sides``) touch read once,
+    found by replaying a branchless search; ~4 operations a search step."""
+    n, m = len(keys_np), len(q_np)
+    below = {"left": lambda i: keys_np[i] < q_np, "right": lambda i: keys_np[i] <= q_np}
+    sectors = np.unique(np.concatenate(
+        [probes // 8 for side in sides for probes in _search_probes(below[side], n, m)]))
+    steps = int(np.ceil(np.log2(n))) + 1
+    return bound(4 * m * (1 + len(sides)) + 32 * len(sectors), 4 * m * steps * len(sides))
+
+
+def _small_search_keys(rng, keys, n):
+    """The first ``n`` of ``keys`` and queries on, beside, between and
+    beyond them, INT32_MIN and INT32_MAX included."""
+    k = keys[:n].contiguous()
+    kn = k.cpu().numpy().astype(np.int64)
+    lo, hi = (int(kn[0]), int(kn[-1])) if n else (0, 100)
+    q = np.concatenate([kn, kn - 1, kn + 1, rng.randint(lo - 5, hi + 6, 4096),
+                        [-(2 ** 31), 2 ** 31 - 1]])
+    return k, torch.from_numpy(np.clip(q, -(2 ** 31), 2 ** 31 - 1).astype(np.int32)).to(k.device)
+
+
 def check_sorted_search(rng, dev, keys):
     """``keys``: the full-size store's :knows subject column (sorted)."""
     from repro_torch.kernels import sorted_search as SR
 
     n = int(keys.shape[0])
     lo_k, hi_k = int(keys[0]), int(keys[-1])
-    qsets = {}
+    cases = {}
     for m in (4096, 1 << 20):
         q = np.concatenate([
             keys[torch.randint(0, n, (m // 2,), device=dev)].cpu().numpy(),  # on keys
             rng.randint(lo_k, hi_k + 1, m // 2 - 4),  # between keys
             [lo_k - 1, lo_k - 1000, hi_k + 1, hi_k + 1000],  # below and above
         ]).astype(np.int32)
-        qsets[m] = torch.from_numpy(q).to(dev)
-    for m, q in qsets.items():
-        for side in ("left", "right"):
-            got = SR.sorted_search(keys, q, side)
-            require(torch.equal(got, SR.sorted_search_plain(keys, q, side)),
-                    f"sorted_search disagrees with its plain version (m={m}, {side})")
-        log(f"  sorted_search n={n} keys, m={m} queries, both sides: ok")
-    q = qsets[1 << 20]
+        cases[f"n={n} m={m}"] = (keys, torch.from_numpy(q).to(dev))
+    q = cases[f"n={n} m={1 << 20}"][1]
+    q_sorted = torch.sort(q).values
+    cases[f"n={n} m={1 << 20} sorted queries"] = (keys, q_sorted)
+    for small in (0, 1, 4095, SR.SAMPLES - 1, SR.SAMPLES + 1):
+        cases[f"n={small}"] = _small_search_keys(rng, keys, small)
+    for label, (k, qs) in cases.items():
+        lib = [torch.searchsorted(k, qs, right=r, out_int32=True) for r in (False, True)]
+        for side, want in zip(("left", "right"), lib):
+            got = SR.sorted_search(k, qs, side)
+            require(torch.equal(got, SR.sorted_search_plain(k, qs, side)),
+                    f"sorted_search disagrees with its plain version ({label}, {side})")
+            require(torch.equal(got, want),
+                    f"sorted_search disagrees with torch.searchsorted ({label}, {side})")
+        lo, hi = SR.sorted_search_range(k, qs)
+        plo, phi = SR.sorted_search_range_plain(k, qs)
+        require(torch.equal(lo, plo) and torch.equal(hi, phi),
+                f"sorted_search_range disagrees with its plain version ({label})")
+        require(torch.equal(lo, lib[0]) and torch.equal(hi, lib[1]),
+                f"sorted_search_range disagrees with torch.searchsorted ({label})")
+        log(f"  sorted_search {label} ({qs.shape[0]} queries): left, right and both: ok")
     m = int(q.shape[0])
+    keys_np = keys.cpu().numpy()
     t = timings("sorted_search", lambda: SR.sorted_search(keys, q, "left"),
                 lambda: SR.sorted_search_plain(keys, q, "left"), 20,
                 library_fn=lambda: torch.searchsorted(keys, q, out_int32=True))
-    # each query read and its position written once, and each 32-byte
-    # sector of keys that this run's searches touch read once; ~4
-    # operations a search step
-    keys_np, q_np = keys.cpu().numpy(), q.cpu().numpy()
-    sectors = np.unique(np.concatenate(
-        [probes // 8 for probes in _search_probes(lambda i: keys_np[i] < q_np, n, m)]))
-    steps = int(np.ceil(np.log2(n))) + 1
-    return 0, t, bound(8 * m + 32 * len(sectors), 4 * m * steps)
+    # the same searches with the queries sorted, and both sides in one
+    # launch against two library calls
+    extra = {
+        "sorted_queries": (timings("sorted_search", lambda: SR.sorted_search(keys, q_sorted, "left"),
+                                   lambda: SR.sorted_search_plain(keys, q_sorted, "left"), 20,
+                                   library_fn=lambda: torch.searchsorted(keys, q_sorted,
+                                                                         out_int32=True)),
+                           _search_bound(keys_np, q_sorted.cpu().numpy(), ("left",))),
+        "both_sides": (timings("sorted_search", lambda: SR.sorted_search_range(keys, q),
+                               lambda: SR.sorted_search_range_plain(keys, q), 20,
+                               library_fn=lambda: SR.sorted_search_range_plain(keys, q)),
+                       _search_bound(keys_np, q.cpu().numpy(), ("left", "right"))),
+    }
+    for key, (te, (b_ms, b_by)) in extra.items():
+        t[key] = {**{f: te[f] for f in ("ms", "call_ms", "plain_ms", "library_ms")},
+                  "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  sorted_search {key} (m={m}): kernel {te['ms']:.6f} ms on the device, library "
+            f"{te['library_ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return 0, t, _search_bound(keys_np, q.cpu().numpy(), ("left",))
 
 
 def _search_probes(below, n, m):
@@ -705,8 +792,10 @@ def kernel_phase(dev, seed, knows_src):
             "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
             "library_call_ms": t["library_call_ms"],
         }
-        if "empty_visited" in t:
-            rows[name]["empty_visited"] = t["empty_visited"]
+        # further shapes timed beside the main one (frontier_dedup's empty
+        # visited set, sorted_search's sorted queries and both sides,
+        # segment_scan's larger inputs)
+        rows[name].update({k: v for k, v in t.items() if isinstance(v, dict)})
         lib = ("" if t["library_ms"] is None else
                f", library {t['library_ms']:.6f} ms on the device "
                f"({t['library_call_ms']:.5f} ms per call)")
@@ -1160,8 +1249,8 @@ def device_profile(fn, top: int = 8):
     dev = sorted(((k, c, us) for k, (c, us) in dev_t.items() if us > 0), key=lambda r: -r[2])
     host = sorted(((k, c, us) for k, (c, us) in host_t.items()), key=lambda r: -r[2])
     busy = sum(r[2] for r in dev) / 1e6 if dev else None
-    kernels = {name: [sum(r[1] for r in dev if f"{name}_kernel" in r[0]),
-                      sum(r[2] for r in dev if f"{name}_kernel" in r[0])]
+    kernels = {name: [sum(r[1] for r in dev if _kernel_event(name, r[0], main_only=True)),
+                      sum(r[2] for r in dev if _kernel_event(name, r[0]))]
                for name in KERNEL_INFO}
     return {"device_busy_s": busy, "profiled_wall_s": profiled_wall,
             "analysis_s": time.perf_counter() - t0 - profiled_wall,

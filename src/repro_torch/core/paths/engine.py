@@ -15,7 +15,8 @@ tensors (src, dst), lexicographically sorted and deduplicated:
              union with the identity relation (``?``).
 
 Closure runs as multi-source BFS where one *round* expands the whole
-frontier as one batch: successor ranges via ``sorted_search``, candidate
+frontier as one batch: successor ranges via one ``sorted_search_range``
+launch (both sides of the ``sorted_search`` kernel), candidate
 (source, node) pairs via ``join_expand`` + ``gather_emit`` windows written
 straight into pooled buffers, one sort of the int64 pair key, then one
 ``frontier_dedup`` launch (adjacent-unique + visited-set mask over the
@@ -49,7 +50,7 @@ from repro_torch.core.storage import QuadStore
 from repro_torch.kernels.frontier_dedup import frontier_dedup
 from repro_torch.kernels.gather_emit import gather_emit
 from repro_torch.kernels.join_expand import join_expand
-from repro_torch.kernels.sorted_search import sorted_search
+from repro_torch.kernels.sorted_search import sorted_search_range
 
 # expansion window: candidates are materialized into the round buffer in
 # chunks of this many output slots (bounds the join_expand working set)
@@ -247,8 +248,8 @@ class PathEngine:
         whose src equals ``nodes[i]`` emits (carry[i], rel.dst[edge]) into
         rows 0 and 1 of a pooled buffer. Returns (buffer, total); the caller
         releases the buffer."""
-        lo = sorted_search(rel.src, nodes, "left")
-        lens = sorted_search(rel.src, nodes, "right") - lo
+        lo, hi = sorted_search_range(rel.src, nodes)
+        lens = hi - lo
         n = int(nodes.shape[0])
         ones = torch.ones(n, dtype=_I32, device=self.device)
         idx = torch.arange(n, dtype=_I32, device=self.device)

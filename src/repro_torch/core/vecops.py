@@ -127,11 +127,9 @@ def segment_reduce(keys: torch.Tensor, values: Optional[torch.Tensor],
     if n == 0:
         return keys.to(_I32), torch.zeros(0, dtype=torch.float64, device=keys.device)
     if func == "count" or values is None:
-        vals = torch.ones(n, dtype=torch.float32, device=keys.device)
+        scan = segment_scan(keys.contiguous(), None, "count")  # the kernel makes the ones
     else:
-        vals = values.to(torch.float32).contiguous()
-    op = "sum" if func == "count" else func
-    scan = segment_scan(keys.contiguous(), vals, op)
+        scan = segment_scan(keys.contiguous(), values.to(torch.float32).contiguous(), func)
     run_end = torch.ones(n, dtype=torch.bool, device=keys.device)
     run_end[:-1] = keys[1:] != keys[:-1]
     return keys[run_end].to(_I32), scan[run_end].to(torch.float64)

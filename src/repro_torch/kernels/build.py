@@ -112,12 +112,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         "gather_emit_launch": [P, L, P, L, I, P, P, L, P, I, P, I, P, I, P, L, P, P],
         "expr_eval_launch": [P, P, P, L, P, P, P],
         "expr_eval_limits": [P, P, P, P],
-        "segment_scan_launch": [P, P, P, L, I, P],
+        "segment_scan_launch": [P, P, P, L, I, P, P],
         "radix_partition_launch": [P, L, I, P, P, P],
         "hash_probe_launch": [P, I, P, P, P, P, I, P, P, P],
         "bloom_build_launch": [P, L, I, P, P],
         "bloom_probe_launch": [P, I, P, I, P, P],
-        "sorted_search_launch": [P, I, P, I, I, P, P],
+        "sorted_search_launch": [P, I, P, I, I, P, P, P, P],
         "frontier_dedup_launch": [P, P, L, P, P, I, P, P],
     }
     for name, argtypes in sigs.items():

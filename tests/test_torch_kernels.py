@@ -400,6 +400,102 @@ def test_segment_scan_checks_its_inputs():
     assert SS.segment_scan(keys[:0], torch.zeros(0), "max").shape == (0,)
 
 
+# the kernel's layout at small tiles (threads, items per thread), so that
+# many tiles, and look-back windows of 32 tiles, occur at test sizes
+SMALL_TILES = ((32, 1), (32, 4), (64, 2))
+_PALLAS_SCANS = {}
+
+
+def _pallas_scan(kind, op, keys, vals):
+    key = (kind, op)
+    if key not in _PALLAS_SCANS:
+        _PALLAS_SCANS[key] = np.asarray(segment_scan_pallas(keys, vals, op))
+    return _PALLAS_SCANS[key]
+
+
+def _tiled_keys(kind, n=3000):
+    """Keys whose runs meet the tile edges of SMALL_TILES in every way."""
+    rng = np.random.RandomState(len(kind))
+    if kind == "one run over every tile":
+        return np.full(n, -5, np.int32)
+    if kind == "runs across tile edges":
+        return np.repeat(np.arange(n // 100, dtype=np.int32), 100)[:n]
+    if kind == "runs ending at tile edges":
+        return np.repeat(np.arange(n // 64 + 1, dtype=np.int32), 64)[:n]
+    return _keys(rng, kind, n)
+
+
+TILED_KINDS = ("one run over every tile", "runs across tile edges",
+               "runs ending at tile edges") + KEY_KINDS
+
+
+@pytest.mark.parametrize("tile", SMALL_TILES)
+@pytest.mark.parametrize("op", ["sum", "count", "min", "max"])
+@pytest.mark.parametrize("kind", TILED_KINDS)
+def test_segment_scan_tiled_model_matches_pallas(kind, op, tile):
+    """Per-thread items, warp and tile scans and the look-back carry, at
+    small tiles, against the Pallas kernel; integer-valued sums are exact."""
+    keys = _tiled_keys(kind)
+    rng = np.random.RandomState(len(kind) + len(op))
+    vals = (np.ones(len(keys)) if op == "count" else rng.randint(-40, 40, len(keys)))
+    vals = vals.astype(np.float32)
+    want = _pallas_scan(kind, op, keys, vals)
+    got = SS.segment_scan_plain(T(keys), None if op == "count" else T(vals), op, *tile)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("tile", SMALL_TILES + ((SS.THREADS, SS.ITEMS),))
+def test_segment_scan_tiled_model_float_values(tile):
+    """Float sums within 1e-5 of the Pallas kernel; min and max exact, NaN
+    and infinities included."""
+    keys = _tiled_keys("runs across tile edges", 5000)
+    rng = np.random.RandomState(3)
+    vals = rng.standard_normal(len(keys)).astype(np.float32)
+    for op in ("sum", "min", "max"):
+        if op != "sum":
+            vals = vals.copy()
+            vals[rng.randint(0, len(vals), 20)] = np.nan
+            vals[rng.randint(0, len(vals), 20)] = np.inf
+            vals[rng.randint(0, len(vals), 20)] = -np.inf
+        want = np.asarray(segment_scan_pallas(keys, vals, op))
+        got = SS.segment_scan_plain(T(keys), T(vals), op, *tile).numpy()
+        if op == "sum":
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+def test_segment_scan_look_back_crosses_windows():
+    """One run over 200 tiles of 32: each tile's carry walks back through
+    more than one 32-tile window to tile 0."""
+    keys = np.full(200 * 32, 9, np.int32)
+    vals = np.arange(len(keys), dtype=np.float32) % 7
+    got = SS.segment_scan_plain(T(keys), T(vals), "sum", 32, 1).numpy()
+    np.testing.assert_array_equal(got, np.cumsum(vals))
+    got = SS.segment_scan_plain(T(keys), T(vals), "max", 32, 1).numpy()
+    np.testing.assert_array_equal(got, np.maximum.accumulate(vals))
+
+
+@pytest.mark.parametrize("kind", KEY_KINDS)
+def test_segment_scan_count_without_values(kind):
+    """count with no values sums ones the kernel makes itself; with values
+    it sums them, as before."""
+    keys = _keys(np.random.RandomState(7), kind)
+    ones = np.ones(len(keys), np.float32)
+    want = np.asarray(segment_scan_pallas(keys, ones, "sum"))
+    np.testing.assert_array_equal(SS.segment_scan(T(keys), None, "count").numpy(), want)
+    np.testing.assert_array_equal(SS.segment_scan(T(keys), T(ones), "count").numpy(), want)
+    want_k, want_v = ops.segment_reduce(keys, None, "count", backend="numpy")
+    got_k, got_v = TV.segment_reduce(T(keys), None, "count")
+    np.testing.assert_array_equal(got_k.numpy(), want_k)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+
+
+def test_segment_scan_needs_values_beyond_count():
+    with pytest.raises(ValueError, match="needs values"):
+        SS.segment_scan(torch.zeros(4, dtype=torch.int32), None, "sum")
+
+
 # ---------------------------------------------------------------------------
 # the plain torch helpers around the kernels
 # ---------------------------------------------------------------------------

@@ -102,6 +102,70 @@ def test_sorted_search_refuses_bad_input():
         SSR.sorted_search(torch.tensor([1, 2]), T([1]))
 
 
+# the kernel's layout: a bucket step over every B-th key, B = ceil(n /
+# samples), then a binary search inside the bucket. Small sample counts
+# make buckets of many keys at test sizes.
+SAMPLE_COUNTS = (1, 7, 64, SSR.SAMPLES)
+
+
+def _bucket_case(name):
+    """Keys and queries that probe the bucket layout with ``samples``
+    samples: runs of duplicates across bucket edges, n not a power of two,
+    n below, at and above the sample count."""
+    rng = np.random.RandomState(zlib.crc32(name.encode()) % 1000)
+    n = {"n=1": 1, "n=63": 63, "n=65": 65, "n=1000": 1000, "one run": 500}[name]
+    keys = (np.full(n, 3, np.int32) if name == "one run"
+            else np.sort(rng.randint(0, max(2, n // 8), n)).astype(np.int32))
+    q = np.concatenate([keys, keys - 1, keys + 1, rng.randint(-5, n // 8 + 5, 200),
+                        [I32_MIN, I32_MIN + 1]]).astype(np.int32)
+    return keys, q
+
+
+BUCKET_CASES = ("n=1", "n=63", "n=65", "n=1000", "one run")
+
+
+@pytest.mark.parametrize("samples", SAMPLE_COUNTS)
+@pytest.mark.parametrize("backend", REF_BACKENDS)
+@pytest.mark.parametrize("case", BUCKET_CASES)
+def test_sorted_search_bucket_model_matches_reference(case, backend, samples):
+    keys, q = _bucket_case(case)
+    for side in ("left", "right"):
+        want = np.asarray(ops.sorted_search(keys, q, side, backend=backend))
+        got = SSR.sorted_search_plain(T(keys), T(q), side, samples=samples)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("samples", SAMPLE_COUNTS)
+def test_sorted_search_bucket_model_at_the_extremes(samples):
+    """n = 0, and queries at INT32_MIN and INT32_MAX over keys that reach
+    both ends, against the numpy oracle (the Pallas kernel counts its
+    INT32_MAX padding there)."""
+    keys = np.array([I32_MIN, I32_MIN, -7, 0, 0, 0, 5, I32_MAX - 1, I32_MAX, I32_MAX], np.int32)
+    q = np.array([I32_MIN, I32_MIN + 1, -8, 0, 4, 5, I32_MAX - 1, I32_MAX], np.int32)
+    for k in (keys, keys[:0], keys[:1], keys[-1:]):
+        for side in ("left", "right"):
+            np.testing.assert_array_equal(
+                SSR.sorted_search_plain(T(k), T(q), side, samples=samples).numpy(),
+                RV.sorted_search(k, q, side))
+
+
+@pytest.mark.parametrize("case", SEARCH_CASES + BUCKET_CASES)
+def test_sorted_search_range_matches_two_searches(case):
+    keys, q = (_search_case if case in SEARCH_CASES else _bucket_case)(case)
+    lo, hi = SSR.sorted_search_range(T(keys), T(q))
+    assert lo.dtype == hi.dtype == torch.int32
+    np.testing.assert_array_equal(lo.numpy(), SSR.sorted_search(T(keys), T(q), "left").numpy())
+    np.testing.assert_array_equal(hi.numpy(), SSR.sorted_search(T(keys), T(q), "right").numpy())
+
+
+def test_sorted_search_range_refuses_bad_input():
+    with pytest.raises(ValueError, match="int32"):
+        SSR.sorted_search_range(T([1, 2]), torch.tensor([1]))
+    with pytest.raises(ValueError, match="device"):
+        SSR.sorted_search_range(T([1]).to("meta"), T([1]).to("meta"))
+
+
 # ---------------------------------------------------------------------------
 # frontier_dedup
 # ---------------------------------------------------------------------------
@@ -435,3 +499,28 @@ def test_path_closed_forms_match_the_engines(chip_smoke, social_pair, name):
         (row,) = engine.execute(text).decoded(store.dict)
         assert row["n"] == want
     assert want > 0
+
+
+def test_path_engine_makes_one_range_search_per_expansion(graph_stores, monkeypatch):
+    """Each successor expansion finds both ends of its ranges with one
+    ``sorted_search_range`` call, not a left and a right search."""
+    from repro_torch.core.paths import engine as path_engine
+
+    calls = Counter()
+    search, expand = path_engine.sorted_search_range, TPathEngine._expand
+
+    def counted_search(*args):
+        calls["search"] += 1
+        return search(*args)
+
+    def counted_expand(self, *args):
+        calls["expand"] += 1
+        return expand(self, *args)
+
+    monkeypatch.setattr(path_engine, "sorted_search_range", counted_search)
+    monkeypatch.setattr(TPathEngine, "_expand", counted_expand)
+    ref_store, port_store = graph_stores["random"]
+    want = RPathEngine(ref_store, RPool(), backend="numpy").evaluate(EXPRS["plus of alternation"])
+    got = TPathEngine(port_store, TPool("cpu")).evaluate(_port_expr(EXPRS["plus of alternation"]))
+    np.testing.assert_array_equal(got.dst.numpy(), want.dst)
+    assert calls["expand"] > 0 and calls["search"] == calls["expand"]
