@@ -239,26 +239,92 @@ def require(cond: bool, what: str) -> None:
 
 
 def _groups(rng, g, lmax, rmax, dev, unit_left=False):
-    from repro_torch.core.vecops import group_output_offsets
-
     llens = np.ones(g, np.int32) if unit_left else rng.randint(1, lmax + 1, g).astype(np.int32)
     rlens = rng.randint(1, rmax + 1, g).astype(np.int32)
+    return _group_tensors(llens, rlens, dev)
+
+
+def _group_tensors(llens, rlens, dev):
+    from repro_torch.core.vecops import group_output_offsets
+
     lstarts = np.concatenate([[0], np.cumsum(llens)[:-1]]).astype(np.int32)
     rstarts = np.concatenate([[0], np.cumsum(rlens)[:-1]]).astype(np.int32)
-    ts = [torch.from_numpy(x).to(dev) for x in (lstarts, llens, rstarts, rlens)]
+    ts = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+          for x in (lstarts, llens, rstarts, rlens)]
     return (*ts, group_output_offsets(ts[1], ts[3]))
+
+
+def _empty_runs_at_tiles(rng, tile, n_tiles, dev):
+    """Groups whose every tile of ``tile`` slots opens on a run of 1-40
+    empty groups (left or right run empty), then random groups of up to 24
+    slots that fill the tile."""
+    ll, rl = [], []
+    for _ in range(n_tiles):
+        for _ in range(rng.randint(1, 41)):
+            empty_left = rng.rand() < 0.5
+            ll.append(0 if empty_left else rng.randint(1, 4))
+            rl.append(rng.randint(1, 4) if empty_left else 0)
+        left = tile
+        while left > 0:
+            a, b = rng.randint(1, 5), rng.randint(1, 7)
+            if a * b > left:
+                a, b = 1, left
+            ll.append(a)
+            rl.append(b)
+            left -= a * b
+    return _group_tensors(np.asarray(ll), np.asarray(rl), dev)
+
+
+def _sectors(idx, itemsize):
+    """32-byte sectors that reads of the elements ``idx`` of an array with
+    ``itemsize``-byte elements touch."""
+    return len(np.unique(np.asarray(idx, np.int64) * itemsize // 32))
+
+
+def _expand_bound(args, base, count):
+    """join_expand's bound: li and ri written (8 bytes a slot), and each
+    32-byte sector read once of the cum entries and the three group
+    parameters the kernel reads (lstarts, rstarts, rlens) of the groups
+    this window spans (cum[G] included); ~8 operations a slot."""
+    cum = args[4].cpu().numpy()
+    total = int(cum[-1])
+    lo, hi = max(base, 0), min(base + count, total)
+    if lo >= hi:
+        return bound(8 * count, 8 * count)
+    g0 = int(np.searchsorted(cum, lo, side="right")) - 1
+    g1 = int(np.searchsorted(cum, hi, side="left"))
+    groups = np.arange(g0, g1)
+    read = 32 * (_sectors(np.append(np.arange(g0, g1 + 1), len(cum) - 1), 8)
+                 + 3 * _sectors(groups, 4))
+    return bound(read + 8 * count, 8 * count)
 
 
 def check_join_expand(rng, dev):
     from repro_torch.kernels import join_expand as JE
 
     err = 0
+    small, large = JE.TILE_SMALL, JE.TILE_LARGE
+    q6 = _groups(rng, 40000, 4, 8, dev)
+    wide = _groups(rng, 400_000, 4, 8, dev)  # about 4.5M slots
     cases = [
-        ("groups=40000", _groups(rng, 40000, 4, 8, dev), None, 4096),
+        ("groups=40000", q6, None, 4096),
         ("unit-left runs", _groups(rng, 4096, 1, 64, dev, unit_left=True), 0, 4096),
         ("unit-right runs", _groups(rng, 4096, 64, 1, dev), 0, 4096),
         ("count=2^20", _groups(rng, 40000, 4, 8, dev), 0, 1 << 20),
         ("cum > 2^31", _groups(rng, 20000, 1000, 1000, dev), None, 4096),
+        ("empty runs at small tile starts", _empty_runs_at_tiles(rng, small, 64, dev), 0,
+         64 * small),
+        ("empty runs at large tile starts",
+         _empty_runs_at_tiles(rng, large, JE.LARGE_FROM // large, dev), 0, JE.LARGE_FROM),
+        ("one group, count=2^20", _group_tensors(np.asarray([8]), np.asarray([1 << 17]), dev),
+         0, 1 << 20),
+        ("G=1", _group_tensors(np.asarray([3]), np.asarray([5]), dev), 0, 4096),
+        ("G=300000", _groups(rng, 300_000, 4, 8, dev), None, 4096),
+        ("base, count not multiples of the small tile", _groups(rng, 40000, 4, 8, dev),
+         12_345, 3 * small + 77),
+        ("base, count not multiples of the large tile", wide, 12_345, JE.LARGE_FROM + 77),
+        ("count just below the large tile", wide, 0, JE.LARGE_FROM - 1),
+        ("count=65536", wide, 0, 65536),
     ]
     for label, args, base, count in cases:
         total = int(args[4][-1])
@@ -266,26 +332,63 @@ def check_join_expand(rng, dev):
             base = total - 2048 if "2^31" in label else total // 2
         if "2^31" in label:
             require(total > 2 ** 31, "join_expand: the wide case must pass 2^31 slots")
+        if label.startswith("empty runs"):
+            tile = JE.tile_for(count)
+            require(tile == (small if "small" in label else large),
+                    f"join_expand: the case '{label}' must run at its tile")
+            ll, rl, cum = (x.cpu().numpy() for x in (args[1], args[3], args[4]))
+            starts = set(cum[:-1][(ll.astype(np.int64) * rl) == 0].tolist())
+            require(set(range(0, count, tile)) <= starts,
+                    "join_expand: every tile of the empty-run case must open on empty groups")
         li, ri = JE.join_expand(*args, base, count)
         pli, pri = JE.join_expand_plain(*args, base, count)
         require(torch.equal(li, pli) and torch.equal(ri, pri),
                 f"join_expand disagrees with its plain version ({label})")
         err = max(err, int((li - pli).abs().max()), int((ri - pri).abs().max()))
-        log(f"  join_expand {label}: total={total} base={base} count={count} ok")
-    args = cases[0][1]
-    base = int(args[4][-1]) // 2
-    t = timings("join_expand", lambda: JE.join_expand(*args, base, 4096),
-                lambda: JE.join_expand_plain(*args, base, 4096), 20)
-    cum = args[4].cpu().numpy()
-    g0 = int(np.searchsorted(cum, base, side="right")) - 1
-    g1 = int(np.searchsorted(cum, base + 4096, side="left"))
-    nbytes = (g1 - g0) * 24 + 4096 * 8
-    ops = 4096 * (np.log2(len(cum)) + 8)
-    return err, t, bound(nbytes, ops)
+        log(f"  join_expand {label}: total={total} base={base} count={count} "
+            f"tile={JE.tile_for(count)} ok")
+    base = int(q6[4][-1]) // 2
+    t = timings("join_expand", lambda: JE.join_expand(*q6, base, 4096),
+                lambda: JE.join_expand_plain(*q6, base, 4096), 20)
+    # further shapes, on both sides of the tile choice: up to 65,536 slots
+    # the small tile, from 262,144 the large one
+    for key, args, b, count in (("G=300000", cases[9][1], None, 4096),
+                                ("count=65536", wide, 0, 65536),
+                                ("count=262144", wide, 0, 262144),
+                                ("count=2^20", cases[3][1], 0, 1 << 20),
+                                ("one group, count=2^20", cases[7][1], 0, 1 << 20)):
+        b = int(args[4][-1]) // 2 if b is None else b
+        te = timings("join_expand", lambda: JE.join_expand(*args, b, count),
+                     lambda: JE.join_expand_plain(*args, b, count), 5)
+        b_ms, b_by = _expand_bound(args, b, count)
+        t[key] = {**{f: te[f] for f in ("ms", "call_ms", "plain_ms")},
+                  "bound_ms": b_ms, "bound_by": b_by, "tile": JE.tile_for(count)}
+        log(f"  join_expand {key}: kernel {te['ms']:.6f} ms on the device "
+            f"({te['call_ms']:.5f} ms per call), tile {JE.tile_for(count)}, "
+            f"bound {b_ms:.6f} ms ({b_by})")
+    return err, t, _expand_bound(q6, base, 4096)
+
+
+def _emit_bound(plan, li, ri, c):
+    """gather_emit's bound: li (and ri) read, the block and the mask
+    written, and each 32-byte sector read once of every left row emitted
+    or compared at the slots' li, and of every such right row at the slots
+    whose ri is valid; ~8 operations a slot."""
+    li_np = li.cpu().numpy()
+    left_rows = {r for r in plan.lsel if r >= 0} | {a for a, _ in plan.pairs}
+    right_rows = {r for r in plan.rsel if r >= 0} | {b for _, b in plan.pairs}
+    rsec = 0
+    if ri is not None:
+        ri_np = ri.cpu().numpy()
+        rsec = _sectors(ri_np[ri_np >= 0], 4)
+    cells = 32 * (len(left_rows) * _sectors(li_np, 4) + len(right_rows) * rsec)
+    nbytes = (4 if ri is None else 8) * c + cells + 4 * plan.n_rows * c + c
+    return bound(nbytes, 8 * c)
 
 
 def check_gather_emit(rng, dev):
     from repro_torch.kernels import gather_emit as GE
+    from repro_torch.kernels import join_expand as JE
 
     nsrc, c = 1_000_000, 4096
     lcols = torch.from_numpy(rng.randint(0, 4, (3, nsrc)).astype(np.int32)).to(dev)
@@ -295,16 +398,44 @@ def check_gather_emit(rng, dev):
     ri_np[rng.rand(c) < 0.1] = -1  # virtual NULL rows (left_outer padding)
     ri = torch.from_numpy(ri_np).to(dev)
     empty_r = torch.zeros((3, 0), dtype=torch.int32, device=dev)
-    sel = lambda rows: GE.index_tensor(rows, dev)  # noqa: E731
-    pairs = lambda ps: GE.pairs_tensor(ps, dev)  # noqa: E731
+    # join-shaped indices: join_expand over the 40,000-group case, so li
+    # never decreases and ri comes in runs, as on the main path
+    groups = _groups(rng, 40000, 4, 8, dev)
+    jli, jri = JE.join_expand(*groups, int(groups[4][-1]) // 2, c)
+    require(bool((jli[1:] >= jli[:-1]).all()), "gather_emit: join-shaped li must not decrease")
+    # a plan at the caps over 12-row sources
+    wide_l = torch.from_numpy(rng.randint(0, 4, (12, 100_000)).astype(np.int32)).to(dev)
+    wide_r = torch.from_numpy(rng.randint(0, 4, (6, 100_000)).astype(np.int32)).to(dev)
+    wli = torch.from_numpy(rng.randint(0, 100_000, c).astype(np.int32)).to(dev)
+    wri = torch.from_numpy(np.where(rng.rand(c) < 0.1, -1, rng.randint(0, 100_000, c))
+                           .astype(np.int32)).to(dev)
+    at_caps = GE.EmitPlan(tuple(range(11)) + (-1,), (5, -1, 0, 3),
+                          ((0, 0), (11, 1), (3, 3), (7, 5)))
+    require(at_caps.n_rows == GE.MAX_ROWS and len(at_caps.pairs) == GE.MAX_PAIRS,
+            "gather_emit: the caps case must sit at the caps")
+    for label, make in (("MAX_ROWS", lambda: GE.EmitPlan(range(GE.MAX_ROWS - 3), range(4))),
+                        ("MAX_PAIRS", lambda: GE.EmitPlan((0,), (), [(0, 0)] * (GE.MAX_PAIRS + 1)))):
+        try:
+            make()
+        except ValueError as e:
+            require(label in str(e), f"gather_emit: the {label} error must name the cap")
+            log(f"  gather_emit one past {label}: raises ({e})")
+        else:
+            raise AssertionError(f"gather_emit: a plan one past {label} must raise")
+    join = GE.EmitPlan((0, 1, 2), (1, 2), ((0, 0),))
+    concat = GE.EmitPlan((0, 1, 2))
     cases = [
-        ("join emit", (lcols, rcols, li, ri, sel([0, 1, 2]), sel([1, 2]), pairs([(0, 0)])), None),
-        ("-1 rows, 2 pairs", (lcols, rcols, li, ri, sel([0, -1, 2]), sel([-1, 1]),
-                              pairs([(0, 0), (1, 1)])), None),
-        ("mask only", (lcols, rcols, li, ri, sel([]), sel([]), pairs([(0, 0)])), None),
-        ("empty right", (lcols, empty_r, li, ri, sel([0, 1]), sel([0, 2]), pairs([(0, 0)])), None),
-        ("concat (no ri)", (lcols, None, li, None, sel([2, -1, 0]), sel([]), pairs([])), None),
-        ("out offset", (lcols, rcols, li, ri, sel([0, 1, 2]), sel([1, 2]), pairs([(0, 0)])), 4096),
+        ("join emit", (lcols, rcols, li, ri, join), None),
+        ("-1 rows, 2 pairs", (lcols, rcols, li, ri,
+                              GE.EmitPlan((0, -1, 2), (-1, 1), ((0, 0), (1, 1)))), None),
+        ("mask only", (lcols, rcols, li, ri, GE.EmitPlan(pairs=((0, 0),))), None),
+        ("empty right", (lcols, empty_r, li, ri, GE.EmitPlan((0, 1), (0, 2), ((0, 0),))), None),
+        ("concat (no ri)", (lcols, None, li, None, GE.EmitPlan((2, -1, 0))), None),
+        ("concat, all rows", (lcols, None, li, None, concat), None),
+        ("out offset", (lcols, rcols, li, ri, join), 4096),
+        ("unaligned out offset", (lcols, rcols, li, ri, join), 4099),
+        ("join-shaped", (lcols, rcols, jli, jri, join), None),
+        ("plan at the caps", (wide_l, wide_r, wli, wri, at_caps), None),
     ]
     err = 0
     for label, args, off in cases:
@@ -312,32 +443,48 @@ def check_gather_emit(rng, dev):
             blk, m = GE.gather_emit(*args)
             pblk, pm = GE.gather_emit_plain(*args)
         else:
-            out = torch.full((6, 2 * c), 7, dtype=torch.int32, device=dev)
+            out = torch.full((6, 3 * c), 7, dtype=torch.int32, device=dev)
             pout = out.clone()
             blk, m = GE.gather_emit(*args, out=out, out_offset=off)
             pblk, pm = GE.gather_emit_plain(*args, out=pout, out_offset=off)
-            require(torch.equal(out, pout), "gather_emit: out= buffers differ")
+            require(torch.equal(out, pout), f"gather_emit: out= buffers differ ({label})")
         require(torch.equal(blk, pblk) and torch.equal(m, pm),
                 f"gather_emit disagrees with its plain version ({label})")
         if blk.numel():
             err = max(err, int((blk - pblk).abs().max()))
-        log(f"  gather_emit {label}: C={c} src rows={nsrc} ok")
+        log(f"  gather_emit {label}: C={c} ok")
+    # C = 2^20 random slots
+    bli = torch.from_numpy(rng.randint(0, nsrc, 1 << 20).astype(np.int32)).to(dev)
+    bri = torch.from_numpy(rng.randint(-1, nsrc, 1 << 20).astype(np.int32)).to(dev)
+    big = (lcols, rcols, bli, bri, join)
+    blk, m = GE.gather_emit(*big)
+    pblk, pm = GE.gather_emit_plain(*big)
+    require(torch.equal(blk, pblk) and torch.equal(m, pm),
+            "gather_emit disagrees with its plain version (C=2^20)")
+    log("  gather_emit C=2^20: ok")
     args = cases[0][1]
     out = torch.empty((5, c), dtype=torch.int32, device=dev)
     t = timings("gather_emit", lambda: GE.gather_emit(*args, out=out),
                 lambda: GE.gather_emit_plain(*args, out=out), 20)
-    # source cells read once each: every left row that is emitted or
-    # compared, at every slot, and every such right row at the slots whose
-    # ri is valid; a pair's row that is also emitted is not read again
-    lsel, rsel, prs = args[4].tolist(), args[5].tolist(), args[6].tolist()
-    left_rows = {r for r in lsel if r >= 0} | {lr for lr, _ in prs}
-    right_rows = {r for r in rsel if r >= 0} | {rr for _, rr in prs}
-    valid_r = int((ri >= 0).sum())
-    cells = len(left_rows) * c + len(right_rows) * valid_r
-    small = 4 * (len(lsel) + len(rsel) + 2 * len(prs))
-    # li, ri read; the emitted block written as int32, the mask as bool
-    nbytes = 8 * c + small + 4 * cells + 4 * (len(lsel) + len(rsel)) * c + c
-    return err, t, bound(nbytes, 8 * c)
+    jargs = cases[8][1]
+    extra = {
+        "join-shaped": (jargs, out, None, 20),
+        "concat, all rows": (cases[5][1], None,
+                             lambda: torch.index_select(lcols, 1, li), 20),
+        "plan at the caps": (cases[9][1], None, None, 20),
+        "C=2^20": (big, None, None, 3),
+    }
+    for key, (a, o, lib_fn, iters) in extra.items():
+        kw = {} if o is None else {"out": o}
+        te = timings("gather_emit", lambda: GE.gather_emit(*a, **kw),
+                     lambda: GE.gather_emit_plain(*a, **kw), iters, library_fn=lib_fn)
+        b_ms, b_by = _emit_bound(a[4], a[2], a[3], int(a[2].shape[0]))
+        t[key] = {**{f: te[f] for f in ("ms", "call_ms", "plain_ms", "library_ms")},
+                  "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  gather_emit {key}: kernel {te['ms']:.6f} ms on the device "
+            f"({te['call_ms']:.5f} ms per call), library {te['library_ms']}, "
+            f"bound {b_ms:.6f} ms ({b_by})")
+    return err, t, _emit_bound(args[4], args[2], args[3], c)
 
 
 def all_opcode_program():

@@ -256,8 +256,9 @@ def concat_batches(
     """Concatenate batches, aligning schemas and NULL-filling missing vars.
 
     Each input batch is gathered straight into the output buffer at its
-    offset through the gather_emit kernel (one pass per source)."""
-    from repro_torch.kernels.gather_emit import gather_emit
+    offset through the gather_emit kernel (one pass per source), with an
+    emit plan built on the host for each source schema."""
+    from repro_torch.kernels.gather_emit import EmitPlan, gather_emit
 
     if not batches:
         return ColumnBatch.empty(tuple(var_ids or ()), device)
@@ -274,20 +275,18 @@ def concat_batches(
     if total > cap:
         cap = total
     out = ColumnBatch.alloc(var_ids, cap, device, pool)
-    no_rows = torch.zeros(0, dtype=torch.int32, device=device)
-    no_pairs = torch.zeros((0, 2), dtype=torch.int32, device=device)
+    plans: Dict[Tuple[int, ...], EmitPlan] = {}
     pos = 0
     for b, sel in zip(batches, sels):
         n = int(sel.shape[0])
         if n:
-            src_rows = [b.var_ids.index(v) if v in b.var_ids else -1 for v in var_ids]
-            lsel = torch.tensor(src_rows, dtype=torch.int32, device=device)
-            gather_emit(
-                b.columns, None, sel, None, lsel, no_rows, no_pairs,
-                out=out.columns, out_offset=pos,
-            )
+            plan = plans.get(b.var_ids)
+            if plan is None:
+                plan = plans[b.var_ids] = EmitPlan(
+                    [b.var_ids.index(v) if v in b.var_ids else -1 for v in var_ids])
+            gather_emit(b.columns, None, sel, None, plan, out=out.columns, out_offset=pos)
             if pool is not None:  # NULL-filled missing vars aren't copies
-                pool.bytes_copied += sum(1 for r in src_rows if r >= 0) * n * 4
+                pool.bytes_copied += sum(1 for r in plan.lsel if r >= 0) * n * 4
             pos += n
         if release_inputs:
             b.release()

@@ -40,7 +40,7 @@ from repro_torch.core.exprs.vm import eval_program_mask
 from repro_torch.core.operators.base import BatchOperator
 from repro_torch.core.operators.simple import resolve_program
 from repro_torch.core.operators.sort import materialize
-from repro_torch.kernels.gather_emit import gather_emit, index_tensor, pairs_tensor
+from repro_torch.kernels.gather_emit import EmitPlan, gather_emit
 from repro_torch.kernels.hash_join import hash_build, hash_probe
 from repro_torch.kernels.join_expand import join_expand
 
@@ -106,10 +106,8 @@ class HashJoin(BatchOperator):
         else:
             self._build_out = tuple(x for x in bv if x not in pv)
         self._out_vars = pv + self._build_out
-        self._rsel = index_tensor([bv.index(x) for x in self._build_out], device)
-        self._none = index_tensor([], device)
-        # per probe-batch schema: (lsel, pairs) device tensors
-        self._plans: Dict[Tuple[int, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
+        # per probe-batch schema: the emit plan and the mask-only plan
+        self._plans: Dict[Tuple[int, ...], Tuple[EmitPlan, EmitPlan]] = {}
 
         # build-side state (filled by _ensure_built)
         self._built = False
@@ -161,7 +159,6 @@ class HashJoin(BatchOperator):
             return
         bvars, bcols = materialize(self.build, self.device)
         self._bv = bvars
-        self._rsel = index_tensor([bvars.index(x) for x in self._build_out], self.device)
         self._plans = {}
         self._n_build = int(bcols.shape[1])
         if self.keys:
@@ -230,17 +227,18 @@ class HashJoin(BatchOperator):
         lo, hi = hash_probe(self._part_starts, self._skh, self._skl, qh, ql)
         return lo, hi - lo
 
-    def _plan_for(self, cb: ColumnBatch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(lsel, pairs) gather_emit arguments for this batch's schema."""
-        plan = self._plans.get(cb.var_ids)
-        if plan is None:
-            lsel = index_tensor([cb.col_index(v) for v in self._pv], self.device)
-            pairs = pairs_tensor(
-                [(cb.col_index(v), self._bv.index(v)) for v in self._pair_vars],
-                self.device,
+    def _plan_for(self, cb: ColumnBatch) -> Tuple[EmitPlan, EmitPlan]:
+        """The gather_emit plans for this batch's schema: the emit plan and
+        the mask-only plan (its pairs alone)."""
+        plans = self._plans.get(cb.var_ids)
+        if plans is None:
+            pairs = [(cb.col_index(v), self._bv.index(v)) for v in self._pair_vars]
+            plans = self._plans[cb.var_ids] = (
+                EmitPlan([cb.col_index(v) for v in self._pv],
+                         [self._bv.index(x) for x in self._build_out], pairs),
+                EmitPlan(pairs=pairs),
             )
-            plan = self._plans[cb.var_ids] = (lsel, pairs)
-        return plan
+        return plans
 
     def next_batch(self) -> Optional[ColumnBatch]:
         self._ensure_built()
@@ -274,11 +272,11 @@ class HashJoin(BatchOperator):
         or a queued pending expansion (inner/left_outer)."""
         n = cb.n_rows
         lo, lens = self._run_bounds(cb)
-        _, pairs = self._plan_for(cb)
+        _, mask_plan = self._plan_for(cb)
 
         if self.mode in ("semi", "anti"):
-            if pairs.shape[0]:
-                return self._pairwise_exists(cb, lo, lens, pairs, want=self.mode == "semi")
+            if mask_plan.pairs:
+                return self._pairwise_exists(cb, lo, lens, mask_plan, want=self.mode == "semi")
             m = torch.zeros(cb.capacity, dtype=torch.bool, device=self.device)
             m[:n] = (lens > 0) if self.mode == "semi" else (lens == 0)
             return cb.with_mask(m)
@@ -307,7 +305,8 @@ class HashJoin(BatchOperator):
         self._pending = (cb, pstarts, lo, lens, eff, cum, 0, int(cum[-1]))
         return None
 
-    def _pairwise_exists(self, cb: ColumnBatch, lo, lens, pairs, want: bool) -> ColumnBatch:
+    def _pairwise_exists(self, cb: ColumnBatch, lo, lens, mask_plan: EmitPlan,
+                         want: bool) -> ColumnBatch:
         """semi/anti with pair-verified keys: a probe row matches iff any
         build row in its run agrees on every pair column. The expansion is
         verified in bounded chunks, so a skewed key's run never
@@ -325,9 +324,7 @@ class HashJoin(BatchOperator):
             while done < total:
                 count = min(self._EXISTS_CHUNK, total - done)
                 li, ri = join_expand(pstarts, plens, glo, glens, cum, done, count)
-                _, ok = gather_emit(
-                    cb.columns, self._bcols, li, ri, self._none, self._none, pairs
-                )
+                _, ok = gather_emit(cb.columns, self._bcols, li, ri, mask_plan)
                 hits.index_add_(0, li.long(), ok.to(_I32))
                 done += count
         matched = hits > 0
@@ -352,14 +349,12 @@ class HashJoin(BatchOperator):
             group_of = torch.searchsorted(cum, slots, right=True) - 1
             ri = torch.where(lens[group_of] == 0, -1, ri).to(_I32)
 
-        lsel, pairs = self._plan_for(cb)
+        plan, _ = self._plan_for(cb)
         b = ColumnBatch.alloc(
             self._out_vars, bucket_for(max(count, 1)), self.device, self.pool,
             self.sorted_by(),
         )
-        _, mask = gather_emit(
-            cb.columns, self._bcols, li, ri, lsel, self._rsel, pairs, out=b.columns,
-        )
+        _, mask = gather_emit(cb.columns, self._bcols, li, ri, plan, out=b.columns)
         b.n_rows = count
         if count < b.capacity:
             b.columns[:, count:] = NULL_ID

@@ -18,7 +18,7 @@ from repro_torch.core import vecops
 from repro_torch.core.batch import NULL_ID, BatchPool, ColumnBatch, bucket_for
 from repro_torch.core.operators.base import BatchOperator
 from repro_torch.core.operators.sort import materialize
-from repro_torch.kernels.gather_emit import gather_emit, index_tensor, pairs_tensor
+from repro_torch.kernels.gather_emit import EmitPlan, gather_emit
 from repro_torch.kernels.join_expand import join_expand
 
 _I32 = torch.int32
@@ -58,13 +58,10 @@ class LookupJoin(BatchOperator):
         self._built = False
         self._bcols: Optional[torch.Tensor] = None
         self._bkeys: Optional[torch.Tensor] = None
-        # static gather_emit plan, as small device arrays
-        self._lsel = index_tensor(range(len(pv)), device)
-        self._rsel = index_tensor([bv.index(x) for x in self._build_out], device)
-        self._pairs = pairs_tensor(
-            [(pv.index(sv), bv.index(sv)) for sv in self.secondary], device
-        )
-        self._none = index_tensor([], device)
+        # static gather_emit plans (the mask-only plan emits no rows)
+        pairs = [(pv.index(sv), bv.index(sv)) for sv in self.secondary]
+        self._plan = EmitPlan(range(len(pv)), [bv.index(x) for x in self._build_out], pairs)
+        self._mask_plan = EmitPlan(pairs=pairs)
         # continuation of an oversized expansion
         self._pending: Optional[Tuple] = None
         super().__init__("LookupJoin")
@@ -153,9 +150,7 @@ class LookupJoin(BatchOperator):
             cum = vecops.group_output_offsets(plens, glens)
             total = int(cum[-1])
             li, ri = join_expand(pstarts, plens, lo[nz].contiguous(), glens, cum, 0, total)
-            _, ok = gather_emit(
-                cb.columns, self._bcols, li, ri, self._none, self._none, self._pairs
-            )
+            _, ok = gather_emit(cb.columns, self._bcols, li, ri, self._mask_plan)
             hits.scatter_add_(0, li.long(), ok.to(_I32))
         matched = hits > 0
         m = torch.zeros(cb.capacity, dtype=torch.bool, device=self.device)
@@ -182,10 +177,7 @@ class LookupJoin(BatchOperator):
             self._out_vars, bucket_for(max(count, 1)), self.device, self.pool,
             self.sorted_by(),
         )
-        _, mask = gather_emit(
-            cb.columns, self._bcols, li, ri,
-            self._lsel, self._rsel, self._pairs, out=b.columns,
-        )
+        _, mask = gather_emit(cb.columns, self._bcols, li, ri, self._plan, out=b.columns)
         b.n_rows = count
         if count < b.capacity:
             b.columns[:, count:] = NULL_ID

@@ -30,7 +30,7 @@ from repro_torch.core.batch import NULL_ID, BatchPool, ColumnBatch, bucket_for
 from repro_torch.core.exprs.vm import eval_program_mask
 from repro_torch.core.operators.base import BatchOperator
 from repro_torch.core.operators.simple import resolve_program
-from repro_torch.kernels.gather_emit import gather_emit, index_tensor, pairs_tensor
+from repro_torch.kernels.gather_emit import EmitPlan, gather_emit
 from repro_torch.kernels.join_expand import join_expand
 
 _WINDOW_MIN_CAP = 256  # rows; first append sizes the buffer (pow2 doubling)
@@ -172,14 +172,11 @@ class MergeJoin(BatchOperator):
             self._right_out = tuple(x for x in rv if x not in lv)
         self._out_vars: Tuple[int, ...] = lv + self._right_out
 
-        # static gather_emit plan, as small device arrays: emit all left
-        # rows, then the right-only rows; secondary keys become pairs
-        self._lsel = index_tensor(range(len(lv)), device)
-        self._rsel = index_tensor([rv.index(x) for x in self._right_out], device)
-        self._pairs = pairs_tensor(
-            [(lv.index(sv), rv.index(sv)) for sv in self.secondary], device
-        )
-        self._none = index_tensor([], device)
+        # static gather_emit plans: emit all left rows, then the right-only
+        # rows; secondary keys become pairs (the mask-only plan emits none)
+        pairs = [(lv.index(sv), rv.index(sv)) for sv in self.secondary]
+        self._plan = EmitPlan(range(len(lv)), [rv.index(x) for x in self._right_out], pairs)
+        self._mask_plan = EmitPlan(pairs=pairs)
 
         self._lwin = _Window(lv, join_var, device, pool)
         self._rwin = _Window(rv, join_var, device, pool)
@@ -397,10 +394,7 @@ class MergeJoin(BatchOperator):
 
         if self.mode in ("semi", "anti") and self.post_filter is None:
             # expansion only feeds matched-tracking: fused mask, no columns
-            _, mask = gather_emit(
-                self._lwin.cols, self._rwin.cols, li, ri,
-                self._none, self._none, self._pairs,
-            )
+            _, mask = gather_emit(self._lwin.cols, self._rwin.cols, li, ri, self._mask_plan)
             self._lmatched.index_add_(0, li.long(), mask.to(torch.int32))
             return None
 
@@ -408,8 +402,7 @@ class MergeJoin(BatchOperator):
             self._out_vars, bucket_for(max(count, 1)), self.device, self.pool, self.v
         )
         _, mask = gather_emit(
-            self._lwin.cols, self._rwin.cols, li, ri,
-            self._lsel, self._rsel, self._pairs, out=b.columns,
+            self._lwin.cols, self._rwin.cols, li, ri, self._plan, out=b.columns,
         )
         b.n_rows = count
         if count < b.capacity:

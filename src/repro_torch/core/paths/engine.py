@@ -48,7 +48,7 @@ from repro_torch.core.paths.expr import (
 )
 from repro_torch.core.storage import QuadStore
 from repro_torch.kernels.frontier_dedup import frontier_dedup
-from repro_torch.kernels.gather_emit import gather_emit
+from repro_torch.kernels.gather_emit import EmitPlan, gather_emit
 from repro_torch.kernels.join_expand import join_expand
 from repro_torch.kernels.sorted_search import sorted_search_range
 
@@ -147,8 +147,7 @@ class PathEngine:
         self.counters = PathCounters()
         self._domain: Optional[torch.Tensor] = None
         self._no_pairs = torch.zeros(0, dtype=_I32, device=self.device)
-        self._emit_rows = torch.zeros(1, dtype=_I32, device=self.device)  # row 0
-        self._no_checks = torch.zeros((0, 2), dtype=_I32, device=self.device)
+        self._emit_plan = EmitPlan((0,), (0,))  # row 0 of each side
 
     # -- public -------------------------------------------------------------
 
@@ -260,8 +259,7 @@ class PathEngine:
         for base in range(0, total, EXPAND_WINDOW):
             count = min(EXPAND_WINDOW, total - base)
             li, ri = join_expand(idx, ones, lo, lens, cum, base, count)
-            gather_emit(lcols, rcols, li, ri, self._emit_rows, self._emit_rows,
-                        self._no_checks, out=out, out_offset=base)
+            gather_emit(lcols, rcols, li, ri, self._emit_plan, out=out, out_offset=base)
         return out, total
 
     # -- the frontier engine -------------------------------------------------

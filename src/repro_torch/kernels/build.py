@@ -108,8 +108,9 @@ def library() -> ctypes.CDLL:
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
-        "join_expand_launch": [P, P, P, P, P, I, L, L, P, P, P],
-        "gather_emit_launch": [P, L, P, L, I, P, P, L, P, I, P, I, P, I, P, L, P, P],
+        "join_expand_launch": [P, P, P, P, P, I, L, L, P, P, I, P],
+        "gather_emit_launch": [P, P, L, P, L, I, P, P, L, P, L, P, P],
+        "gather_emit_limits": [P, P, P],
         "expr_eval_launch": [P, P, P, L, P, P, P],
         "expr_eval_limits": [P, P, P, P],
         "segment_scan_launch": [P, P, P, L, I, P, P],
@@ -133,7 +134,9 @@ def check(status: int, name: str) -> None:
 
 
 def stream_handle(t) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    """The raw handle of PyTorch's current stream on ``t``'s device
+    (``torch._C._cuda_getCurrentRawStream`` makes no ``torch.cuda.Stream``
+    object per call, as ``torch.cuda.current_stream`` does)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

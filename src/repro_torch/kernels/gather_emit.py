@@ -2,58 +2,113 @@
 
 Gathers the emitted rows of two int32 sources through the ``(li, ri)``
 index vectors, NULL-extends virtual right rows (``ri == -1``), and folds the
-secondary join-key equalities ``pairs`` into a bool validity mask — the
-contract of the reference's ``vecops.gather_emit``:
+secondary join-key equalities into a bool validity mask — the contract of
+the reference's ``vecops.gather_emit``:
 
   lcols: (KL, NL) int32 left source, rows contiguous (any row stride);
   rcols: (KR, NR) int32 right source, or None;
   li, ri: (C,) int32 gather indices (ri may be None); ri == -1 marks a
          virtual NULL row whose right outputs are NULL and whose pair
          comparisons pass;
-  lsel, rsel: (nl,), (nr,) int32 source-row ids to emit; -1 emits NULL;
-  pairs: (P, 2) int32 (left row, right row) equality pairs;
+  plan: an ``EmitPlan`` — ``lsel``, ``rsel``, the source-row ids to emit
+         (-1 emits NULL), and ``pairs``, the (left row, right row)
+         equality pairs;
   out / out_offset: optional destination; rows [0, nl+nr) of
          ``out[:, out_offset:out_offset+C]`` are written in place.
 
 Returns ``(block, mask)``: the (nl+nr, C) emitted block (a view of ``out``
 when given) and the (C,) bool mask.
 
-CUDA kernel: ``csrc/gather_emit.cu``. ``gather_emit_plain`` is the same
-function in PyTorch; the wrapper takes it for CPU tensors only.
+CUDA kernel: ``csrc/gather_emit.cu``, which takes the plan as a by-value
+kernel parameter, so a plan beyond its caps (``MAX_ROWS`` emitted rows,
+``MAX_PAIRS`` pairs) is refused when it is built. ``gather_emit_plain`` is
+the same function in PyTorch, reading the plan's host tuples; the wrapper
+takes it for CPU tensors only.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import ctypes
+import functools
+from typing import Iterable, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 NULL = -1
+# csrc/gather_emit.cu's caps: over twice the widest plan of the LSQB, path
+# and BSBM BI queries (5 emitted rows, 1 pair)
+MAX_ROWS = 16
+MAX_PAIRS = 4
 launches = 0
+_I32 = torch.int32
 
 
-def index_tensor(rows: Sequence[int], device) -> torch.Tensor:
-    """A small int32 row-id vector (emit selections) on ``device``."""
-    return torch.tensor(list(rows), dtype=torch.int32, device=device).reshape(-1)
+class _EmitPlanC(ctypes.Structure):
+    """Mirror of ``struct EmitPlan`` in csrc/gather_emit.cu."""
+
+    _fields_ = [
+        ("n_left", ctypes.c_int),
+        ("n_rows", ctypes.c_int),
+        ("n_pairs", ctypes.c_int),
+        ("row", ctypes.c_int * MAX_ROWS),
+        ("pair_left", ctypes.c_int * MAX_PAIRS),
+        ("pair_right", ctypes.c_int * MAX_PAIRS),
+        ("pair_reuse", ctypes.c_int * MAX_PAIRS),
+    ]
 
 
-def pairs_tensor(pairs: Sequence[Tuple[int, int]], device) -> torch.Tensor:
-    """(P, 2) int32 equality pairs on ``device``."""
-    return torch.tensor(
-        [list(p) for p in pairs], dtype=torch.int32, device=device
-    ).reshape(-1, 2)
+class EmitPlan:
+    """What one ``gather_emit`` call emits: ``lsel`` left and ``rsel``
+    right source rows (-1 emits NULL) and the ``pairs`` (left row, right
+    row) that must be equal. Built once on the host per operator (or per
+    probe schema), checked against the kernel's caps once, and packed into
+    the by-value struct the kernel takes."""
+
+    __slots__ = ("lsel", "rsel", "pairs", "n_rows", "_struct", "address")
+
+    def __init__(self, lsel: Iterable[int] = (), rsel: Iterable[int] = (),
+                 pairs: Iterable[Tuple[int, int]] = ()):
+        self.lsel = tuple(int(x) for x in lsel)
+        self.rsel = tuple(int(x) for x in rsel)
+        self.pairs = tuple((int(a), int(b)) for a, b in pairs)
+        self.n_rows = len(self.lsel) + len(self.rsel)
+        if self.n_rows > MAX_ROWS:
+            raise ValueError(f"gather_emit: {self.n_rows} emitted rows exceed "
+                             f"MAX_ROWS = {MAX_ROWS}")
+        if len(self.pairs) > MAX_PAIRS:
+            raise ValueError(f"gather_emit: {len(self.pairs)} pairs exceed "
+                             f"MAX_PAIRS = {MAX_PAIRS}")
+        if any(a < 0 or b < 0 for a, b in self.pairs):
+            raise ValueError("gather_emit: pair rows must be non-negative")
+        s = _EmitPlanC()
+        s.n_left, s.n_rows, s.n_pairs = len(self.lsel), self.n_rows, len(self.pairs)
+        for j, row in enumerate(self.lsel + self.rsel):
+            s.row[j] = row
+        for p, (a, b) in enumerate(self.pairs):
+            s.pair_left[p], s.pair_right[p] = a, b
+            s.pair_reuse[p] = self.lsel.index(a) if a in self.lsel else -1
+        self._struct = s
+        self.address = ctypes.addressof(s)
 
 
-def gather_emit_plain(lcols, rcols, li, ri, lsel, rsel, pairs,
+@functools.lru_cache(maxsize=1)
+def _check_limits(lib) -> None:
+    got = [ctypes.c_int() for _ in range(3)]
+    lib.gather_emit_limits(*[ctypes.byref(x) for x in got])
+    want = (MAX_ROWS, MAX_PAIRS, ctypes.sizeof(_EmitPlanC))
+    if tuple(x.value for x in got) != want:
+        raise RuntimeError(f"gather_emit: kernel caps {[x.value for x in got]} != {want}")
+
+
+def gather_emit_plain(lcols, rcols, li, ri, plan: EmitPlan,
                       out: Optional[torch.Tensor] = None, out_offset: int = 0):
     c = int(li.shape[0])
-    lsel_l, rsel_l, pairs_l = lsel.tolist(), rsel.tolist(), pairs.tolist()
-    nl = len(lsel_l)
-    k = nl + len(rsel_l)
+    nl = len(plan.lsel)
+    k = plan.n_rows
     if out is None:
-        view = torch.empty((k, c), dtype=torch.int32, device=li.device)
+        view = torch.empty((k, c), dtype=_I32, device=li.device)
     else:
         view = out[:k, out_offset: out_offset + c]
     lidx = li.long()
@@ -63,45 +118,43 @@ def gather_emit_plain(lcols, rcols, li, ri, lsel, rsel, pairs,
         rvalid = ri >= 0
         ric = torch.where(rvalid, ri, 0).long()
     r_empty = rcols is None or rcols.shape[1] == 0
-    for j, row in enumerate(lsel_l):
+    for j, row in enumerate(plan.lsel):
         if row < 0:
             view[j] = NULL
         else:
             view[j] = lcols[row, lidx]
-    for j, row in enumerate(rsel_l):
+    for j, row in enumerate(plan.rsel):
         if row < 0 or r_empty:
             view[nl + j] = NULL
         else:
             view[nl + j] = torch.where(rvalid, rcols[row, ric], NULL)
     mask = torch.ones(c, dtype=torch.bool, device=li.device)
-    for lrow, rrow in pairs_l:
+    for lrow, rrow in plan.pairs:
         lv = lcols[lrow, lidx]
-        rv = torch.zeros(c, dtype=torch.int32, device=li.device) if r_empty else rcols[rrow, ric]
+        rv = torch.zeros(c, dtype=_I32, device=li.device) if r_empty else rcols[rrow, ric]
         eq = lv == rv
         mask &= eq if rvalid is None else (~rvalid | eq)
     return view, mask
 
 
 def _check_2d(name: str, x: torch.Tensor) -> None:
-    if x.dtype != torch.int32 or x.dim() != 2 or (x.shape[1] > 1 and x.stride(1) != 1):
+    if x.dtype is not _I32 or x.ndim != 2 or (x.shape[1] > 1 and x.stride(1) != 1):
         raise ValueError(f"gather_emit: {name} must be a 2-D int32 tensor with contiguous rows")
 
 
 def _check_1d(name: str, x: torch.Tensor) -> None:
-    if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
+    if x.dtype is not _I32 or x.ndim != 1 or not x.is_contiguous():
         raise ValueError(f"gather_emit: {name} must be a contiguous 1-D int32 tensor")
 
 
-def gather_emit(lcols, rcols, li, ri, lsel, rsel, pairs,
+def gather_emit(lcols, rcols, li, ri, plan: EmitPlan,
                 out: Optional[torch.Tensor] = None, out_offset: int = 0):
     """Fused gather + NULL-extension + pair mask (see module docstring)."""
     global launches
     dev = li.device
     _check_2d("lcols", lcols)
     _check_1d("li", li)
-    _check_1d("lsel", lsel)
-    _check_1d("rsel", rsel)
-    c = int(li.shape[0])
+    c = li.shape[0]
     r_empty = rcols is None or rcols.shape[1] == 0
     if rcols is not None:
         _check_2d("rcols", rcols)
@@ -109,37 +162,34 @@ def gather_emit(lcols, rcols, li, ri, lsel, rsel, pairs,
         _check_1d("ri", ri)
         if ri.shape[0] != c:
             raise ValueError("gather_emit: li and ri differ in length")
-    elif not r_empty and (rsel.shape[0] or pairs.shape[0]):
+    elif not r_empty and (plan.rsel or plan.pairs):
         raise ValueError("gather_emit: right rows requested without ri")
-    if pairs.dtype != torch.int32 or pairs.dim() != 2 or pairs.shape[1] != 2 \
-            or not pairs.is_contiguous():
-        raise ValueError("gather_emit: pairs must be a contiguous (P, 2) int32 tensor")
-    k = int(lsel.shape[0]) + int(rsel.shape[0])
+    k = plan.n_rows
     if out is not None:
         _check_2d("out", out)
         if out.shape[0] < k or out.shape[1] < out_offset + c:
             raise ValueError("gather_emit: out is too small for the block")
-    for name, x in (("lcols", lcols), ("rcols", rcols), ("ri", ri), ("lsel", lsel),
-                    ("rsel", rsel), ("pairs", pairs), ("out", out)):
+    for name, x in (("lcols", lcols), ("rcols", rcols), ("ri", ri), ("out", out)):
         if x is not None and x.device != dev:
             raise ValueError(f"gather_emit: {name} is on {x.device}, not {dev}")
-    if dev.type == "cpu":
-        return gather_emit_plain(lcols, rcols, li, ri, lsel, rsel, pairs, out, out_offset)
-    if dev.type != "cuda":
+    if li.is_cpu:
+        return gather_emit_plain(lcols, rcols, li, ri, plan, out, out_offset)
+    if not li.is_cuda:
         raise ValueError(f"gather_emit: unsupported device {dev}")
-    if out is None:
-        out = torch.empty((k, c), dtype=torch.int32, device=dev)
-        out_offset = 0
-    mask = torch.empty(c, dtype=torch.bool, device=dev)
     lib = build.library()
+    _check_limits(lib)
+    mask = torch.empty(c, dtype=torch.bool, device=dev)
+    if out is None:
+        block = out = torch.empty((k, c), dtype=_I32, device=dev)
+        out_offset = 0
+    else:
+        block = out[:k, out_offset: out_offset + c]
     build.check(lib.gather_emit_launch(
-        lcols.data_ptr(), lcols.stride(0),
-        0 if r_empty else rcols.data_ptr(), 0 if r_empty else rcols.stride(0),
-        int(r_empty), li.data_ptr(), None if ri is None else ri.data_ptr(), c,
-        lsel.data_ptr(), int(lsel.shape[0]), rsel.data_ptr(), int(rsel.shape[0]),
-        pairs.data_ptr(), int(pairs.shape[0]),
-        out.data_ptr() + 4 * int(out_offset), out.stride(0), mask.data_ptr(),
+        plan.address, lcols.data_ptr(), lcols.stride(0),
+        None if r_empty else rcols.data_ptr(), 0 if r_empty else rcols.stride(0),
+        r_empty, li.data_ptr(), None if ri is None else ri.data_ptr(), c,
+        out.data_ptr() + 4 * out_offset, out.stride(0), mask.data_ptr(),
         build.stream_handle(li),
     ), "gather_emit")
     launches += 1
-    return out[:k, out_offset: out_offset + c], mask
+    return block, mask

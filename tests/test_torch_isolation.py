@@ -14,7 +14,8 @@ torch = pytest.importorskip("torch")
 import repro_torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                     ROOT / "kernel_sweep.py"]
 
 
 def _imported_modules(path: Path):
@@ -105,6 +106,7 @@ def test_kernels_take_no_other_device():
     the CUDA kernel or raises."""
     from repro_torch.kernels import bloom_filter as BF
     from repro_torch.kernels import frontier_dedup as FD
+    from repro_torch.kernels import gather_emit as GE
     from repro_torch.kernels import hash_join as HJ
     from repro_torch.kernels import join_expand as JE
     from repro_torch.kernels import radix_partition as RP
@@ -116,6 +118,8 @@ def test_kernels_take_no_other_device():
     starts = torch.zeros(5, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         JE.join_expand(*meta, cum, 0, 2)
+    with pytest.raises(ValueError, match="device"):
+        GE.gather_emit(meta[0][None, :], None, meta[1], None, GE.EmitPlan((0,)))
     with pytest.raises(ValueError, match="device"):
         SS.segment_scan(meta[0], torch.zeros(3, device="meta"), "sum")
     with pytest.raises(ValueError, match="device"):

@@ -104,6 +104,23 @@ def test_join_expand_totals_beyond_int32(where):
     np.testing.assert_array_equal(got[1].numpy(), want[1])
 
 
+@pytest.mark.parametrize("side", ["small tile", "large tile"])
+def test_join_expand_tile_choice_matches_reference(side):
+    """The wrapper runs at the tile the kernel takes for the window's size
+    (small below ``LARGE_FROM`` slots, large from it); on each side of that
+    choice it equals the numpy reference, at an unaligned base."""
+    count = JE.LARGE_FROM - 1 if side == "small tile" else JE.LARGE_FROM + 77
+    assert JE.tile_for(count) == (JE.TILE_SMALL if side == "small tile" else JE.TILE_LARGE)
+    rng = np.random.RandomState(9)
+    ls, ll, rs, rl, cum = _groups(rng, 20000, 4, 8)
+    base = 1234
+    assert int(cum[-1]) > base + count
+    want = RV.expand_cross(ls, ll, rs, rl, cum, base, count)
+    got = JE.join_expand(T(ls), T(ll), T(rs), T(rl), T(cum), base, count)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
 def test_join_expand_checks_its_inputs():
     rng = np.random.RandomState(1)
     ls, ll, rs, rl, cum = _groups(rng, 5, 2, 2)
@@ -114,6 +131,100 @@ def test_join_expand_checks_its_inputs():
     empty = torch.zeros(0, dtype=torch.int32)
     li, ri = JE.join_expand(empty, empty, empty, empty, torch.zeros(1, dtype=torch.int64), 0, 3)
     assert li.tolist() == [-1, -1, -1] and ri.tolist() == [-1, -1, -1]
+
+
+def _split(size, rng):
+    """(llens, rlens) of one group with ``size`` output slots."""
+    if size % 2 == 0 and rng.rand() < 0.5:
+        return 2, size // 2
+    return (1, size) if rng.rand() < 0.5 else (size, 1)
+
+
+def _tiled_groups(rng, tile, n_tiles, empty_first=False):
+    """Groups laid out against tiles of ``tile`` slots: each tile starts
+    with a run of 0-6 empty groups (left or right run empty) and is then
+    cut into random groups, some of which run into the next tile. With
+    ``empty_first`` the run has 1-6 groups and no group runs into the next
+    tile, so every tile's first slot opens on a run of empty groups."""
+    ll, rl = [], []
+    for _ in range(n_tiles):
+        for _ in range(rng.randint(1 if empty_first else 0, 7)):
+            ll.append(0 if rng.rand() < 0.5 else rng.randint(1, 4))
+            rl.append(0 if ll[-1] else rng.randint(1, 4))
+        left = tile
+        while left > 0:
+            size = min(left, rng.randint(1, tile // 4 + 2))
+            if not empty_first and rng.rand() < 0.2:  # a group that runs into the next tile
+                size += rng.randint(1, tile // 2)
+            a, b = _split(size, rng)
+            ll.append(a)
+            rl.append(b)
+            left -= size
+    llens, rlens = np.asarray(ll, np.int32), np.asarray(rl, np.int32)
+    lstarts = np.cumsum(np.concatenate([[0], llens[:-1]])).astype(np.int32)
+    rstarts = np.cumsum(np.concatenate([[0], rlens[:-1]])).astype(np.int32)
+    return lstarts, llens, rstarts, rlens, RV.group_output_offsets(llens, rlens)
+
+
+def _one_group(tiles, tile):
+    """A single group of ``tiles * tile`` slots (8 left rows)."""
+    ll, rl = np.asarray([8], np.int32), np.asarray([tiles * tile // 8], np.int32)
+    z = np.zeros(1, np.int32)
+    return z, ll, z.copy(), rl, RV.group_output_offsets(ll, rl)
+
+
+TILED_CASES = {
+    # name: (groups(rng, tile), base(tile, total), count(tile, total))
+    "groups crossing tiles": (lambda rng, tl: _groups(rng, 400, 5, 5), lambda tl, n: 0,
+                              lambda tl, n: n),
+    "empty runs at tile starts": (lambda rng, tl: _tiled_groups(rng, tl, 6, empty_first=True),
+                                  lambda tl, n: 0,
+                                  lambda tl, n: n + 5),
+    "a tile inside one group": (lambda rng, tl: _one_group(5, tl), lambda tl, n: tl + 3,
+                                lambda tl, n: 2 * tl),
+    "unaligned base and count": (lambda rng, tl: _tiled_groups(rng, tl, 5), lambda tl, n: 7,
+                                 lambda tl, n: 3 * tl + 13),
+}
+
+
+@pytest.mark.parametrize("backend", ["numpy", "pallas"])
+@pytest.mark.parametrize("tile", [32, 64, 256])
+@pytest.mark.parametrize("case", sorted(TILED_CASES))
+def test_join_expand_tiles_match_reference(backend, tile, case):
+    """The plain version's tile model (the kernel's start search, scatter
+    of group starts and max-scan) at small tiles, so groups, empty-group
+    runs and the valid range cross many tile edges."""
+    make, base_of, count_of = TILED_CASES[case]
+    rng = np.random.RandomState(tile + len(case))
+    ls, ll, rs, rl, cum = make(rng, tile)
+    total = int(cum[-1])
+    base, count = base_of(tile, total), count_of(tile, total)
+    if case == "empty runs at tile starts":
+        # every tile of this layout opens on a run of empty groups
+        starts = set(cum[:-1][(ll * rl) == 0].tolist())
+        assert set(range(0, total, tile)) <= starts
+    got_l, got_r = JE.join_expand_plain(T(ls), T(ll), T(rs), T(rl), T(cum), base, count, tile)
+    n_valid = max(0, min(count, total - base))
+    want_l, want_r = ops.join_expand(ls, ll, rs, rl, cum, base, n_valid, backend=backend)
+    np.testing.assert_array_equal(got_l.numpy()[:n_valid], want_l)
+    np.testing.assert_array_equal(got_r.numpy()[:n_valid], want_r)
+    assert (got_l.numpy()[n_valid:] == -1).all() and (got_r.numpy()[n_valid:] == -1).all()
+
+
+@pytest.mark.parametrize("tile", [32, 64, 256])
+def test_join_expand_tiles_beyond_int32(tile):
+    """Tiles over a total beyond 2^31, against the numpy path (the Pallas
+    path narrows cum to int32)."""
+    rng = np.random.RandomState(11)
+    ls, ll, rs, rl, cum = _groups(rng, 20000, 1000, 1000)
+    total = int(cum[-1])
+    assert total > 2 ** 31
+    base = total - 5 * tile - 9
+    want = RV.expand_cross(ls, ll, rs, rl, cum, base, 5 * tile + 9)
+    got = JE.join_expand_plain(T(ls), T(ll), T(rs), T(rl), T(cum), base, 6 * tile, tile)
+    np.testing.assert_array_equal(got[0].numpy()[:5 * tile + 9], want[0])
+    np.testing.assert_array_equal(got[1].numpy()[:5 * tile + 9], want[1])
+    assert (got[0].numpy()[5 * tile + 9:] == -1).all()
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +258,7 @@ GATHER_CASES = {
 def _port_gather(lcols, rcols, li, ri, lsel, rsel, pairs, **kw):
     return GE.gather_emit(
         T(lcols), None if rcols is None else T(rcols), T(li), None if ri is None else T(ri),
-        GE.index_tensor(lsel, CPU), GE.index_tensor(rsel, CPU), GE.pairs_tensor(pairs, CPU), **kw,
+        GE.EmitPlan(lsel, rsel, pairs), **kw,
     )
 
 
@@ -189,6 +300,70 @@ def test_gather_emit_out_offset(backend):
                            out=out, out_offset=100)
     np.testing.assert_array_equal(out.numpy(), want_out)
     assert view.data_ptr() == out[:, 100:].data_ptr()
+
+
+def test_emit_plan_caps_raise_and_name_the_cap():
+    GE.EmitPlan(range(GE.MAX_ROWS - 3), range(3), [(0, 0)] * GE.MAX_PAIRS)  # at the caps
+    with pytest.raises(ValueError, match="MAX_ROWS"):
+        GE.EmitPlan(range(GE.MAX_ROWS + 1))
+    with pytest.raises(ValueError, match="MAX_ROWS"):
+        GE.EmitPlan(range(GE.MAX_ROWS - 3), range(4))
+    with pytest.raises(ValueError, match="MAX_PAIRS"):
+        GE.EmitPlan((0,), (), [(0, 0)] * (GE.MAX_PAIRS + 1))
+
+
+@pytest.mark.parametrize("backend", ["numpy", "pallas"])
+def test_emit_plan_at_the_caps_matches_reference(backend):
+    rng = np.random.RandomState(17)
+    lcols, rcols, li, ri = _ge_case(rng, 12, 6, 90, 70, 300, 0.2)
+    lsel = tuple(range(11)) + (-1,)
+    rsel = (5, -1, 0, 3)
+    pairs = ((0, 0), (11, 1), (3, 3), (7, 5))
+    assert len(lsel) + len(rsel) == GE.MAX_ROWS and len(pairs) == GE.MAX_PAIRS
+    want_b, want_m = ops.gather_emit(lcols, rcols, li, ri, lsel, rsel, pairs, backend=backend)
+    got_b, got_m = _port_gather(lcols, rcols, li, ri, lsel, rsel, pairs)
+    np.testing.assert_array_equal(got_b.numpy(), want_b)
+    np.testing.assert_array_equal(got_m.numpy(), want_m)
+
+
+def test_emit_plan_reuses_emitted_left_rows_only():
+    plan = GE.EmitPlan((2, 0, -1), (1,), ((0, 1), (1, 0), (2, 2)))
+    assert list(plan._struct.pair_reuse)[:3] == [1, -1, 0]
+    assert list(plan._struct.row)[:4] == [2, 0, -1, 1] and plan._struct.n_left == 3
+
+
+def test_emit_plan_pair_reuse_with_an_empty_right_side():
+    """A pair whose left row is emitted still compares against 0 when the
+    right side is empty, though the emitted right value is NULL."""
+    rng = np.random.RandomState(23)
+    lcols = rng.randint(0, 3, (2, 40)).astype(np.int32)
+    rcols = np.zeros((2, 0), np.int32)
+    li = rng.randint(0, 40, 120).astype(np.int32)
+    ri = np.where(rng.rand(120) < 0.3, -1, 0).astype(np.int32)
+    args = (lcols, rcols, li, ri, (0, 1), (1,), ((0, 0),))
+    want_b, want_m = ops.gather_emit(*args, backend="numpy")
+    got_b, got_m = _port_gather(*args)
+    np.testing.assert_array_equal(got_b.numpy(), want_b)
+    np.testing.assert_array_equal(got_m.numpy(), want_m)
+    assert (got_b.numpy()[2] == -1).all()
+    np.testing.assert_array_equal(got_m.numpy(), (ri < 0) | (lcols[0, li] == 0))
+    assert 0 < int(got_m.sum()) < 120
+
+
+@pytest.mark.parametrize("backend", ["numpy", "pallas"])
+def test_emit_plan_from_host_ints(backend):
+    """A plan built from numpy integers and ranges gives the reference's
+    block and mask."""
+    rng = np.random.RandomState(29)
+    lcols, rcols, li, ri = _ge_case(rng, 3, 3, 60, 50, 256, 0.1)
+    plan = GE.EmitPlan(np.arange(3), range(1, 3), np.asarray([[2, 0]]))
+    assert plan.lsel == (0, 1, 2) and plan.rsel == (1, 2) and plan.pairs == ((2, 0),)
+    assert all(type(x) is int for x in plan.lsel + plan.rsel + plan.pairs[0])
+    want_b, want_m = ops.gather_emit(lcols, rcols, li, ri, (0, 1, 2), (1, 2), ((2, 0),),
+                                     backend=backend)
+    got_b, got_m = GE.gather_emit(T(lcols), T(rcols), T(li), T(ri), plan)
+    np.testing.assert_array_equal(got_b.numpy(), want_b)
+    np.testing.assert_array_equal(got_m.numpy(), want_m)
 
 
 # ---------------------------------------------------------------------------
