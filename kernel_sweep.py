@@ -1,16 +1,25 @@
-"""Sweep the compiled shapes of join_expand and gather_emit on the card.
+"""Sweep the compiled shapes of join_expand, gather_emit and expr_eval on
+the card.
 
-The port compiles two instances of each kernel and picks one from the
-input (join_expand: a tile for small windows and one for large;
-gather_emit: a short unroll for narrow plans and one to the caps). This
-script compiles the candidates from the same sources into its own library
-under ``build/kernel_sweep/`` — a small
-``.cu`` that includes the source and exports each instance of its
-``launch`` template — checks each instance against the plain PyTorch
-version, and prints its device time per launch (``torch.profiler``, as
-``chip_smoke.py`` measures). With ``--parent DIR`` it also builds and times
-``DIR/src/repro_torch/csrc/join_expand.cu`` (an earlier commit's kernel,
-whose C entry point takes no tile) on the same windows.
+The port compiles two instances of join_expand and gather_emit and picks
+one from the input (join_expand: a tile for small windows and one for
+large; gather_emit: a short unroll for narrow plans and one to the caps).
+This script compiles the candidates from the same sources into its own
+library under ``build/kernel_sweep/`` — a small ``.cu`` that includes the
+source and exports each instance of its ``launch`` template — checks each
+instance against the plain PyTorch version, and prints its device time per
+launch (``torch.profiler``, as ``chip_smoke.py`` measures). expr_eval's
+instance and block size are launch arguments: every instance that takes a
+program is swept through the wrapper's launch (``expr_eval._launch``,
+which ``expr_eval`` calls at ``launch_shape``'s choice) at 32 to 256
+threads on six
+programs, at 4,096 and 2^20 rows. The script also
+prints ``nvcc -Xptxas -v`` and the local-memory (LDL / STL) and
+shared-memory (LDS / STS) instruction counts of ``cuobjdump -sass`` for
+``expr_eval.cu``. With ``--parent DIR`` it also builds and times
+``DIR/src/repro_torch/csrc/expr_eval.cu`` with its wrapper's by-value
+program (an earlier commit's float32 kernel, on the programs it takes),
+and reports the same compiler output for it.
 
     python3 kernel_sweep.py [--parent DIR] [--json OUT]
 
@@ -34,6 +43,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as CS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import expr_eval as EE  # noqa: E402
 from repro_torch.kernels import gather_emit as GE  # noqa: E402
 from repro_torch.kernels import join_expand as JE  # noqa: E402
 
@@ -45,6 +55,8 @@ JE_SHAPES = ((64, 64), (64, 256), (128, 128), (128, 256), (128, 512), (128, 1024
 # (rows, pairs) unrolls of gather_emit
 GE_UNROLLS = ((8, 2), (16, 4))
 COUNTS = (4096, 16384, 65536, 131072, 262144, 524288, 1 << 20)
+EE_THREADS = (32, 64, 128, 256)
+EE_ROWS = (4096, 1 << 20)
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -81,7 +93,7 @@ def build_libraries(parent):
         srcs[name] = OUT_DIR / f"{name}_sweep.cu"
         srcs[name].write_text(text)
     if parent is not None:
-        srcs["parent"] = Path(parent) / "src" / "repro_torch" / "csrc" / "join_expand.cu"
+        srcs["parent_ee"] = Path(parent) / "src" / "repro_torch" / "csrc" / "expr_eval.cu"
     nvcc = build._nvcc()
     procs = {name: subprocess.Popen(
         [nvcc, *build.NVCC_FLAGS, "-shared", str(src), "-o", str(OUT_DIR / f"{name}.so")],
@@ -98,9 +110,33 @@ def build_libraries(parent):
     for rows, pairs in GE_UNROLLS:
         getattr(libs["ge"], f"ge_{rows}_{pairs}").argtypes = [P, P, L, P, L, I, P, P, L, P, L,
                                                               P, P]
-    if "parent" in libs:
-        libs["parent"].join_expand_launch.argtypes = [P, P, P, P, P, I, L, L, P, P, P]
+    if "parent_ee" in libs:
+        libs["parent_ee"].expr_eval_launch.argtypes = [P, P, P, L, P, P, P]
     return libs
+
+
+def compiler_report(parent):
+    """expr_eval.cu's (and the parent's) ``-Xptxas -v`` lines and SASS
+    counts of local (LDL / STL) and shared (LDS / STS) loads and stores."""
+    nvcc = build._nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    srcs = {"this tree": build.CSRC / "expr_eval.cu"}
+    if parent is not None:
+        srcs["parent"] = Path(parent) / "src" / "repro_torch" / "csrc" / "expr_eval.cu"
+    out = {}
+    for name, src in srcs.items():
+        obj = OUT_DIR / f"ee_{name.replace(' ', '_')}.o"
+        cc = subprocess.run([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+                             str(obj)], capture_output=True, text=True, check=True)
+        sass = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True,
+                              check=True).stdout
+        ops = [next((w for w in ln.split()[1:] if not w.startswith("@")), "").split(".")[0]
+               for ln in sass.splitlines() if ln.strip().startswith("/*")]
+        out[name] = {"ptxas": [ln for ln in cc.stderr.splitlines() if "ptxas" in ln],
+                     "sass": {op: sum(1 for o in ops if o == op)
+                              for op in ("LDL", "STL", "LDS", "STS", "LDG")}}
+        CS.log(f"expr_eval.cu ({name}): {json.dumps(out[name])}")
+    return out
 
 
 def _expand_fn(libs, which, args, base, count):
@@ -109,21 +145,12 @@ def _expand_fn(libs, which, args, base, count):
     ri = torch.empty_like(li)
     st = build.stream_handle(li)
     g = int(ls.shape[0])
-    if which == "parent":
-        f = libs["parent"].join_expand_launch
+    f = getattr(libs["je"], f"je_{which[0]}_{which[1]}")
 
-        def run():
-            build.check(f(ls.data_ptr(), ll.data_ptr(), rs.data_ptr(), rl.data_ptr(),
-                          cum.data_ptr(), g, base, count, li.data_ptr(), ri.data_ptr(), st),
-                        "parent join_expand")
-            return li, ri
-    else:
-        f = getattr(libs["je"], f"je_{which[0]}_{which[1]}")
-
-        def run():
-            build.check(f(ls.data_ptr(), rs.data_ptr(), rl.data_ptr(), cum.data_ptr(), g,
-                          base, count, li.data_ptr(), ri.data_ptr(), st), "join_expand")
-            return li, ri
+    def run():
+        build.check(f(ls.data_ptr(), rs.data_ptr(), rl.data_ptr(), cum.data_ptr(), g,
+                      base, count, li.data_ptr(), ri.data_ptr(), st), "join_expand")
+        return li, ri
     return run
 
 
@@ -134,8 +161,7 @@ def sweep_join_expand(libs, rng, dev):
     windows = [("4096 slots over 40,000 groups", q6, int(q6[4][-1]) // 2, 4096)]
     windows += [(f"{c} slots over 400,000 groups", wide, 0, c) for c in COUNTS[1:]]
     windows.append(("one group of 2^20 slots", one, 0, 1 << 20))
-    variants = [("parent", "parent")] if "parent" in libs else []
-    variants += [(f"{t}x{tl}", (t, tl)) for t, tl in JE_SHAPES]
+    variants = [(f"{t}x{tl}", (t, tl)) for t, tl in JE_SHAPES]
     res = {}
     for label, args, base, count in windows:
         want = JE.join_expand_plain(*args, base, count)
@@ -145,11 +171,10 @@ def sweep_join_expand(libs, rng, dev):
             li, ri = fn()
             CS.require(torch.equal(li, want[0]) and torch.equal(ri, want[1]),
                        f"join_expand {name} disagrees with the plain version ({label})")
-            if which != "parent":
-                tl = which[1]
-                got = JE.join_expand_plain(*args, base, count, tile=tl)
-                CS.require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                           f"join_expand_plain at tile {tl} disagrees ({label})")
+            tl = which[1]
+            got = JE.join_expand_plain(*args, base, count, tile=tl)
+            CS.require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                       f"join_expand_plain at tile {tl} disagrees ({label})")
             row[name] = CS.device_ms(fn, 200, kernel="join_expand")
         row["wrapper"] = CS.device_ms(lambda: JE.join_expand(*args, base, count), 200,
                                       kernel="join_expand")
@@ -183,7 +208,7 @@ def sweep_gather_emit(libs, rng, dev):
             st = build.stream_handle(li)
 
             def run(f=f, out=out, mask=mask, st=st):
-                build.check(f(plan.address, lcols.data_ptr(), lcols.stride(0),
+                build.check(f(plan.chunks[0][2], lcols.data_ptr(), lcols.stride(0),
                               rcols.data_ptr(), rcols.stride(0), 0, li.data_ptr(),
                               ri.data_ptr(), n, out.data_ptr(), out.stride(0),
                               mask.data_ptr(), st), "gather_emit")
@@ -198,10 +223,93 @@ def sweep_gather_emit(libs, rng, dev):
     return res
 
 
+def _load_parent_expr_eval(parent):
+    """The parent's expr_eval wrapper module, for its by-value program."""
+    import importlib.util
+
+    path = Path(parent) / "src" / "repro_torch" / "kernels" / "expr_eval.py"
+    spec = importlib.util.spec_from_file_location("parent_expr_eval", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sweep_expr_eval(libs, rng, dev, parent):
+    """Each program at each block size and row count through the wrapper,
+    against the plain version bit for bit; the parent's float32 kernel on
+    the programs within its caps, on the same inputs rounded to float32."""
+    prog23, d = CS.all_opcode_program()
+    progs = {"23-opcode program": prog23, "q6 FILTER": CS.q6_filter_program(d),
+             "BIND(?x * 3)": CS.times3_program(d), "70-term BIND": CS.bind70_program(d),
+             "100 registers": CS.many_register_program(100),
+             "300 registers": CS.many_register_program(300)}
+    pmod = _load_parent_expr_eval(parent) if parent is not None else None
+    res = {}
+    for n in EE_ROWS:
+        for label, prog in progs.items():
+            ic = torch.from_numpy(rng.randint(-1, 21, (max(prog.n_icols, 1), n))
+                                  .astype(np.int32)).to(dev)
+            fc = torch.from_numpy(rng.choice(CS.NOT_F32, (max(prog.n_fcols, 1), n))).to(dev)
+            want_v, want_e = EE.expr_eval_plain(prog, ic, fc)
+            row = {}
+            for inst in EE.INSTANCES:
+                for t in EE_THREADS:
+                    if not EE.fits(prog, t, inst) or (inst == "global" and t != EE.THREADS):
+                        continue
+                    fn = lambda t=t, inst=inst: EE._launch(  # noqa: E731
+                        prog, ic, fc, t, inst)
+                    v, e = fn()
+                    CS.require(torch.equal(v.view(torch.int64), want_v.view(torch.int64))
+                               and torch.equal(e, want_e),
+                               f"expr_eval {inst} at {t} threads disagrees ({label}, n={n})")
+                    row[f"{inst}, {t} threads"] = CS.device_ms(fn, 200, kernel="expr_eval")
+            if pmod is not None and len(prog.instrs) <= pmod.MAX_INSTR \
+                    and prog.n_regs <= pmod.MAX_REGS and len(prog.consts) <= pmod.MAX_CONSTS:
+                s = pmod._prog_struct(prog)
+                f32 = fc.to(torch.float32)
+                val = torch.empty(n, dtype=torch.float32, device=dev)
+                err = torch.empty(n, dtype=torch.bool, device=dev)
+                f = libs["parent_ee"].expr_eval_launch
+
+                def run(s=s, f32=f32, val=val, err=err, f=f, ic=ic):
+                    build.check(f(ctypes.addressof(s), ic.data_ptr(), f32.data_ptr(), n,
+                                  val.data_ptr(), err.data_ptr(), build.stream_handle(val)),
+                                "parent expr_eval")
+
+                run()
+                CS.require(torch.equal(err, want_e) or prog.n_fcols > 0,
+                           f"parent expr_eval's error plane differs ({label})")
+                row["parent (float32, 256 threads)"] = CS.device_ms(run, 200,
+                                                                   kernel="expr_eval")
+            res[f"{label}, n={n}"] = row
+            CS.log(f"expr_eval {label}, n={n}: {json.dumps(row)}")
+    # q6's FILTER on inputs the L2 cache does not hold, as a query's batches
+    # arrive: a 64 MB write between launches evicts them (not timed)
+    prog, n = progs["q6 FILTER"], EE_ROWS[0]
+    flush = torch.empty(1 << 23, dtype=torch.float64, device=dev)
+    ic = torch.from_numpy(rng.randint(-1, 3000, (prog.n_icols, n)).astype(np.int32)).to(dev)
+    fc = torch.full((1, n), float("nan"), dtype=torch.float64, device=dev)
+    row = {"registers, wrapper": CS.device_ms(
+        lambda: (flush.zero_(), EE.expr_eval(prog, ic, fc)), 200, kernel="expr_eval")}
+    if pmod is not None:
+        s, f32 = pmod._prog_struct(prog), fc.to(torch.float32)
+        val = torch.empty(n, dtype=torch.float32, device=dev)
+        err = torch.empty(n, dtype=torch.bool, device=dev)
+        f = libs["parent_ee"].expr_eval_launch
+        row["parent (float32, 256 threads)"] = CS.device_ms(
+            lambda: (flush.zero_(), build.check(f(
+                ctypes.addressof(s), ic.data_ptr(), f32.data_ptr(), n, val.data_ptr(),
+                err.data_ptr(), build.stream_handle(val)), "parent expr_eval")), 200,
+            kernel="expr_eval")
+    res[f"q6 FILTER, n={n}, inputs out of L2"] = row
+    CS.log(f"expr_eval q6 FILTER, n={n}, inputs out of L2: {json.dumps(row)}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="root of an earlier checkout whose join_expand.cu is timed beside")
+                    help="root of an earlier checkout whose expr_eval.cu is timed beside")
     ap.add_argument("--json", default=None, help="write the results here")
     ap.add_argument("--seed", type=int, default=42)
     args = ap.parse_args(argv)
@@ -213,7 +321,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     libs = build_libraries(args.parent)
     rng = np.random.RandomState(args.seed)
-    res = {"card": card, "join_expand": sweep_join_expand(libs, rng, dev),
+    res = {"card": card, "expr_eval.cu": compiler_report(args.parent),
+           "expr_eval": sweep_expr_eval(libs, rng, dev, args.parent),
+           "join_expand": sweep_join_expand(libs, rng, dev),
            "gather_emit": sweep_gather_emit(libs, rng, dev)}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -3,9 +3,9 @@
 ``prepare_inputs`` builds a program's input block from a batch: int32 code
 columns, trinary predicate columns (each predicate evaluated once per
 dictionary entry into a cached table, then broadcast to rows with one
-gather) and float32 numeric decodes through the dictionary's numeric
+gather) and float64 numeric decodes through the dictionary's numeric
 side-array. The program itself runs in the ``expr_eval`` kernel. The value
-plane is float32, as on the reference's Pallas path.
+plane is float64, as on the reference's default numpy backend.
 
 The numeric side-array and the predicate tables live on the device, cached
 on the dictionary and extended as the dictionary grows.
@@ -69,7 +69,7 @@ def numeric_of(d: Dictionary, codes: torch.Tensor) -> torch.Tensor:
 def prepare_inputs(
     prog: B.ExprProgram, batch: ColumnBatch, d: Optional[Dictionary]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(icols int32 (KI, n), fcols float32 (KF, n)) for a batch's filled
+    """(icols int32 (KI, n), fcols float64 (KF, n)) for a batch's filled
     prefix; inactive rows produce values the caller's mask discards."""
     n = batch.n_rows
     dev = batch.device
@@ -85,11 +85,11 @@ def prepare_inputs(
         codes = batch.column(spec.var)
         if table.shape[0]:
             icols[len(prog.code_vars) + j] = table[codes.clamp(min=0).long()]
-    fcols = torch.full((kf, n), float("nan"), dtype=torch.float32, device=dev)
+    fcols = torch.full((kf, n), float("nan"), dtype=torch.float64, device=dev)
     for i, var in enumerate(prog.num_vars):
         if d is None:
             raise ValueError("dictionary required for value expressions")
-        fcols[i] = numeric_of(d, batch.column(var)).to(torch.float32)
+        fcols[i] = numeric_of(d, batch.column(var))
     return icols, fcols
 
 
@@ -108,7 +108,7 @@ def eval_program_mask(
 def eval_program_values(
     prog: B.ExprProgram, batch: ColumnBatch, d: Dictionary
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """BIND semantics: (float32 values, valid) over the filled prefix."""
+    """BIND semantics: (float64 values, valid) over the filled prefix."""
     icols, fcols = prepare_inputs(prog, batch, d)
     val, err = expr_eval(prog, icols, fcols)
     return val, ~err

@@ -11,8 +11,10 @@ scrolls past duplicates with skip(); SortDistinct sorts and dedups.
 Semantics follow the reference: COUNT counts bound terms, SUM/MIN/MAX/AVG
 restrict to numeric terms, DISTINCT dedups bound codes before the function
 applies, and MIN/MAX/AVG over an empty group stay unbound. The partials
-come from the float32 scan (the reference's Pallas path); they are exact
-for integer values below 2^24.
+come from the float64 scan, as the reference's default numpy backend
+computes them: MIN, MAX and COUNT equal it exactly, and a SUM of values
+that are not exactly summable differs from its sequential sum only in the
+order of the additions.
 
 DISTINCT aggregates (DESIGN.md §10.2) sort each batch once by (group,
 code) and take the first occurrence of each pair with the

@@ -129,10 +129,10 @@ def segment_reduce(keys: torch.Tensor, values: Optional[torch.Tensor],
     if func == "count" or values is None:
         scan = segment_scan(keys.contiguous(), None, "count")  # the kernel makes the ones
     else:
-        scan = segment_scan(keys.contiguous(), values.to(torch.float32).contiguous(), func)
+        scan = segment_scan(keys.contiguous(), values.to(torch.float64).contiguous(), func)
     run_end = torch.ones(n, dtype=torch.bool, device=keys.device)
     run_end[:-1] = keys[1:] != keys[:-1]
-    return keys[run_end].to(_I32), scan[run_end].to(torch.float64)
+    return keys[run_end].to(_I32), scan[run_end]
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,14 @@
 // consecutive cells of a row, which coalesce at any out_offset (concat
 // writes at arbitrary offsets), so no wider store is used. The destination
 // is the pooled output batch at a column offset (the zero-copy path).
+//
+// A plan wider than the caps is split on the host into chunks within them,
+// over the same li / ri: each chunk is one launch that writes its own rows
+// of the destination, and its pairs reach the mask through the launch's
+// mask_and flag: the first chunk writes the mask, a later one clears the
+// slots its pairs reject (an AND, with no read; a separate instance, so a
+// plan within the caps runs the same code as before), and a later one
+// without pairs gets no mask at all.
 
 #include <cuda_runtime.h>
 
@@ -56,8 +64,9 @@ namespace {
 
 // ROWS and PAIRS (at most the caps) bound the unrolled loops: a plan of up
 // to 8 rows and 2 pairs runs the short unroll, about a quarter faster than
-// the one to the caps on the q6 plan (PERF.md, kernel_sweep.py).
-template <int ROWS, int PAIRS>
+// the one to the caps on the q6 plan (PERF.md, kernel_sweep.py). MASK_AND:
+// AND the pairs into the mask instead of writing it.
+template <int ROWS, int PAIRS, bool MASK_AND>
 __global__ void __launch_bounds__(GE_THREADS)
 gather_emit_kernel(const EmitPlan plan, const int* __restrict__ lcols, long long lstride,
                    const int* __restrict__ rcols, long long rstride, int r_empty,
@@ -110,28 +119,37 @@ gather_emit_kernel(const EmitPlan plan, const int* __restrict__ lcols, long long
       m = m && (virt || a == pr[p]);
     }
   }
-  mask[t] = m;
+  if (!MASK_AND)
+    mask[t] = m;
+  else if (!m)
+    mask[t] = false;
 }
 
-template <int ROWS, int PAIRS>
+template <int ROWS, int PAIRS, bool MASK_AND = false>
 void launch(const EmitPlan& plan, const int* lcols, long long lstride, const int* rcols,
             long long rstride, int r_empty, const int* li, const int* ri, long long C,
             int* out, long long ostride, bool* mask, cudaStream_t st) {
   const unsigned int blocks = (unsigned int)((C + GE_THREADS - 1) / GE_THREADS);
-  gather_emit_kernel<ROWS, PAIRS><<<blocks, GE_THREADS, 0, st>>>(
+  gather_emit_kernel<ROWS, PAIRS, MASK_AND><<<blocks, GE_THREADS, 0, st>>>(
       plan, lcols, lstride, rcols, rstride, r_empty, li, ri, C, out, ostride, mask);
 }
 
 }  // namespace
 
+// mask_and: the chunk ANDs its pairs into the mask (a later chunk of a plan
+// past the caps) instead of writing it.
 extern "C" int gather_emit_launch(const EmitPlan* plan, const int* lcols,
                                   long long lstride, const int* rcols,
                                   long long rstride, int r_empty, const int* li,
                                   const int* ri, long long C, int* out,
-                                  long long ostride, bool* mask, void* stream) {
+                                  long long ostride, bool* mask, int mask_and, void* stream) {
   if (C <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  if (plan->n_rows <= 8 && plan->n_pairs <= 2)
+  const bool narrow = plan->n_rows <= 8 && plan->n_pairs <= 2;
+  if (mask_and)
+    launch<GE_MAX_ROWS, GE_MAX_PAIRS, true>(*plan, lcols, lstride, rcols, rstride, r_empty, li,
+                                            ri, C, out, ostride, mask, st);
+  else if (narrow)
     launch<8, 2>(*plan, lcols, lstride, rcols, rstride, r_empty, li, ri, C, out, ostride, mask, st);
   else
     launch<GE_MAX_ROWS, GE_MAX_PAIRS>(*plan, lcols, lstride, rcols, rstride, r_empty, li, ri, C,

@@ -1,13 +1,14 @@
-// segment_scan: segmented inclusive scan (sum / min / max) of float32 values
-// over sorted int32 keys — the grouping engine's reduction.
+// segment_scan: segmented inclusive scan (sum / min / max) of float64 values
+// over sorted int32 keys — the grouping engine's reduction. The value plane
+// is float64, as in the reference's default numpy backend.
 //
 // Replaces the Pallas TPU kernel segment_scan_pallas
 // (src/repro/kernels/segment_reduce.py). out[i] combines the values of the
 // maximal run of equal keys ending at i; count is a sum of ones, which the
 // kernel makes itself when it is given no values.
 //
-// What bounds it on the H100: bytes, 12 per element (a key, a value and the
-// output; 8 for a count). On the main path the input is one batch of at
+// What bounds it on the H100: bytes, 20 per element (a 4-byte key, an
+// 8-byte value and the 8-byte output; 12 for a count). On the main path the input is one batch of at
 // most 4096 rows, so the launch and one block's latency, not the bytes,
 // set the time.
 //
@@ -15,7 +16,7 @@
 // change, and the scan combines (f1, v1) . (f2, v2) = (f1 | f2, f2 ? v2 :
 // v1 + v2) (min / max alike).
 //   * ITEMS consecutive elements per thread, loaded with 16-byte vector
-//     loads where the pointers are aligned (scalar loads otherwise and at
+//     loads (int4 keys, double2 values) where the pointers are aligned (scalar loads otherwise and at
 //     the ragged edge) and scanned in registers. A thread takes its first
 //     head flag from the previous thread's last key (__shfl_up_sync); a
 //     warp's first flag comes from the previous warp's last key through
@@ -27,20 +28,24 @@
 //     batch is one block with no tile loop.
 //   * Above one tile, one block per tile, joined by a decoupled look-back.
 //     A block takes its tile from a ticket counter (so every tile it waits
-//     for has started) and publishes, before it waits for anything, a
-//     64-bit status word (state << 32 | value bits) with release order:
-//     AGGREGATE when the tile holds no head at all (one run through it,
-//     its value the tile's total), else its inclusive PREFIX (the value of
-//     its trailing run, which starts inside the tile). A tile whose first
+//     for has started) and publishes, before it waits for anything, its
+//     status: the value goes to the tile's slot of a value array with a
+//     relaxed store, then the state word with a release store, so a reader
+//     that acquires the state reads the value after it (a double no longer
+//     fits beside the state in one 64-bit word). The state is AGGREGATE
+//     when the tile holds no head at all (one run through it, its value
+//     the tile's total), else its inclusive PREFIX (the value of its
+//     trailing run, which starts inside the tile). A tile whose first
 //     key differs from the previous tile's last key needs no carry;
-//     otherwise warp 0 reads 32 predecessors' statuses at a time
-//     (acquire) and combines the aggregates back to the nearest PREFIX.
+//     otherwise warp 0 reads 32 predecessors' states at a time (acquire),
+//     then their values, and combines the aggregates back to the nearest
+//     PREFIX.
 //     A tile never upgrades its AGGREGATE to a PREFIX once it has its
 //     carry: that would save a run across T tiles some of its ceil(T / 32)
 //     window reads, but make the order of a float sum depend on timing.
 //     As it is, every sum is taken in one fixed order, the same in every
-//     run and in the plain version. The statuses and the ticket live in a
-//     zeroed scratch buffer that the wrapper allocates.
+//     run and in the plain version. The ticket, the states and the values
+//     live in a zeroed scratch buffer that the wrapper allocates.
 // Summation order: sequential within a thread, a shuffle tree over the
 // threads of a warp, then over the warps, then across tiles (a tree over
 // each window of 32 predecessors, the windows nearest first).
@@ -59,48 +64,59 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned long long AGGREGATE = 1ull, PREFIX = 2ull;
 
 template <int OP>
-__device__ __forceinline__ float combine(float a, float b) {
-  if (OP == 0) return __fadd_rn(a, b);
-  if (isnan(a) || isnan(b)) return nanf("");
-  return OP == 1 ? fminf(a, b) : fmaxf(a, b);
+__device__ __forceinline__ double combine(double a, double b) {
+  if (OP == 0) return __dadd_rn(a, b);
+  if (isnan(a) || isnan(b)) return nan("");
+  return OP == 1 ? fmin(a, b) : fmax(a, b);
 }
 
 template <int OP>
-__device__ __forceinline__ float identity() {
-  return OP == 0 ? 0.0f : (OP == 1 ? INFINITY : -INFINITY);
+__device__ __forceinline__ double identity() {
+  return OP == 0 ? 0.0 : (OP == 1 ? INFINITY : -INFINITY);
 }
 
 __device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
-__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long state,
-                                              float v) {
-  const unsigned long long w = state << 32 | __float_as_uint(v);
-  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+__device__ __forceinline__ double load_relaxed(const double* p) {
+  double v;
+  asm volatile("ld.relaxed.gpu.global.f64 %0, [%1];" : "=d"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A tile's status: its value first, then its state with release order, so
+// that a reader which acquires the state finds the value.
+__device__ __forceinline__ void publish(unsigned long long* state, double* value,
+                                        unsigned long long s, double v) {
+  asm volatile("st.relaxed.gpu.global.f64 [%0], %1;" ::"l"(value), "d"(v) : "memory");
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(state), "l"(s) : "memory");
 }
 
 // Warp 0: the combined value of the runs that reach this tile from its
 // predecessors, walking back 32 statuses at a time to the nearest PREFIX.
 template <int OP>
-__device__ float look_back(const unsigned long long* status, int tile, int lane) {
-  float acc = 0.0f;
+__device__ double look_back(const unsigned long long* state, const double* value, int tile,
+                            int lane) {
+  double acc = 0.0;
   bool have = false;
   for (int hi = tile - 1;; hi -= 32) {
     const int j = hi - lane;
-    unsigned long long w = PREFIX << 32 | __float_as_uint(identity<OP>());
+    unsigned long long s = PREFIX;
+    double v = identity<OP>();
     if (j >= 0) {
       do {
-        w = load_acquire(status + j);
-      } while ((w >> 32) == 0);
+        s = load_acquire(state + j);
+      } while (s == 0);
+      v = load_relaxed(value + j);
     }
-    const unsigned prefixes = __ballot_sync(FULL, (w >> 32) == PREFIX);
+    const unsigned prefixes = __ballot_sync(FULL, s == PREFIX);
     // lanes up to the nearest PREFIX count; the aggregates among them
     // hold no head, so their values simply combine
     const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
-    float x = lane <= stop ? __uint_as_float((unsigned)w) : identity<OP>();
+    double x = lane <= stop ? v : identity<OP>();
     for (int o = 16; o > 0; o >>= 1) x = combine<OP>(x, __shfl_down_sync(FULL, x, o));
     x = __shfl_sync(FULL, x, 0);
     acc = have ? combine<OP>(x, acc) : x;
@@ -111,10 +127,10 @@ __device__ float look_back(const unsigned long long* status, int tile, int lane)
 
 template <int OP>
 __global__ void __launch_bounds__(THREADS) segment_scan_kernel(
-    const int* __restrict__ keys, const float* __restrict__ vals, float* __restrict__ out,
+    const int* __restrict__ keys, const double* __restrict__ vals, double* __restrict__ out,
     long long n, int tiles, unsigned long long* __restrict__ scratch) {
   __shared__ int s_first_key[WARPS], s_last_key[WARPS], s_flag[WARPS], s_carry_ok[WARPS];
-  __shared__ float s_value[WARPS], s_carry[WARPS];
+  __shared__ double s_value[WARPS], s_carry[WARPS];
   __shared__ int s_tile;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int tile = 0;
@@ -128,7 +144,7 @@ __global__ void __launch_bounds__(THREADS) segment_scan_kernel(
 
   // load ITEMS keys and values; elements past n are heads and never stored
   int k[ITEMS];
-  float v[ITEMS];
+  double v[ITEMS];
   const bool vec = i0 + ITEMS <= n &&
                    (((uintptr_t)keys | (uintptr_t)out | (uintptr_t)vals) & 15) == 0;
   if (vec) {
@@ -136,21 +152,23 @@ __global__ void __launch_bounds__(THREADS) segment_scan_kernel(
     for (int h = 0; h < ITEMS / 4; ++h) {
       const int4 a = reinterpret_cast<const int4*>(keys + i0)[h];
       k[4 * h] = a.x, k[4 * h + 1] = a.y, k[4 * h + 2] = a.z, k[4 * h + 3] = a.w;
-      if (vals) {
-        const float4 b = reinterpret_cast<const float4*>(vals + i0)[h];
-        v[4 * h] = b.x, v[4 * h + 1] = b.y, v[4 * h + 2] = b.z, v[4 * h + 3] = b.w;
-      }
     }
-    if (!vals) {
+    if (vals) {
 #pragma unroll
-      for (int j = 0; j < ITEMS; ++j) v[j] = 1.0f;
+      for (int h = 0; h < ITEMS / 2; ++h) {
+        const double2 b = reinterpret_cast<const double2*>(vals + i0)[h];
+        v[2 * h] = b.x, v[2 * h + 1] = b.y;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j) v[j] = 1.0;
     }
   } else {
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j) {
       const bool in = i0 + j < n;
       k[j] = in ? keys[i0 + j] : 0;
-      v[j] = in ? (vals ? vals[i0 + j] : 1.0f) : identity<OP>();
+      v[j] = in ? (vals ? vals[i0 + j] : 1.0) : identity<OP>();
     }
   }
 
@@ -170,18 +188,18 @@ __global__ void __launch_bounds__(THREADS) segment_scan_kernel(
   }
 
   // the warp's scan of the thread aggregates
-  float wv = v[ITEMS - 1];
+  double wv = v[ITEMS - 1];
   int wf = any;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const float v2 = __shfl_up_sync(FULL, wv, d);
+    const double v2 = __shfl_up_sync(FULL, wv, d);
     const int f2 = __shfl_up_sync(FULL, wf, d);
     if (lane >= d) {
       if (!wf) wv = combine<OP>(v2, wv);
       wf |= f2;
     }
   }
-  const float ev = __shfl_up_sync(FULL, wv, 1);
+  const double ev = __shfl_up_sync(FULL, wv, 1);
   const int ef = __shfl_up_sync(FULL, wf, 1);
   // the elements before this thread's first head take the lanes below;
   // those whose run reaches back to the warp's first element (through[j])
@@ -205,7 +223,7 @@ __global__ void __launch_bounds__(THREADS) segment_scan_kernel(
   if (warp == 0) {
     // each warp's first flag, and the scan over the warp aggregates
     int edge = 1, f = 1;
-    float x = identity<OP>();
+    double x = identity<OP>();
     if (lane < WARPS) {
       const long long first = t0 + (long long)lane * 32 * ITEMS;
       if (lane == 0)
@@ -217,23 +235,24 @@ __global__ void __launch_bounds__(THREADS) segment_scan_kernel(
     }
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const float x2 = __shfl_up_sync(FULL, x, d);
+      const double x2 = __shfl_up_sync(FULL, x, d);
       const int f2 = __shfl_up_sync(FULL, f, d);
       if (lane >= d) {
         if (!f) x = combine<OP>(x2, x);
         f |= f2;
       }
     }
-    const float xv = __shfl_up_sync(FULL, x, 1);  // the warps below, in this tile
+    const double xv = __shfl_up_sync(FULL, x, 1);  // the warps below, in this tile
     const int xf = __shfl_up_sync(FULL, f, 1);
-    const float tile_v = __shfl_sync(FULL, x, WARPS - 1);
+    const double tile_v = __shfl_sync(FULL, x, WARPS - 1);
     const int tile_f = __shfl_sync(FULL, f, WARPS - 1);
     const int tile_edge = __shfl_sync(FULL, edge, 0);
-    float carry = 0.0f;
+    double carry = 0.0;
     if (tiles > 1) {
-      unsigned long long* status = scratch + 1;
-      if (lane == 0) store_release(status + tile, tile_f ? PREFIX : AGGREGATE, tile_v);
-      if (!tile_edge) carry = look_back<OP>(status, tile, lane);
+      unsigned long long* state = scratch + 1;
+      double* value = reinterpret_cast<double*>(scratch + 1 + tiles);
+      if (lane == 0) publish(state + tile, value + tile, tile_f ? PREFIX : AGGREGATE, tile_v);
+      if (!tile_edge) carry = look_back<OP>(state, value, tile, lane);
     }
     if (lane < WARPS) {
       // what carries into warp `lane`: nothing past a head at its first
@@ -246,16 +265,15 @@ __global__ void __launch_bounds__(THREADS) segment_scan_kernel(
   __syncthreads();
 
   if (s_carry_ok[warp]) {
-    const float c = s_carry[warp];
+    const double c = s_carry[warp];
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j)
       if (through >> j & 1u) v[j] = combine<OP>(c, v[j]);
   }
   if (vec) {
 #pragma unroll
-    for (int h = 0; h < ITEMS / 4; ++h)
-      reinterpret_cast<float4*>(out + i0)[h] =
-          make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+    for (int h = 0; h < ITEMS / 2; ++h)
+      reinterpret_cast<double2*>(out + i0)[h] = make_double2(v[2 * h], v[2 * h + 1]);
   } else {
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j)
@@ -264,7 +282,7 @@ __global__ void __launch_bounds__(THREADS) segment_scan_kernel(
 }
 
 template <int OP>
-void launch(const int* keys, const float* vals, float* out, long long n, int tiles,
+void launch(const int* keys, const double* vals, double* out, long long n, int tiles,
             unsigned long long* scratch, cudaStream_t stream) {
   segment_scan_kernel<OP><<<tiles, THREADS, 0, stream>>>(keys, vals, out, n, tiles, scratch);
 }
@@ -272,9 +290,10 @@ void launch(const int* keys, const float* vals, float* out, long long n, int til
 }  // namespace
 
 // op: 0 sum (and count), 1 min, 2 max. vals may be null: every value is 1
-// (count). scratch: tiles + 1 zeroed 64-bit words (a ticket counter, then a
-// status per tile) when n > TILE = 4096 elements, else unused.
-extern "C" int segment_scan_launch(const int* keys, const float* vals, float* out, long long n,
+// (count). scratch: 1 + 2 * tiles zeroed 64-bit words (a ticket counter, a
+// state per tile, then a double value per tile) when n > TILE = 4096
+// elements, else unused.
+extern "C" int segment_scan_launch(const int* keys, const double* vals, double* out, long long n,
                                    int op, unsigned long long* scratch, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const long long tiles = (n + TILE - 1) / TILE;

@@ -109,9 +109,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
         "join_expand_launch": [P, P, P, P, P, I, L, L, P, P, I, P],
-        "gather_emit_launch": [P, P, L, P, L, I, P, P, L, P, L, P, P],
+        "gather_emit_launch": [P, P, L, P, L, I, P, P, L, P, L, P, I, P],
         "gather_emit_limits": [P, P, P],
-        "expr_eval_launch": [P, P, P, L, P, P, P],
+        "expr_eval_launch": [P, P, I, I, I, I, I, I, P, P, L, P, P, I, I, L, P, P, P],
         "expr_eval_limits": [P, P, P, P],
         "segment_scan_launch": [P, P, P, L, I, P, P],
         "radix_partition_launch": [P, L, I, P, P, P],

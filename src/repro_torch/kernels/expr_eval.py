@@ -1,16 +1,29 @@
 """expr_eval: evaluate a compiled expression program over an input block.
 
 ``icols`` (KI, n) int32 holds dictionary codes (NULL = -1) and trinary
-predicate columns, ``fcols`` (KF, n) float32 the numeric decodes (NaN =
-non-numeric or NULL). Returns the output register's float32 value and
+predicate columns, ``fcols`` (KF, n) float64 the numeric decodes (NaN =
+non-numeric or NULL). Returns the output register's float64 value and
 bool error per row, with the semantics of the reference's ``vm._interp``
-on its float32 plane.
+on its float64 plane (the reference's default numpy backend), bit for bit.
 
 CUDA kernel: ``csrc/expr_eval.cu``, one bytecode interpreter for every
-program; the program travels as a by-value kernel parameter, so programs
-beyond the kernel's instruction, constant or register caps are refused.
+program. The program lives in one device buffer per program and device
+(``program_buffer``), uploaded once and cached; a launch passes its
+address, and each block stages it into shared memory. Where a row's
+registers live is chosen per program (``launch_shape``): a program of at
+most ``SHORT_INSTRS`` instructions and ``SHORT_REGS`` registers travels by
+value (``short_program``), and is not uploaded, to an instance that keeps
+them in real registers; a longer one keeps them, with its inputs, in
+shared-memory planes of ``threads`` values sized per launch
+(``smem_bytes``, the one place that lays a block's shared memory out), or,
+when those do not fit in a block even at 32 threads, in global-memory
+planes. No instruction, constant or register count is refused. The
+kernel's own caps are checked against this module's once, when the
+library loads (``_check_limits``).
 ``expr_eval_plain`` is the same interpreter in PyTorch; the wrapper takes
-it for CPU tensors only.
+it for CPU tensors only. Both run ``check_program``, which refuses only a
+malformed program: an opcode or an operand outside the program's
+registers, constants or input columns.
 """
 
 from __future__ import annotations
@@ -27,100 +40,160 @@ from repro_torch.core.exprs import bytecode as B
 from repro_torch.core.exprs import terms as T
 from repro_torch.kernels import build
 
-MAX_INSTR = 96
-MAX_CONSTS = 64
-MAX_REGS = 48
+THREADS = 128  # a block's threads (kernel_sweep.py)
+SMEM_MAX = 232_448  # a block's dynamic shared memory on the H100, opted in
+SHORT_INSTRS = 4  # the "registers" instance's instructions, by value
+SHORT_REGS = 4  # and registers
+WINDOW = 256  # instructions staged in shared memory at a time
+INSTR_WORDS = 8  # int32 words per instruction in the program buffer
+INSTANCES = {"registers": 0, "shared": 1, "global": 2}  # csrc/expr_eval.cu's modes
 launches = 0
+_F64 = torch.float64
 
-
-class _ExprProg(ctypes.Structure):
-    """Mirror of ``struct ExprProg`` in csrc/expr_eval.cu."""
-
-    _fields_ = [
-        ("n_instr", ctypes.c_int),
-        ("n_regs", ctypes.c_int),
-        ("out_reg", ctypes.c_int),
-        ("n_consts", ctypes.c_int),
-        ("instr", ctypes.c_int * (MAX_INSTR * 5)),
-        ("consts", ctypes.c_float * MAX_CONSTS),
-        ("const_err", ctypes.c_ubyte * MAX_CONSTS),
-    ]
-
-
-def check_program(prog: B.ExprProgram) -> None:
-    """Raise when the program exceeds the kernel's fixed caps."""
-    if len(prog.instrs) > MAX_INSTR:
-        raise ValueError(f"expr_eval: {len(prog.instrs)} instructions exceed {MAX_INSTR}")
-    if len(prog.consts) > MAX_CONSTS:
-        raise ValueError(f"expr_eval: {len(prog.consts)} constants exceed {MAX_CONSTS}")
-    if prog.n_regs > MAX_REGS:
-        raise ValueError(f"expr_eval: {prog.n_regs} registers exceed {MAX_REGS}")
+# opcodes whose operands name registers: (a, b, c) used, by opcode
+_REG_OPERANDS = {op: (True, True, False) for op in (*B.ARITH_OPS, *B.CMP_OPS, B.AND, B.OR,
+                                                    B.COALESCE)}
+_REG_OPERANDS.update({B.NOT: (True, False, False), B.IF: (True, True, True)})
+# opcodes whose operands name code columns
+_CODE_OPERANDS = {B.BOUND: (True, False), B.EQ_CODE: (True, True), B.NE_CODE: (True, True),
+                  B.EQ_CONST: (True, False), B.NE_CONST: (True, False), B.TEST: (True, True)}
 
 
 @functools.lru_cache(maxsize=256)
-def _prog_struct(prog: B.ExprProgram) -> _ExprProg:
-    check_program(prog)
-    s = _ExprProg()
-    s.n_instr = len(prog.instrs)
-    s.n_regs = prog.n_regs
-    s.out_reg = prog.out_reg
-    s.n_consts = len(prog.consts)
-    for k, ins in enumerate(prog.instrs):
-        for j, x in enumerate(ins):
-            s.instr[5 * k + j] = int(x)
-    with np.errstate(over="ignore"):
-        c32 = np.asarray(prog.consts, dtype=np.float64).astype(np.float32)
-    for k, (c64, c) in enumerate(zip(prog.consts, c32.tolist())):
-        s.consts[k] = c
-        s.const_err[k] = 0 if math.isfinite(c64) else 1
-    return s
+def check_program(prog: B.ExprProgram) -> None:
+    """Raise on a malformed program (the kernel reads its operands without
+    bounds checks): an unknown opcode, or a register, constant or input
+    column outside the program's own."""
+    regs, n_ic, n_fc = prog.n_regs, prog.n_icols, prog.n_fcols
+    if not 0 <= prog.out_reg < regs:
+        raise ValueError(f"expr_eval: output register {prog.out_reg} outside {regs} registers")
+    for k, (op, dst, a, b, c) in enumerate(prog.instrs):
+        ok = 0 <= dst < regs
+        if op in _REG_OPERANDS:
+            ok = ok and all(0 <= r < regs for r, used in zip((a, b, c), _REG_OPERANDS[op])
+                            if used)
+        elif op in _CODE_OPERANDS:
+            ok = ok and all(0 <= r < n_ic for r, used in zip((a, b), _CODE_OPERANDS[op]) if used)
+        elif op == B.LOAD_NUM:
+            ok = ok and 0 <= a < n_fc
+        elif op == B.LOAD_CONST:
+            ok = ok and 0 <= a < len(prog.consts)
+        else:
+            raise ValueError(f"expr_eval: instruction {k} has unknown opcode {op}")
+        if not ok:
+            raise ValueError(f"expr_eval: instruction {k} {(op, dst, a, b, c)} names an "
+                             f"operand outside the program")
 
 
-@functools.lru_cache(maxsize=1)
-def _check_limits(lib) -> None:
-    got = [ctypes.c_int() for _ in range(4)]
-    lib.expr_eval_limits(*[ctypes.byref(x) for x in got])
-    want = (MAX_INSTR, MAX_CONSTS, MAX_REGS, ctypes.sizeof(_ExprProg))
-    if tuple(x.value for x in got) != want:
-        raise RuntimeError(f"expr_eval: kernel caps {[x.value for x in got]} != {want}")
+def program_words(prog: B.ExprProgram) -> np.ndarray:
+    """The program as the kernel reads it: ``INSTR_WORDS`` int32 per
+    instruction (op, dst, a, b, c, then for LOAD_CONST the float64
+    constant's low and high words, padding); the kernel takes a constant's
+    error bit from the constant itself (not finite)."""
+    words = np.zeros((len(prog.instrs), INSTR_WORDS), dtype=np.int32)
+    if prog.instrs:
+        words[:, :5] = np.asarray(prog.instrs, dtype=np.int64).astype(np.int32)
+        consts = np.asarray(prog.consts, dtype=np.float64).reshape(-1)
+        load = words[:, 0] == B.LOAD_CONST
+        if load.any():
+            words[load, 5:7] = consts.view(np.int32).reshape(-1, 2)[words[load, 2]]
+    return words
+
+
+@functools.lru_cache(maxsize=256)
+def program_buffer(prog: B.ExprProgram, device: torch.device) -> torch.Tensor:
+    """``program_words`` on ``device``, which the "shared" and "global"
+    instances read: uploaded once per program and device, then used by
+    every launch."""
+    return torch.from_numpy(program_words(prog)).to(device)
+
+
+@functools.lru_cache(maxsize=256)
+def short_program(prog: B.ExprProgram):
+    """(the by-value struct of ``program_words`` that the "registers"
+    instance takes, its address): packed once per program of at most
+    ``SHORT_INSTRS`` instructions; the launch carries it, so nothing is
+    uploaded for that instance."""
+    if len(prog.instrs) > SHORT_INSTRS:
+        raise ValueError(f"expr_eval: {len(prog.instrs)} instructions do not travel by value")
+    words = program_words(prog)
+    short = (ctypes.c_int32 * (SHORT_INSTRS * INSTR_WORDS))()
+    short[:words.size] = words.reshape(-1).tolist()
+    return short, ctypes.addressof(short)
+
+
+def window(prog: B.ExprProgram) -> int:
+    """Instructions a block stages in shared memory at a time."""
+    return min(max(len(prog.instrs), 1), WINDOW)
+
+
+def smem_bytes(prog: B.ExprProgram, threads: int, instance: str) -> int:
+    """A block's shared memory (csrc/expr_eval.cu): none for "registers";
+    the program window, 32 bytes an instruction, then, for "shared", per
+    thread 8 bytes a numeric input, 4 a code input, and 9 a register (its
+    float64 value and its error byte)."""
+    if instance == "registers":
+        return 0
+    per_thread = 8 * prog.n_fcols + 4 * prog.n_icols + 9 * prog.n_regs
+    return 32 * window(prog) + (threads * per_thread if instance == "shared" else 0)
+
+
+def launch_shape(prog: B.ExprProgram, threads: int = THREADS) -> Tuple[int, str]:
+    """(threads a block, instance) for ``prog``: "registers" for a program
+    within ``SHORT_INSTRS`` instructions and ``SHORT_REGS`` registers;
+    else "shared" at ``threads``, halved down to 32 while the planes exceed
+    ``SMEM_MAX``; else "global" at ``threads``."""
+    if fits(prog, threads, "registers"):
+        return threads, "registers"
+    t = threads
+    while smem_bytes(prog, t, "shared") > SMEM_MAX and t > 32:
+        t //= 2
+    if smem_bytes(prog, t, "shared") > SMEM_MAX:
+        return threads, "global"
+    return t, "shared"
+
+
+def fits(prog: B.ExprProgram, threads: int, instance: str) -> bool:
+    """Whether the kernel takes ``prog`` in ``instance`` at ``threads``."""
+    if instance == "registers":
+        return len(prog.instrs) <= SHORT_INSTRS and prog.n_regs <= SHORT_REGS
+    return smem_bytes(prog, threads, instance) <= SMEM_MAX
 
 
 def expr_eval_plain(prog: B.ExprProgram, icols: torch.Tensor,
                     fcols: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    check_program(prog)
     n = int(icols.shape[1])
     dev = icols.device
     vals = [None] * prog.n_regs
     errs = [None] * prog.n_regs
     no_err = torch.zeros(n, dtype=torch.bool, device=dev)
     null = icols == -1 if prog.n_icols else None
-    f32 = torch.float32
 
     def truthy(r):
         return vals[r] != 0
 
     for op, dst, a, b, c in prog.instrs:
         if op == B.LOAD_NUM:
-            vals[dst], errs[dst] = fcols[a].to(f32), torch.isnan(fcols[a])
+            vals[dst], errs[dst] = fcols[a].to(_F64), torch.isnan(fcols[a])
         elif op == B.LOAD_CONST:
-            k = prog.consts[a]
-            with np.errstate(over="ignore"):
-                kf = float(np.float32(k))
-            v = torch.full((n,), kf, dtype=f32, device=dev)
-            vals[dst] = torch.where(torch.isfinite(v), v, 0)
-            errs[dst] = torch.full((n,), not math.isfinite(k), dtype=torch.bool, device=dev)
+            k = float(prog.consts[a])
+            fin = math.isfinite(k)
+            vals[dst] = torch.full((n,), k if fin else 0.0, dtype=_F64, device=dev)
+            errs[dst] = torch.full((n,), not fin, dtype=torch.bool, device=dev)
         elif op == B.BOUND:
-            vals[dst], errs[dst] = (~null[a]).to(f32), no_err
+            vals[dst], errs[dst] = (~null[a]).to(_F64), no_err
         elif op in (B.EQ_CODE, B.NE_CODE):
             eq = icols[a] == icols[b]
-            vals[dst] = (eq if op == B.EQ_CODE else ~eq).to(f32)
+            vals[dst] = (eq if op == B.EQ_CODE else ~eq).to(_F64)
             errs[dst] = null[a] | null[b]
         elif op in (B.EQ_CONST, B.NE_CONST):
             eq = icols[a] == b
-            vals[dst] = (eq if op == B.EQ_CONST else ~eq).to(f32)
+            vals[dst] = (eq if op == B.EQ_CONST else ~eq).to(_F64)
             errs[dst] = null[a]
         elif op == B.TEST:
             tri = icols[a]
-            vals[dst] = (tri == T.TRUE).to(f32)
+            vals[dst] = (tri == T.TRUE).to(_F64)
             errs[dst] = (tri == T.ERROR) | null[b]
         elif op in B.ARITH_OPS:
             x, y = vals[a], vals[b]
@@ -129,19 +202,19 @@ def expr_eval_plain(prog: B.ExprProgram, icols: torch.Tensor,
             vals[dst] = torch.where(fin, v, 0)
             errs[dst] = errs[a] | errs[b] | ~fin
         elif op in B.CMP_OPS:
-            vals[dst] = _CMP[op](vals[a], vals[b]).to(f32)
+            vals[dst] = _CMP[op](vals[a], vals[b]).to(_F64)
             errs[dst] = errs[a] | errs[b]
         elif op == B.NOT:
-            vals[dst], errs[dst] = (~truthy(a)).to(f32), errs[a]
+            vals[dst], errs[dst] = (~truthy(a)).to(_F64), errs[a]
         elif op == B.AND:
             fa = ~truthy(a) & ~errs[a]
             fb = ~truthy(b) & ~errs[b]
-            vals[dst] = (truthy(a) & truthy(b) & ~errs[a] & ~errs[b]).to(f32)
+            vals[dst] = (truthy(a) & truthy(b) & ~errs[a] & ~errs[b]).to(_F64)
             errs[dst] = (errs[a] | errs[b]) & ~fa & ~fb
         elif op == B.OR:
             ta = truthy(a) & ~errs[a]
             tb = truthy(b) & ~errs[b]
-            vals[dst] = (ta | tb).to(f32)
+            vals[dst] = (ta | tb).to(_F64)
             errs[dst] = (errs[a] | errs[b]) & ~ta & ~tb
         elif op == B.IF:
             take = truthy(a)
@@ -150,8 +223,6 @@ def expr_eval_plain(prog: B.ExprProgram, icols: torch.Tensor,
         elif op == B.COALESCE:
             vals[dst] = torch.where(errs[a], vals[b], vals[a])
             errs[dst] = errs[a] & errs[b]
-        else:  # pragma: no cover - opcode set is closed
-            raise ValueError(f"bad opcode {op}")
     return vals[prog.out_reg], errs[prog.out_reg]
 
 
@@ -171,14 +242,22 @@ _CMP = {
 }
 
 
+@functools.lru_cache(maxsize=1)
+def _check_limits(lib) -> None:
+    got = [ctypes.c_int() for _ in range(4)]
+    lib.expr_eval_limits(*[ctypes.byref(x) for x in got])
+    want = (SHORT_INSTRS, SHORT_REGS, 4 * SHORT_INSTRS * INSTR_WORDS, SMEM_MAX)
+    if tuple(x.value for x in got) != want:
+        raise RuntimeError(f"expr_eval: kernel caps {[x.value for x in got]} != {want}")
+
+
 def expr_eval(prog: B.ExprProgram, icols: torch.Tensor,
               fcols: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(value float32 (n,), error bool (n,)) of ``prog`` over the block."""
-    global launches
+    """(value float64 (n,), error bool (n,)) of ``prog`` over the block."""
     if icols.dtype != torch.int32 or icols.dim() != 2 or not icols.is_contiguous():
         raise ValueError("expr_eval: icols must be a contiguous (KI, n) int32 tensor")
-    if fcols.dtype != torch.float32 or fcols.dim() != 2 or not fcols.is_contiguous():
-        raise ValueError("expr_eval: fcols must be a contiguous (KF, n) float32 tensor")
+    if fcols.dtype != _F64 or fcols.dim() != 2 or not fcols.is_contiguous():
+        raise ValueError("expr_eval: fcols must be a contiguous (KF, n) float64 tensor")
     n = int(icols.shape[1])
     if fcols.shape[1] != n or icols.shape[0] < prog.n_icols or fcols.shape[0] < prog.n_fcols:
         raise ValueError("expr_eval: input block does not match the program")
@@ -189,14 +268,38 @@ def expr_eval(prog: B.ExprProgram, icols: torch.Tensor,
         return expr_eval_plain(prog, icols, fcols)
     if dev.type != "cuda":
         raise ValueError(f"expr_eval: unsupported device {dev}")
+    return _launch(prog, icols, fcols, *launch_shape(prog))
+
+
+def _launch(prog: B.ExprProgram, icols: torch.Tensor, fcols: torch.Tensor, threads: int,
+            instance: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel's ``instance`` at ``threads`` on CUDA inputs that
+    ``expr_eval`` has checked; ``kernel_sweep.py`` times the shapes that
+    ``launch_shape`` does not pick through it."""
+    global launches
+    check_program(prog)
+    if not fits(prog, threads, instance):
+        raise ValueError(f"expr_eval: the {instance} instance at {threads} threads does not "
+                         f"take this program")
     lib = build.library()
     _check_limits(lib)
-    s = _prog_struct(prog)
-    val = torch.empty(n, dtype=torch.float32, device=dev)
+    dev = icols.device
+    n = int(icols.shape[1])
+    regs = instance == "registers"
+    buf = None if regs else program_buffer(prog, dev)
+    short = short_program(prog)[1] if regs else None
+    val = torch.empty(n, dtype=_F64, device=dev)
     err = torch.empty(n, dtype=torch.bool, device=dev)
+    gv = ge = None
+    if instance == "global":
+        gv = torch.empty(prog.n_regs * n, dtype=_F64, device=dev)
+        ge = torch.empty(prog.n_regs * n, dtype=torch.uint8, device=dev)
     build.check(lib.expr_eval_launch(
-        ctypes.addressof(s), icols.data_ptr(), fcols.data_ptr(), n,
-        val.data_ptr(), err.data_ptr(), build.stream_handle(val),
+        short, None if buf is None else buf.data_ptr(), len(prog.instrs), window(prog),
+        prog.n_regs, prog.n_icols, prog.n_fcols, prog.out_reg, icols.data_ptr(),
+        fcols.data_ptr(), n, val.data_ptr(), err.data_ptr(), threads, INSTANCES[instance],
+        smem_bytes(prog, threads, instance), None if gv is None else gv.data_ptr(),
+        None if ge is None else ge.data_ptr(), build.stream_handle(val),
     ), "expr_eval")
     launches += 1
     return val, err

@@ -20,10 +20,13 @@ Returns ``(block, mask)``: the (nl+nr, C) emitted block (a view of ``out``
 when given) and the (C,) bool mask.
 
 CUDA kernel: ``csrc/gather_emit.cu``, which takes the plan as a by-value
-kernel parameter, so a plan beyond its caps (``MAX_ROWS`` emitted rows,
-``MAX_PAIRS`` pairs) is refused when it is built. ``gather_emit_plain`` is
-the same function in PyTorch, reading the plan's host tuples; the wrapper
-takes it for CPU tensors only.
+kernel parameter of at most ``MAX_ROWS`` emitted rows and ``MAX_PAIRS``
+pairs. A wider plan is split, when it is built, into chunks within those
+caps over the same ``li``/``ri``: chunk k writes its own rows ``[r_k, r_k +
+n_k)`` of the block, the first chunk writes the mask and every later chunk
+with pairs ANDs its pairs into it, one launch each. ``gather_emit_plain`` is
+the same function in PyTorch over the whole plan, reading its host tuples;
+the wrapper takes it for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ import torch
 from repro_torch.kernels import build
 
 NULL = -1
-# csrc/gather_emit.cu's caps: over twice the widest plan of the LSQB, path
-# and BSBM BI queries (5 emitted rows, 1 pair)
+# csrc/gather_emit.cu's caps for one launch: over twice the widest plan of
+# the LSQB, path and BSBM BI queries (5 emitted rows, 1 pair), so each of
+# their plans is one launch; a wider plan is several
 MAX_ROWS = 16
 MAX_PAIRS = 4
 launches = 0
@@ -46,7 +50,8 @@ _I32 = torch.int32
 
 
 class _EmitPlanC(ctypes.Structure):
-    """Mirror of ``struct EmitPlan`` in csrc/gather_emit.cu."""
+    """Mirror of ``struct EmitPlan`` in csrc/gather_emit.cu: one launch's
+    chunk of a plan."""
 
     _fields_ = [
         ("n_left", ctypes.c_int),
@@ -63,10 +68,14 @@ class EmitPlan:
     """What one ``gather_emit`` call emits: ``lsel`` left and ``rsel``
     right source rows (-1 emits NULL) and the ``pairs`` (left row, right
     row) that must be equal. Built once on the host per operator (or per
-    probe schema), checked against the kernel's caps once, and packed into
-    the by-value struct the kernel takes."""
+    probe schema), and packed into the by-value structs of its launches:
+    one for a plan within ``MAX_ROWS`` rows and ``MAX_PAIRS`` pairs, else
+    ``max(ceil(rows / MAX_ROWS), ceil(pairs / MAX_PAIRS))`` chunks, chunk k
+    taking rows ``[k * MAX_ROWS, (k + 1) * MAX_ROWS)`` and pairs ``[k *
+    MAX_PAIRS, (k + 1) * MAX_PAIRS)``; ``chunks`` holds (first row,
+    struct) per launch."""
 
-    __slots__ = ("lsel", "rsel", "pairs", "n_rows", "_struct", "address")
+    __slots__ = ("lsel", "rsel", "pairs", "n_rows", "chunks")
 
     def __init__(self, lsel: Iterable[int] = (), rsel: Iterable[int] = (),
                  pairs: Iterable[Tuple[int, int]] = ()):
@@ -74,23 +83,25 @@ class EmitPlan:
         self.rsel = tuple(int(x) for x in rsel)
         self.pairs = tuple((int(a), int(b)) for a, b in pairs)
         self.n_rows = len(self.lsel) + len(self.rsel)
-        if self.n_rows > MAX_ROWS:
-            raise ValueError(f"gather_emit: {self.n_rows} emitted rows exceed "
-                             f"MAX_ROWS = {MAX_ROWS}")
-        if len(self.pairs) > MAX_PAIRS:
-            raise ValueError(f"gather_emit: {len(self.pairs)} pairs exceed "
-                             f"MAX_PAIRS = {MAX_PAIRS}")
         if any(a < 0 or b < 0 for a, b in self.pairs):
             raise ValueError("gather_emit: pair rows must be non-negative")
-        s = _EmitPlanC()
-        s.n_left, s.n_rows, s.n_pairs = len(self.lsel), self.n_rows, len(self.pairs)
-        for j, row in enumerate(self.lsel + self.rsel):
-            s.row[j] = row
-        for p, (a, b) in enumerate(self.pairs):
-            s.pair_left[p], s.pair_right[p] = a, b
-            s.pair_reuse[p] = self.lsel.index(a) if a in self.lsel else -1
-        self._struct = s
-        self.address = ctypes.addressof(s)
+        rows, nl = self.lsel + self.rsel, len(self.lsel)
+        n_chunks = max(1, -(-len(rows) // MAX_ROWS), -(-len(self.pairs) // MAX_PAIRS))
+        chunks = []
+        for k in range(n_chunks):
+            r0 = k * MAX_ROWS
+            crows = rows[r0: r0 + MAX_ROWS]
+            cpairs = self.pairs[k * MAX_PAIRS: (k + 1) * MAX_PAIRS]
+            cleft = rows[r0: min(nl, r0 + MAX_ROWS)]
+            s = _EmitPlanC()
+            s.n_left, s.n_rows, s.n_pairs = len(cleft), len(crows), len(cpairs)
+            for j, row in enumerate(crows):
+                s.row[j] = row
+            for p, (a, b) in enumerate(cpairs):
+                s.pair_left[p], s.pair_right[p] = a, b
+                s.pair_reuse[p] = cleft.index(a) if a in cleft else -1
+            chunks.append((r0, s, ctypes.addressof(s)))
+        self.chunks = tuple(chunks)
 
 
 @functools.lru_cache(maxsize=1)
@@ -184,12 +195,16 @@ def gather_emit(lcols, rcols, li, ri, plan: EmitPlan,
         out_offset = 0
     else:
         block = out[:k, out_offset: out_offset + c]
-    build.check(lib.gather_emit_launch(
-        plan.address, lcols.data_ptr(), lcols.stride(0),
-        None if r_empty else rcols.data_ptr(), 0 if r_empty else rcols.stride(0),
-        r_empty, li.data_ptr(), None if ri is None else ri.data_ptr(), c,
-        out.data_ptr() + 4 * out_offset, out.stride(0), mask.data_ptr(),
-        build.stream_handle(li),
-    ), "gather_emit")
-    launches += 1
+    base = out.data_ptr() + 4 * out_offset
+    for r0, s, address in plan.chunks:
+        # a later chunk without pairs leaves the mask alone
+        m = mask if r0 == 0 or s.n_pairs else None
+        build.check(lib.gather_emit_launch(
+            address, lcols.data_ptr(), lcols.stride(0),
+            None if r_empty else rcols.data_ptr(), 0 if r_empty else rcols.stride(0),
+            r_empty, li.data_ptr(), None if ri is None else ri.data_ptr(), c,
+            base + 4 * r0 * out.stride(0), out.stride(0), None if m is None else m.data_ptr(),
+            int(r0 > 0), build.stream_handle(li),
+        ), "gather_emit")
+        launches += 1
     return block, mask

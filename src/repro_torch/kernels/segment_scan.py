@@ -1,7 +1,8 @@
 """segment_scan: segmented inclusive scan over sorted keys.
 
-``out[i]`` combines (sum / count / min / max) the float32 values of the
+``out[i]`` combines (sum / count / min / max) the float64 values of the
 maximal run of equal int32 keys ending at ``i``; count is a sum of ones.
+The value plane is float64, as in the reference's default numpy backend.
 Keys must be sorted (equal keys contiguous), as on the grouping path.
 ``segment_scan(keys, None, "count")`` makes the ones itself; with values,
 count sums them.
@@ -13,7 +14,7 @@ doubling scan over the 32 threads of a warp and over the warps of a tile,
 and a carry across tiles found by the kernel's look-back (32 predecessor
 tiles at a time, back to the nearest one that holds a key change). The
 wrapper takes it for CPU tensors only. The kernel sums in this one fixed
-order, so its float sums equal the plain version's on the same device.
+order, so its float sums equal the plain version's bit for bit.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ def _look_back(tile_f: torch.Tensor, tile_v: torch.Tensor, need: torch.Tensor, o
     t = int(tile_f.shape[0])
     dev = tile_f.device
     lanes = torch.arange(32, device=dev)
-    acc = torch.zeros(t, dtype=torch.float32, device=dev)
+    acc = torch.zeros(t, dtype=torch.float64, device=dev)
     have = torch.zeros(t, dtype=torch.bool, device=dev)
     done = ~need
     hi = torch.arange(t, device=dev) - 1
@@ -97,13 +98,13 @@ def segment_scan_plain(keys: torch.Tensor, values: Optional[torch.Tensor], op: s
     n = int(keys.shape[0])
     dev = keys.device
     if n == 0:
-        return torch.zeros(0, dtype=torch.float32, device=dev)
+        return torch.zeros(0, dtype=torch.float64, device=dev)
     warps, tile = threads // 32, threads * items
     nt = -(-n // tile)
     pad = nt * tile - n
     ident = _IDENT[op]
-    vals = (torch.ones(n, dtype=torch.float32, device=dev) if values is None
-            else values.to(torch.float32))
+    vals = (torch.ones(n, dtype=torch.float64, device=dev) if values is None
+            else values.to(torch.float64))
     k = torch.cat([keys, keys.new_zeros(pad)]).view(nt, warps, 32 * items)
     x = torch.cat([vals, vals.new_full((pad,), ident)]).view(nt, warps, 32, items)
     pos = torch.arange(nt * tile, device=dev).view(nt, warps, 32 * items)
@@ -142,7 +143,7 @@ def segment_scan_plain(keys: torch.Tensor, values: Optional[torch.Tensor], op: s
 
 
 def segment_scan(keys: torch.Tensor, values: Optional[torch.Tensor], op: str) -> torch.Tensor:
-    """float32 (n,) segmented inclusive scan (see module docstring)."""
+    """float64 (n,) segmented inclusive scan (see module docstring)."""
     global launches
     if op not in _OPS:
         raise ValueError(f"segment_scan: unknown op {op!r}")
@@ -153,20 +154,20 @@ def segment_scan(keys: torch.Tensor, values: Optional[torch.Tensor], op: str) ->
         if op != "count":
             raise ValueError(f"segment_scan: op {op!r} needs values")
     else:
-        if values.dtype != torch.float32 or values.shape != (n,) or not values.is_contiguous():
-            raise ValueError("segment_scan: values must be a contiguous float32 tensor like keys")
+        if values.dtype != torch.float64 or values.shape != (n,) or not values.is_contiguous():
+            raise ValueError("segment_scan: values must be a contiguous float64 tensor like keys")
         if values.device != keys.device:
             raise ValueError("segment_scan: keys and values lie on different devices")
     if keys.device.type == "cpu":
         return segment_scan_plain(keys, values, op)
     if keys.device.type != "cuda":
         raise ValueError(f"segment_scan: unsupported device {keys.device}")
-    out = torch.empty(n, dtype=torch.float32, device=keys.device)
+    out = torch.empty(n, dtype=torch.float64, device=keys.device)
     if n == 0:
         return out
     tiles = -(-n // TILE)
-    # the look-back's ticket counter and tile statuses
-    scratch = (torch.zeros(tiles + 1, dtype=torch.int64, device=keys.device)
+    # the look-back's ticket counter, tile states and tile values
+    scratch = (torch.zeros(1 + 2 * tiles, dtype=torch.int64, device=keys.device)
                if tiles > 1 else None)
     lib = build.library()
     build.check(lib.segment_scan_launch(

@@ -121,7 +121,7 @@ def test_kernels_take_no_other_device():
     with pytest.raises(ValueError, match="device"):
         GE.gather_emit(meta[0][None, :], None, meta[1], None, GE.EmitPlan((0,)))
     with pytest.raises(ValueError, match="device"):
-        SS.segment_scan(meta[0], torch.zeros(3, device="meta"), "sum")
+        SS.segment_scan(meta[0], torch.zeros(3, dtype=torch.float64, device="meta"), "sum")
     with pytest.raises(ValueError, match="device"):
         RP.radix_partition(meta[0], 4)
     with pytest.raises(ValueError, match="device"):

@@ -6,10 +6,12 @@ tests pin what the CUDA kernels must compute: the same numpy inputs, made
 from a seed, go through the reference's numpy backend (the oracle) and its
 Pallas backend (interpret mode), and through the port.
 
-Tolerances: integer outputs and code-domain / integer-valued float32
-results are exact; float sums get ``rtol=1e-5`` (another summation order
-than the Pallas doubling scan); against the float64 numpy oracle the
-expression masks are equal and values agree to ``rtol=1e-6``.
+Tolerances: integer outputs and code-domain / integer-valued results are
+exact. The port's value plane is float64, as the numpy oracle's: expression
+values and errors equal the oracle's exactly, on any values. Against the
+float32 Pallas mirrors, port values are compared after rounding to float32,
+on float32-exact inputs, and must be equal; float sums against the Pallas
+doubling scan get ``rtol=1e-5`` (another summation order, in float32).
 """
 
 import numpy as np
@@ -303,13 +305,28 @@ def test_gather_emit_out_offset(backend):
 
 
 def test_emit_plan_caps_raise_and_name_the_cap():
-    GE.EmitPlan(range(GE.MAX_ROWS - 3), range(3), [(0, 0)] * GE.MAX_PAIRS)  # at the caps
-    with pytest.raises(ValueError, match="MAX_ROWS"):
-        GE.EmitPlan(range(GE.MAX_ROWS + 1))
-    with pytest.raises(ValueError, match="MAX_ROWS"):
-        GE.EmitPlan(range(GE.MAX_ROWS - 3), range(4))
-    with pytest.raises(ValueError, match="MAX_PAIRS"):
-        GE.EmitPlan((0,), (), [(0, 0)] * (GE.MAX_PAIRS + 1))
+    """A plan at the caps is one launch; one past either cap builds as
+    chunks within the caps (rows in order, pairs in order, the first chunk
+    writing the mask, later ones ANDing) and gives the numpy oracle's block
+    and mask."""
+    at = GE.EmitPlan(range(GE.MAX_ROWS - 3), range(3), [(0, 0)] * GE.MAX_PAIRS)
+    assert len(at.chunks) == 1
+    rng = np.random.RandomState(5)
+    lcols, rcols, li, ri = _ge_case(rng, GE.MAX_ROWS + 1, 4, 70, 50, 400, 0.2)
+    for lsel, rsel, pairs, n_chunks in (
+            (range(GE.MAX_ROWS + 1), (), (), 2),
+            (range(GE.MAX_ROWS - 3), range(4), (), 2),
+            ((0,), (), [(k, k % 4) for k in range(GE.MAX_PAIRS + 1)], 2)):
+        plan = GE.EmitPlan(lsel, rsel, pairs)
+        assert len(plan.chunks) == n_chunks
+        assert [r0 for r0, _, _ in plan.chunks] == [0, GE.MAX_ROWS]
+        assert all(s.n_rows <= GE.MAX_ROWS and s.n_pairs <= GE.MAX_PAIRS
+                   for _, s, _ in plan.chunks)
+        want_b, want_m = ops.gather_emit(lcols, rcols, li, ri, tuple(lsel), tuple(rsel),
+                                         tuple(pairs), backend="numpy")
+        got_b, got_m = _port_gather(lcols, rcols, li, ri, lsel, rsel, pairs)
+        np.testing.assert_array_equal(got_b.numpy(), want_b)
+        np.testing.assert_array_equal(got_m.numpy(), want_m)
 
 
 @pytest.mark.parametrize("backend", ["numpy", "pallas"])
@@ -328,8 +345,14 @@ def test_emit_plan_at_the_caps_matches_reference(backend):
 
 def test_emit_plan_reuses_emitted_left_rows_only():
     plan = GE.EmitPlan((2, 0, -1), (1,), ((0, 1), (1, 0), (2, 2)))
-    assert list(plan._struct.pair_reuse)[:3] == [1, -1, 0]
-    assert list(plan._struct.row)[:4] == [2, 0, -1, 1] and plan._struct.n_left == 3
+    (_, s, _), = plan.chunks
+    assert list(s.pair_reuse)[:3] == [1, -1, 0]
+    assert list(s.row)[:4] == [2, 0, -1, 1] and s.n_left == 3
+    # in a wide plan a pair reuses a left row of its own chunk only
+    wide = GE.EmitPlan(range(18), (0,), [(k, 0) for k in (0, 1, 2, 3, 17, 5)])
+    (_, s0, _), (_, s1, _) = wide.chunks
+    assert list(s0.pair_reuse) == [0, 1, 2, 3]
+    assert list(s1.pair_reuse)[:2] == [1, -1] and s1.n_left == 2 and s1.n_rows == 3
 
 
 def test_emit_plan_pair_reuse_with_an_empty_right_side():
@@ -451,13 +474,13 @@ def test_expr_programs_reach_every_opcode():
 @pytest.mark.parametrize("name", EXPRS)
 def test_expr_prepare_inputs_matches_reference(name):
     """Code columns, predicate tables and numeric decodes (NaN for NULL
-    and non-numeric terms) as the reference builds them, in float32."""
+    and non-numeric terms) as the reference builds them, in float64."""
     rprog, tprog, rd, td, rbatch, tbatch = _inputs(name)
     ri, rf = r_prepare(rprog, rbatch, rd)
     ti, tf = t_prepare(tprog, tbatch, td)
     np.testing.assert_array_equal(ti.numpy(), ri)
-    assert tf.dtype == torch.float32
-    np.testing.assert_array_equal(tf.numpy(), rf.astype(np.float32))
+    assert tf.dtype == torch.float64 and rf.dtype == np.float64
+    np.testing.assert_array_equal(tf.numpy(), rf)
 
 
 @pytest.mark.parametrize("name", EXPRS)
@@ -465,10 +488,11 @@ def test_expr_eval_matches_pallas_exactly(name):
     rprog, tprog, rd, td, rbatch, tbatch = _inputs(name)
     icols, fcols = r_prepare(rprog, rbatch, rd)
     want_v, want_e = ops.expr_eval(rprog, icols, fcols, backend="pallas")
-    got_v, got_e = EE.expr_eval(tprog, T(icols), T(fcols.astype(np.float32)))
-    assert got_v.dtype == torch.float32 and got_e.dtype == torch.bool
+    got_v, got_e = EE.expr_eval(tprog, T(icols), T(fcols))
+    assert got_v.dtype == torch.float64 and got_e.dtype == torch.bool
     np.testing.assert_array_equal(got_e.numpy(), want_e)
-    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    # the inputs are float32-exact: the float64 values round to Pallas's
+    np.testing.assert_array_equal(got_v.numpy().astype(np.float32), want_v)
 
 
 @pytest.mark.parametrize("name", EXPRS)
@@ -476,12 +500,11 @@ def test_expr_eval_matches_numpy_oracle(name):
     rprog, tprog, rd, td, rbatch, tbatch = _inputs(name, seed=1)
     icols, fcols = r_prepare(rprog, rbatch, rd)
     want_v, want_e = ops.expr_eval(rprog, icols, fcols, backend="numpy")
-    got_v, got_e = EE.expr_eval(tprog, T(icols), T(fcols.astype(np.float32)))
+    got_v, got_e = EE.expr_eval(tprog, T(icols), T(fcols))
     got_v, got_e = got_v.numpy(), got_e.numpy()
     np.testing.assert_array_equal((got_v != 0) & ~got_e, (want_v != 0) & ~want_e)
-    ok = ~want_e
     np.testing.assert_array_equal(got_e, want_e)
-    np.testing.assert_allclose(got_v[ok], want_v[ok], rtol=1e-6)
+    np.testing.assert_array_equal(got_v, want_v)
 
 
 def test_expr_eval_special_rows():
@@ -497,7 +520,7 @@ def test_expr_eval_special_rows():
     rbatch = RBatch.from_columns((0, 1), [a, b], capacity=len(a))
     icols, fcols = r_prepare(rprog, rbatch, rd)
     want = ops.expr_eval(rprog, icols, fcols, backend="numpy")
-    got = EE.expr_eval(tprog, T(icols), T(fcols.astype(np.float32)))
+    got = EE.expr_eval(tprog, T(icols), T(fcols))
     np.testing.assert_array_equal(got[1].numpy(), want[1])
     np.testing.assert_array_equal(got[0].numpy() != 0, want[0] != 0)
     # 3/0 errs but 3 = 3 is true; NULL and 4/0 and "apple"/2 and 6/"banana" err
@@ -505,17 +528,100 @@ def test_expr_eval_special_rows():
         True, True, False, False, False, False]
 
 
+def _hand_program(instrs, n_regs, consts, n_num=1):
+    return TB.ExprProgram(instrs=tuple(instrs), n_regs=n_regs, out_reg=0, consts=tuple(consts),
+                          code_vars=(), num_vars=tuple(range(n_num)), tables=(), source_ops=1)
+
+
 def test_expr_eval_refuses_programs_beyond_its_caps():
-    prog = TB.ExprProgram(
-        instrs=((TB.LOAD_CONST, 0, 0, 0, 0),) * (EE.MAX_INSTR + 1), n_regs=1, out_reg=0,
-        consts=(1.0,), code_vars=(), num_vars=(), tables=(), source_ops=1)
-    with pytest.raises(ValueError, match="instructions"):
-        EE.check_program(prog)
-    wide = TB.ExprProgram(instrs=((TB.LOAD_CONST, 0, 0, 0, 0),), n_regs=EE.MAX_REGS + 1,
-                          out_reg=0, consts=(1.0,), code_vars=(), num_vars=(), tables=(),
-                          source_ops=1)
-    with pytest.raises(ValueError, match="registers"):
-        EE.check_program(wide)
+    """Programs past the previous kernel's caps (96 instructions, 64
+    constants, 48 registers) run, and equal the float64 numpy oracle."""
+    rng = np.random.RandomState(4)
+    n = 200
+    fcols = rng.standard_normal((1, n))
+    fcols[0, ::7] = np.nan
+    # 97 instructions, 70 constants: r0 = x * c0 + x * c1 + ... (3 registers)
+    consts = [float(c) for c in rng.standard_normal(70)] + [float("inf")]
+    long = [(TB.LOAD_NUM, 1, 0, 0, 0), (TB.LOAD_CONST, 0, 0, 0, 0), (TB.MUL, 0, 1, 0, 0)]
+    for k in range(1, 47):
+        long += [(TB.LOAD_CONST, 2, k, 0, 0), (TB.MUL, 2, 1, 2, 0), (TB.ADD, 0, 0, 2, 0)]
+    # 49 registers, each x / c_k, summed
+    wide = [(TB.LOAD_NUM, 48, 0, 0, 0)]
+    for r in range(48):
+        wide += [(TB.LOAD_CONST, r, r, 0, 0), (TB.DIV, r, 48, r, 0)]
+    wide += [(TB.ADD, 0, 0, r, 0) for r in range(1, 49)]
+    icols = np.zeros((1, n), np.int32)
+    for instrs, n_regs in ((long, 3), (wide, 49)):
+        prog = _hand_program(instrs, n_regs, consts)
+        assert len(prog.instrs) > 96 or prog.n_regs > 48
+        want_v, want_e = ops.expr_eval(prog, icols, fcols, backend="numpy")
+        got_v, got_e = EE.expr_eval(prog, T(icols), T(fcols))
+        np.testing.assert_array_equal(got_e.numpy(), want_e)
+        np.testing.assert_array_equal(got_v.numpy(), want_v)
+    # a non-finite constant errs on every row, as in the oracle
+    inf = _hand_program([(TB.LOAD_CONST, 0, 70, 0, 0)], 1, consts)
+    got_v, got_e = EE.expr_eval(inf, T(icols), T(fcols))
+    assert bool(got_e.all()) and not bool(got_v.any())
+
+
+def test_expr_program_words_hold_the_kernel_layout():
+    """The device buffer: 8 int32 words an instruction, (op, dst, a, b, c)
+    and, for LOAD_CONST, the float64 constant's bits in words 5 and 6."""
+    consts = (0.1, float("inf"), -2.5)
+    prog = _hand_program([(TB.LOAD_NUM, 1, 0, 0, 0), (TB.LOAD_CONST, 0, 2, 0, 0),
+                          (TB.LOAD_CONST, 2, 0, 0, 0), (TB.IF, 0, 1, 0, 2),
+                          (TB.LOAD_CONST, 1, 1, 0, 0)], 3, consts)
+    words = EE.program_words(prog)
+    assert words.shape == (5, EE.INSTR_WORDS) and words.dtype == np.int32
+    np.testing.assert_array_equal(words[:, :5], np.asarray(prog.instrs))
+    loads = [k for k, ins in enumerate(prog.instrs) if ins[0] == TB.LOAD_CONST]
+    got = words[loads, 5:7].copy().view(np.float64).reshape(-1)
+    np.testing.assert_array_equal(got, [consts[prog.instrs[k][2]] for k in loads])
+    assert not words[[0, 3], 5:].any()
+    np.testing.assert_array_equal(EE.program_buffer(prog, CPU).numpy(), words)
+    with pytest.raises(ValueError, match="by value"):  # longer than the registers instance takes
+        EE.short_program(prog)
+    short_prog = _hand_program(prog.instrs[:EE.SHORT_INSTRS], 3, consts)
+    # the registers instance reads only the by-value struct
+    short, address = EE.short_program(short_prog)
+    assert address and list(short) == EE.program_words(short_prog).reshape(-1).tolist()
+
+
+def test_expr_launch_shapes():
+    """Short programs take the registers instance; longer ones shared
+    planes, at fewer threads while they exceed a block's shared memory, then
+    global planes."""
+    def prog(n_instr, n_regs, n_num=1):
+        return _hand_program([(TB.LOAD_NUM, 0, 0, 0, 0)] * n_instr, n_regs, (), n_num)
+
+    assert EE.launch_shape(prog(1, 1)) == (EE.THREADS, "registers")
+    assert EE.launch_shape(prog(EE.SHORT_INSTRS, EE.SHORT_REGS)) == (EE.THREADS, "registers")
+    assert EE.launch_shape(prog(EE.SHORT_INSTRS + 1, 2)) == (EE.THREADS, "shared")
+    assert EE.launch_shape(prog(3, EE.SHORT_REGS + 1)) == (EE.THREADS, "shared")
+    assert EE.smem_bytes(prog(300, 100), 128, "shared") == 32 * EE.WINDOW + 128 * (8 + 900)
+    assert EE.smem_bytes(prog(300, 100), 128, "global") == 32 * EE.WINDOW
+    assert EE.smem_bytes(prog(5, 2), 64, "shared") == 32 * 5 + 64 * (8 + 18)
+    assert EE.window(prog(5, 2)) == 5 and EE.window(prog(300, 2)) == EE.WINDOW
+    assert EE.smem_bytes(prog(3, 2), 128, "registers") == 0
+    assert EE.launch_shape(prog(900, 300)) == (64, "shared")
+    assert EE.launch_shape(prog(3000, 1000)) == (EE.THREADS, "global")
+    for n_regs in (1, 50, 400, 806, 807, 2000):
+        t, inst = EE.launch_shape(prog(900, n_regs))
+        assert EE.fits(prog(900, n_regs), t, inst)
+        assert (inst == "global") == (EE.smem_bytes(prog(900, n_regs), 32, "shared")
+                                      > EE.SMEM_MAX)
+
+
+def test_expr_eval_refuses_malformed_programs():
+    """The one refusal left, on the CPU as on the card: an operand outside
+    the program's registers, constants or input columns."""
+    icols, fcols = torch.zeros((1, 4), dtype=torch.int32), torch.zeros((1, 4), dtype=torch.float64)
+    for instrs, what in (([(TB.ADD, 0, 0, 3, 0)], "operand"),
+                         ([(TB.LOAD_CONST, 0, 5, 0, 0)], "operand"),
+                         ([(TB.LOAD_NUM, 0, 1, 0, 0)], "operand"),
+                         ([(99, 0, 0, 0, 0)], "opcode")):
+        with pytest.raises(ValueError, match=what):
+            EE.expr_eval(_hand_program(instrs, 2, (1.0,)), icols, fcols)
 
 
 # ---------------------------------------------------------------------------
@@ -562,17 +668,18 @@ def test_segment_scan_matches_pallas_scan(op, kind):
     vals = (np.ones(len(keys)) if op == "count" else rng.randint(-40, 40, len(keys)))
     vals = vals.astype(np.float32)
     want = np.asarray(segment_scan_pallas(keys, vals, "sum" if op == "count" else op))
-    got = SS.segment_scan(T(keys), T(vals), op)
+    got = SS.segment_scan(T(keys), T(vals.astype(np.float64)), op)
+    assert got.dtype == torch.float64
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_segment_scan_checks_its_inputs():
     keys = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="values"):
-        SS.segment_scan(keys, torch.zeros(4, dtype=torch.float64), "sum")
+    with pytest.raises(ValueError, match="float64"):
+        SS.segment_scan(keys, torch.zeros(4, dtype=torch.float32), "sum")
     with pytest.raises(ValueError, match="op"):
-        SS.segment_scan(keys, torch.zeros(4), "avg")
-    assert SS.segment_scan(keys[:0], torch.zeros(0), "max").shape == (0,)
+        SS.segment_scan(keys, torch.zeros(4, dtype=torch.float64), "avg")
+    assert SS.segment_scan(keys[:0], torch.zeros(0, dtype=torch.float64), "max").shape == (0,)
 
 
 # the kernel's layout at small tiles (threads, items per thread), so that
@@ -615,7 +722,8 @@ def test_segment_scan_tiled_model_matches_pallas(kind, op, tile):
     vals = (np.ones(len(keys)) if op == "count" else rng.randint(-40, 40, len(keys)))
     vals = vals.astype(np.float32)
     want = _pallas_scan(kind, op, keys, vals)
-    got = SS.segment_scan_plain(T(keys), None if op == "count" else T(vals), op, *tile)
+    got = SS.segment_scan_plain(T(keys), None if op == "count" else T(vals.astype(np.float64)),
+                                op, *tile)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -633,7 +741,7 @@ def test_segment_scan_tiled_model_float_values(tile):
             vals[rng.randint(0, len(vals), 20)] = np.inf
             vals[rng.randint(0, len(vals), 20)] = -np.inf
         want = np.asarray(segment_scan_pallas(keys, vals, op))
-        got = SS.segment_scan_plain(T(keys), T(vals), op, *tile).numpy()
+        got = SS.segment_scan_plain(T(keys), T(vals.astype(np.float64)), op, *tile).numpy()
         if op == "sum":
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
         else:
@@ -644,7 +752,7 @@ def test_segment_scan_look_back_crosses_windows():
     """One run over 200 tiles of 32: each tile's carry walks back through
     more than one 32-tile window to tile 0."""
     keys = np.full(200 * 32, 9, np.int32)
-    vals = np.arange(len(keys), dtype=np.float32) % 7
+    vals = np.arange(len(keys), dtype=np.float64) % 7
     got = SS.segment_scan_plain(T(keys), T(vals), "sum", 32, 1).numpy()
     np.testing.assert_array_equal(got, np.cumsum(vals))
     got = SS.segment_scan_plain(T(keys), T(vals), "max", 32, 1).numpy()
@@ -656,8 +764,8 @@ def test_segment_scan_count_without_values(kind):
     """count with no values sums ones the kernel makes itself; with values
     it sums them, as before."""
     keys = _keys(np.random.RandomState(7), kind)
-    ones = np.ones(len(keys), np.float32)
-    want = np.asarray(segment_scan_pallas(keys, ones, "sum"))
+    ones = np.ones(len(keys), np.float64)
+    want = np.asarray(segment_scan_pallas(keys, ones.astype(np.float32), "sum"))
     np.testing.assert_array_equal(SS.segment_scan(T(keys), None, "count").numpy(), want)
     np.testing.assert_array_equal(SS.segment_scan(T(keys), T(ones), "count").numpy(), want)
     want_k, want_v = ops.segment_reduce(keys, None, "count", backend="numpy")
