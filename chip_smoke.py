@@ -797,6 +797,38 @@ def _probe_bytes(starts_np, qpid, lo_np, c, key_bytes):
     return c * (key_bytes + 8 + 32) + 32 * int(steps.sum())
 
 
+def run_keys(rng, n, max_run, n_parts, dev):
+    """A build of ``n`` single keys in runs of 1 to ``max_run`` rows, laid
+    out in ``n_parts`` partitions, and probes of every key, of each
+    partition's last row, of absent keys and of INT32_MIN."""
+    keys = _sorted_keys(rng, n, max_run, n_runs=n // max(1, max_run // 2) + 1) * 7 + 3
+    starts, _, skl = _layout(None, torch.from_numpy(keys).to(dev), n_parts)
+    last = skl[(starts[1:] - 1).clamp(min=0).long()][starts[1:] > starts[:-1]]
+    q = torch.cat([torch.from_numpy(np.unique(keys)).to(dev), last,
+                   torch.from_numpy(np.unique(keys)[:500] + 1).to(dev),
+                   torch.tensor([-(2 ** 31), -1], dtype=torch.int32, device=dev)])
+    return starts, None, skl, None, q
+
+
+def probe_edge_cases(rng, dev, keys_np, q):
+    """hash_probe's edges: one partition over the 3.9M-row build, runs up
+    to 5,000 rows (many ending at their partition's last row), and probe
+    batches that leave the last group of lanes partly past the end."""
+    keys = torch.from_numpy(keys_np).to(dev)
+    one = _layout(None, keys, 1)
+    big = _layout(None, keys, 1024)
+    q4097 = torch.cat([q, q[:1]])
+    return [
+        ("single keys, 3,891,273 rows, P=1", (*one, None, q)),
+        ("runs of up to 5,000 rows, P=1024", run_keys(rng, 3_891_273, 5000, 1024, dev)),
+        ("runs of up to 5,000 rows, P=1", run_keys(rng, 1_000_000, 5000, 1, dev)),
+        ("runs of up to 40 rows, P=64", run_keys(rng, 200_000, 40, 64, dev)),
+        ("a probe of 1 key", (*big, None, q[:1].clone())),
+        ("a probe of 33 keys", (*big, None, q[:33].clone())),
+        ("a probe of 4,097 keys", (*big, None, q4097)),
+    ]
+
+
 def check_hash_probe(rng, dev):
     from repro_torch.core import vecops as TV
     from repro_torch.kernels import hash_join as HJ
@@ -840,12 +872,13 @@ def check_hash_probe(rng, dev):
         ("empty build", (torch.zeros(p + 1, dtype=torch.int32, device=dev), None,
                          skl[:0], None, q)),
     ]
+    cases += probe_edge_cases(rng, dev, keys_np, q)
     for label, args in cases:
         lo, hi = HJ.hash_probe(*args)
         plo, phi = HJ.hash_probe_plain(*args)
         require(torch.equal(lo, plo) and torch.equal(hi, phi),
                 f"hash_probe disagrees with its plain version ({label})")
-        log(f"  hash_probe {label}: {int((hi > lo).sum())} of {q.shape[0]} matched, ok")
+        log(f"  hash_probe {label}: {int((hi > lo).sum())} of {args[-1].shape[0]} matched, ok")
     lo, hi = HJ.hash_probe(starts, None, skl, None, q)
     matched = (hi > lo).cpu().numpy()
     require(matched[: c // 2].all() and not matched[c // 2:].any(),
@@ -1015,6 +1048,67 @@ def _sorted_pairs(hi, lo):
     return hi[order].astype(np.int32), lo[order].astype(np.int32)
 
 
+def dense_visited(dev, hi_span, lo_span):
+    """Every pair of [0, hi_span) x [0, lo_span), sorted: a visited set
+    dense in the candidates' range, so a tile's window passes CHUNK."""
+    vh = torch.arange(hi_span, dtype=torch.int32, device=dev).repeat_interleave(lo_span)
+    vl = torch.arange(lo_span, dtype=torch.int32, device=dev).repeat(hi_span)
+    return vh, vl
+
+
+def _at_offset(x, off):
+    """``x`` copied into a larger tensor at element offset ``off`` (a slice
+    with another 16-byte alignment phase)."""
+    big = torch.zeros(x.shape[0] + 8, dtype=x.dtype, device=x.device)
+    big[off: off + x.shape[0]] = x
+    return big[off: off + x.shape[0]]
+
+
+def dedup_edge_cases(rng, dev, cand, visited):
+    """frontier_dedup's edges: columns at offsets 1 and 3 of larger tensors
+    (the same phase and different ones), short candidate lists, a visited
+    window longer than CHUNK, windows searched rather than staged, all
+    candidates equal, a first candidate of (INT32_MIN, INT32_MIN)."""
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    h, l = cand
+    out = []
+    for oh, ol in ((1, 1), (3, 3), (1, 3), (0, 3)):
+        sl = (_at_offset(h, oh), _at_offset(l, ol))
+        out += [(f"columns at offsets {oh} and {ol}, visited 480,000", sl, visited),
+                (f"columns at offsets {oh} and {ol}, empty visited", sl, (none, none))]
+    for n in (1, 7, 2049):
+        sl = (h[:n].clone(), l[:n].clone())
+        out += [(f"c={n}, visited 480,000", sl, visited),
+                (f"c={n}, empty visited", sl, (none, none))]
+    dh, dl = _sorted_pairs(rng.randint(0, 64, 1 << 20), rng.randint(0, 70_000, 1 << 20))
+    dc = (torch.from_numpy(dh).to(dev), torch.from_numpy(dl).to(dev))
+    out.append(("visited 4,000,000 dense in the candidates' range (searched)", dc,
+                dense_visited(dev, 64, 62_500)))
+    # 2,000,000 visited pairs dense in the lower half of the candidates'
+    # range: staged, and its tiles' windows pass CHUNK (two chunks each)
+    out.append(("visited 2,000,000 dense in half the candidates' range (staged)", dc,
+                dense_visited(dev, 32, 62_500)))
+    # few candidates against a dense visited set (no chunk: every window
+    # searched), and candidates mostly in one corner, so that the tiles of
+    # the spread-out rest have windows of many tiles (searched in-kernel)
+    sh, sl = _sorted_pairs(rng.randint(0, 64, 4096), rng.randint(0, 70_000, 4096))
+    out.append(("4,096 candidates, visited 4,000,000 dense", (torch.from_numpy(sh).to(dev),
+                torch.from_numpy(sl).to(dev)), dense_visited(dev, 64, 62_500)))
+    kh = np.concatenate([np.zeros(1_000_000, np.int64), rng.randint(1, 64, 48_576)])
+    kl = np.concatenate([rng.randint(0, 14_000, 1_000_000), rng.randint(0, 16_000, 48_576)])
+    kh, kl = _sorted_pairs(kh, kl)
+    out.append(("2^20 candidates, a corner dense, the rest spread (staged and searched)", (
+        torch.from_numpy(kh).to(dev), torch.from_numpy(kl).to(dev)),
+        dense_visited(dev, 64, 14_000)))
+    same = torch.full((5000,), 12, dtype=torch.int32, device=dev)
+    out += [("all candidates equal, visited", (same, same + 1), visited),
+            ("all candidates equal, empty visited", (same, same + 1), (none, none))]
+    m = torch.tensor([-(2 ** 31)] * 3 + [0, 5], dtype=torch.int32, device=dev)
+    out += [("first candidate (INT32_MIN, INT32_MIN)", (m, m.clone()), (none, none)),
+            ("first candidate (INT32_MIN, INT32_MIN), visited", (m, m.clone()), (m[3:], m[3:]))]
+    return out
+
+
 def check_frontier_dedup(rng, dev):
     from repro_torch.kernels import frontier_dedup as FD
 
@@ -1031,16 +1125,27 @@ def check_frontier_dedup(rng, dev):
     cand = (T(ch), T(cl))
     visited = (T(vis >> 32), T(vis & 0xFFFFFFFF))
     none = torch.zeros(0, dtype=torch.int32, device=dev)
-    for label, vset in (("visited 480,000", visited), ("empty visited", (none, none))):
-        got = FD.frontier_dedup(*cand, *vset)
-        want = FD.frontier_dedup_plain(*cand, *vset)
+    cases = [("visited 480,000", cand, visited), ("empty visited", cand, (none, none))]
+    cases += dedup_edge_cases(rng, dev, cand, visited)
+    for label, cset, vset in cases:
+        got = FD.frontier_dedup(*cset, *vset)
+        want = FD.frontier_dedup_plain(*cset, *vset)
         require(torch.equal(got, want), f"frontier_dedup disagrees with its plain version ({label})")
-        log(f"  frontier_dedup C={c} ({label}): {int(got.sum())} kept, ok")
+        log(f"  frontier_dedup C={cset[0].shape[0]} ({label}): {int(got.sum())} kept, ok")
     t = timings("frontier_dedup", lambda: FD.frontier_dedup(*cand, *visited),
                 lambda: FD.frontier_dedup_plain(*cand, *visited), 10)
     t_empty = timings("frontier_dedup", lambda: FD.frontier_dedup(*cand, none, none),
                       lambda: FD.frontier_dedup_plain(*cand, none, none), 10)
     t["empty_visited"] = {k: t_empty[k] for k in ("ms", "call_ms", "plain_ms")}
+    # the distinct phase's launches: at most 4,096 candidates, no visited set
+    small = (cand[0][:4096].clone(), cand[1][:4096].clone())
+    t_small = timings("frontier_dedup", lambda: FD.frontier_dedup(*small, none, none),
+                      lambda: FD.frontier_dedup_plain(*small, none, none), 20)
+    b_ms, b_by = bound(9 * 4096, 4 * 4096)
+    t["distinct_shape"] = {**{k: t_small[k] for k in ("ms", "call_ms", "plain_ms")},
+                           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  frontier_dedup 4,096 candidates, empty visited: kernel {t_small['ms']:.6f} ms on "
+        f"the device ({t_small['call_ms']:.5f} ms per call), bound {b_ms:.6f} ms ({b_by})")
     # each candidate's pair read and its mask byte written once, and each
     # 32-byte sector of the two visited columns that this run's searches
     # (one per first occurrence) touch read once; ~6 operations a step
@@ -1075,8 +1180,8 @@ def kernel_phase(dev, seed, knows_src):
             "library_call_ms": t["library_call_ms"],
         }
         # further shapes timed beside the main one (frontier_dedup's empty
-        # visited set, sorted_search's sorted queries and both sides,
-        # segment_scan's larger inputs)
+        # visited set and the distinct phase's shape, sorted_search's sorted
+        # queries and both sides, segment_scan's larger inputs)
         rows[name].update({k: v for k, v in t.items() if isinstance(v, dict)})
         lib = ("" if t["library_ms"] is None else
                f", library {t['library_ms']:.6f} ms on the device "
@@ -1357,8 +1462,11 @@ def _require_launches(launches, kpath):
 
 def paths_phase(engine, store, report):
     """p1-p5 on the full-size store under ``engine`` (EngineConfig()), each
-    count held against its closed form; returns the phase's launch counts."""
+    count held against its closed form; returns the phase's launch counts.
+    Each query's report keeps frontier_dedup's sizes as _distinct_run's
+    do."""
     from repro_torch import kernels as K
+    from repro_torch.kernels import frontier_dedup as FD
 
     t0 = time.perf_counter()
     want = path_closed_forms(store)
@@ -1368,19 +1476,22 @@ def paths_phase(engine, store, report):
     K.reset_launch_counts()
     for name, text in PATH_QUERIES.items():
         before = K.launch_counts()
+        FD.reset_sizes()
         res, wall = run_query(engine, text)
         after = K.launch_counts()
         delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        sizes = FD.sizes()
         (row,) = res.decoded(engine.store.dict)
         got, ctr = int(row["n"]), path_counters(res)
         del res
         log(f"  {name}: count={got} closed form={want[name]} wall={wall:.3f} s {ctr} "
-            f"launches={delta}")
+            f"launches={delta} frontier_dedup sizes={sizes}")
         require(got == want[name], f"paths {name}: engine count {got} != closed form {want[name]}")
         require(delta.get("frontier_dedup", 0) > 0, f"paths {name}: frontier_dedup never launched")
         if name in SEARCH_QUERIES:
             require(delta.get("sorted_search", 0) > 0, f"paths {name}: sorted_search never launched")
-        rep["queries"][name] = {"count": got, "wall_s": wall, "launches": delta, **ctr}
+        rep["queries"][name] = {"count": got, "wall_s": wall, "launches": delta,
+                                "frontier_dedup_sizes": sizes, **ctr}
     launches = rep["launches"] = K.launch_counts()
     _require_launches(launches, "paths")
     rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -1390,16 +1501,24 @@ def paths_phase(engine, store, report):
 
 
 def _distinct_run(engine, name, text, rep):
-    """Run one query of the distinct phase; returns its decoded rows."""
+    """Run one query of the distinct phase; returns its decoded rows. The
+    report keeps its launch counts and frontier_dedup's sizes: candidates
+    summed over its launches, the most in one launch, the largest visited
+    set."""
     from repro_torch import kernels as K
+    from repro_torch.kernels import frontier_dedup as FD
 
     before = K.launch_counts()
+    FD.reset_sizes()
     res, wall = run_query(engine, text)
     after = K.launch_counts()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    sizes = FD.sizes()
     rows = res.decoded(engine.store.dict)
-    rep["queries"][name] = {"rows": len(rows), "wall_s": wall, "launches": delta}
-    log(f"  {name}: {len(rows)} rows wall={wall:.3f} s launches={delta}")
+    rep["queries"][name] = {"rows": len(rows), "wall_s": wall, "launches": delta,
+                            "frontier_dedup_sizes": sizes}
+    log(f"  {name}: {len(rows)} rows wall={wall:.3f} s launches={delta} "
+        f"frontier_dedup sizes={sizes}")
     if name in DEDUP_QUERIES:
         require(delta.get("frontier_dedup", 0) > 0, f"distinct {name}: frontier_dedup never launched")
     return rows

@@ -1,5 +1,5 @@
-"""Sweep the compiled shapes of join_expand, gather_emit and expr_eval on
-the card.
+"""Sweep the compiled shapes of join_expand, gather_emit, expr_eval,
+hash_probe and frontier_dedup on the card.
 
 The port compiles two instances of join_expand and gather_emit and picks
 one from the input (join_expand: a tile for small windows and one for
@@ -12,14 +12,27 @@ launch (``torch.profiler``, as ``chip_smoke.py`` measures). expr_eval's
 instance and block size are launch arguments: every instance that takes a
 program is swept through the wrapper's launch (``expr_eval._launch``,
 which ``expr_eval`` calls at ``launch_shape``'s choice) at 32 to 256
-threads on six
-programs, at 4,096 and 2^20 rows. The script also
-prints ``nvcc -Xptxas -v`` and the local-memory (LDL / STL) and
-shared-memory (LDS / STS) instruction counts of ``cuobjdump -sass`` for
-``expr_eval.cu``. With ``--parent DIR`` it also builds and times
-``DIR/src/repro_torch/csrc/expr_eval.cu`` with its wrapper's by-value
-program (an earlier commit's float32 kernel, on the programs it takes),
-and reports the same compiler output for it.
+threads on six programs, at 4,096 and 2^20 rows. hash_probe's group size
+G (8, 16, 32 lanes a key) is swept at 4,096, 65,536 and 2^20 keys over
+the 3,891,273-row build in 1,024 partitions, in one partition, and over a
+build whose keys repeat 1,000 times; frontier_dedup's tile T (threads
+times candidates a thread, 256 to 4,096) and shared-memory chunk S (none,
+or 1,024 to 16,384 visited pairs) at 4,096 to 2^20 candidates against an
+empty visited set, one of about 480,000 pairs half inside the
+candidates' range, and one of 4,000,000 pairs dense in it (so a tile's
+window passes S). Both are launch arguments of the library the wrappers
+use, and every instance is checked against the plain version before it
+is timed. The script also prints ``nvcc -Xptxas -v`` and the local-memory
+(LDL / STL) and shared-memory (LDS / STS) instruction counts of
+``cuobjdump -sass`` for ``expr_eval.cu``, ``hash_probe.cu`` and
+``frontier_dedup.cu``.
+
+With ``--parent DIR`` (an earlier checkout) it also builds and times that
+checkout's one-thread-per-key ``hash_probe.cu`` and one-thread-per-
+candidate ``frontier_dedup.cu`` on the same inputs, and, where that
+checkout's ``expr_eval`` takes its program by value (the float32 kernel),
+its ``expr_eval.cu`` on the programs it takes; and it reports the same
+compiler output for the parent's sources.
 
     python3 kernel_sweep.py [--parent DIR] [--json OUT]
 
@@ -44,7 +57,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as CS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import expr_eval as EE  # noqa: E402
+from repro_torch.kernels import frontier_dedup as FD  # noqa: E402
 from repro_torch.kernels import gather_emit as GE  # noqa: E402
+from repro_torch.kernels import hash_join as HJ  # noqa: E402
 from repro_torch.kernels import join_expand as JE  # noqa: E402
 
 OUT_DIR = ROOT / "build" / "kernel_sweep"
@@ -55,6 +70,13 @@ JE_SHAPES = ((64, 64), (64, 256), (128, 128), (128, 256), (128, 512), (128, 1024
 # (rows, pairs) unrolls of gather_emit
 GE_UNROLLS = ((8, 2), (16, 4))
 COUNTS = (4096, 16384, 65536, 131072, 262144, 524288, 1 << 20)
+HP_KEYS = (4096, 65536, 1 << 20)  # hash_probe batch sizes
+FD_CANDIDATES = (1 << 20, 524288, 262144, 65536, 4096)
+FD_CHUNKS = (0, 1024, 4096, 16384)  # frontier_dedup's S in visited pairs (0: searched)
+# an earlier commit's kernels timed beside this tree's with --parent
+PARENT_SOURCES = {"parent_ee": "expr_eval.cu", "parent_hp": "hash_probe.cu",
+                  "parent_fd": "frontier_dedup.cu"}
+REPORTED = ("expr_eval.cu", "hash_probe.cu", "frontier_dedup.cu")  # compiler_report's sources
 EE_THREADS = (32, 64, 128, 256)
 EE_ROWS = (4096, 1 << 20)
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -93,7 +115,9 @@ def build_libraries(parent):
         srcs[name] = OUT_DIR / f"{name}_sweep.cu"
         srcs[name].write_text(text)
     if parent is not None:
-        srcs["parent_ee"] = Path(parent) / "src" / "repro_torch" / "csrc" / "expr_eval.cu"
+        for name, src in PARENT_SOURCES.items():
+            if name != "parent_ee" or _parent_by_value(parent):
+                srcs[name] = Path(parent) / "src" / "repro_torch" / "csrc" / src
     nvcc = build._nvcc()
     procs = {name: subprocess.Popen(
         [nvcc, *build.NVCC_FLAGS, "-shared", str(src), "-o", str(OUT_DIR / f"{name}.so")],
@@ -112,30 +136,45 @@ def build_libraries(parent):
                                                               P, P]
     if "parent_ee" in libs:
         libs["parent_ee"].expr_eval_launch.argtypes = [P, P, P, L, P, P, P]
+    if parent is not None:
+        # one thread per key / candidate, no shape arguments
+        libs["parent_hp"].hash_probe_launch.argtypes = [P, I, P, P, P, P, I, P, P, P]
+        libs["parent_fd"].frontier_dedup_launch.argtypes = [P, P, L, P, P, I, P, P]
     return libs
 
 
+def _parent_by_value(parent) -> bool:
+    """Whether the parent's expr_eval takes its program by value (the
+    float32 kernel this tree's replaced); a later one is this tree's own."""
+    path = Path(parent) / "src" / "repro_torch" / "kernels" / "expr_eval.py"
+    return "def _prog_struct(" in path.read_text()
+
+
 def compiler_report(parent):
-    """expr_eval.cu's (and the parent's) ``-Xptxas -v`` lines and SASS
-    counts of local (LDL / STL) and shared (LDS / STS) loads and stores."""
+    """``-Xptxas -v`` lines and SASS counts of local (LDL / STL) and shared
+    (LDS / STS) loads and stores of REPORTED's sources, this tree's and the
+    parent's."""
     nvcc = build._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
-    srcs = {"this tree": build.CSRC / "expr_eval.cu"}
+    roots = {"this tree": build.CSRC}
     if parent is not None:
-        srcs["parent"] = Path(parent) / "src" / "repro_torch" / "csrc" / "expr_eval.cu"
+        roots["parent"] = Path(parent) / "src" / "repro_torch" / "csrc"
     out = {}
-    for name, src in srcs.items():
-        obj = OUT_DIR / f"ee_{name.replace(' ', '_')}.o"
-        cc = subprocess.run([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
-                             str(obj)], capture_output=True, text=True, check=True)
-        sass = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True,
-                              check=True).stdout
-        ops = [next((w for w in ln.split()[1:] if not w.startswith("@")), "").split(".")[0]
-               for ln in sass.splitlines() if ln.strip().startswith("/*")]
-        out[name] = {"ptxas": [ln for ln in cc.stderr.splitlines() if "ptxas" in ln],
-                     "sass": {op: sum(1 for o in ops if o == op)
-                              for op in ("LDL", "STL", "LDS", "STS", "LDG")}}
-        CS.log(f"expr_eval.cu ({name}): {json.dumps(out[name])}")
+    for src_name in REPORTED:
+        for name, root in roots.items():
+            obj = OUT_DIR / f"{Path(src_name).stem}_{name.replace(' ', '_')}.o"
+            cc = subprocess.run([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                                 str(root / src_name), "-o", str(obj)],
+                                capture_output=True, text=True, check=True)
+            sass = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True,
+                                  text=True, check=True).stdout
+            ops = [next((w for w in ln.split()[1:] if not w.startswith("@")), "").split(".")[0]
+                   for ln in sass.splitlines() if ln.strip().startswith("/*")]
+            key = f"{src_name} ({name})"
+            out[key] = {"ptxas": [ln for ln in cc.stderr.splitlines() if "ptxas" in ln],
+                        "sass": {op: sum(1 for o in ops if o == op)
+                                 for op in ("LDL", "STL", "LDS", "STS", "LDG")}}
+            CS.log(f"{key}: {json.dumps(out[key])}")
     return out
 
 
@@ -243,7 +282,7 @@ def sweep_expr_eval(libs, rng, dev, parent):
              "BIND(?x * 3)": CS.times3_program(d), "70-term BIND": CS.bind70_program(d),
              "100 registers": CS.many_register_program(100),
              "300 registers": CS.many_register_program(300)}
-    pmod = _load_parent_expr_eval(parent) if parent is not None else None
+    pmod = _load_parent_expr_eval(parent) if "parent_ee" in libs else None
     res = {}
     for n in EE_ROWS:
         for label, prog in progs.items():
@@ -306,6 +345,118 @@ def sweep_expr_eval(libs, rng, dev, parent):
     return res
 
 
+def _probe_build(rng, dev, label):
+    """The 3,891,273-row build of chip_smoke's hash_probe check, laid out in
+    1,024 partitions or in one, or a build whose keys repeat 1,000 times;
+    and its key domain."""
+    n = 3_891_273
+    if label.startswith("keys repeated"):
+        keys = np.repeat(np.arange(n // 1000 + 1, dtype=np.int32) * 3, 1000)[:n]
+        return CS._layout(None, torch.from_numpy(keys).to(dev), 1024), keys, int(keys[-1]) + 1
+    keys = rng.randint(0, 500_000, n).astype(np.int32)
+    p = 1 if label.endswith("P=1") else 1024
+    return CS._layout(None, torch.from_numpy(keys).to(dev), p), keys, 500_000
+
+
+def sweep_hash_probe(libs, rng, dev):
+    """Each group size G at each batch size on three builds, and the
+    parent's kernel, each checked against the plain version first."""
+    lib = build.library()
+    res = {}
+    for blabel in ("3,891,273 rows, P=1024", "3,891,273 rows, P=1",
+                   "keys repeated 1,000 times, P=1024"):
+        (starts, _, skl), keys, dom = _probe_build(rng, dev, blabel)
+        n_parts = int(starts.shape[0]) - 1
+        for c in HP_KEYS:
+            q = torch.from_numpy(np.concatenate([
+                keys[rng.randint(0, len(keys), c // 2)],
+                rng.randint(dom, 2 * dom, c - c // 2)]).astype(np.int32)).to(dev)
+            want = HJ.hash_probe_plain(starts, None, skl, None, q)
+            lo = torch.empty_like(q)
+            hi = torch.empty_like(q)
+            st = build.stream_handle(q)
+            fns = {f"G={g}": (lambda g=g: build.check(lib.hash_probe_launch(
+                starts.data_ptr(), n_parts, None, skl.data_ptr(), None, q.data_ptr(), c,
+                lo.data_ptr(), hi.data_ptr(), g, st), "hash_probe")) for g in HJ.GROUPS}
+            if "parent_hp" in libs:
+                f = libs["parent_hp"].hash_probe_launch
+                fns["parent"] = lambda f=f: build.check(f(
+                    starts.data_ptr(), n_parts, None, skl.data_ptr(), None, q.data_ptr(), c,
+                    lo.data_ptr(), hi.data_ptr(), st), "parent hash_probe")
+            row = {}
+            for name, fn in fns.items():
+                lo.fill_(-7)
+                hi.fill_(-7)
+                fn()
+                CS.require(torch.equal(lo, want[0]) and torch.equal(hi, want[1]),
+                           f"hash_probe {name} disagrees with the plain version ({blabel}, {c})")
+                row[name] = CS.device_ms(fn, 200, kernel="hash_probe")
+            row["wrapper"] = CS.device_ms(lambda: HJ.hash_probe(starts, None, skl, None, q),
+                                          200, kernel="hash_probe")
+            res[f"{blabel}, {c} keys"] = row
+            CS.log(f"hash_probe {blabel}, {c} keys: {json.dumps(row)}")
+    return res
+
+
+def sweep_frontier_dedup(libs, rng, dev):
+    """Each compiled tile (threads x candidates a thread) and chunk S (or
+    none, so that every window is searched) at 4,096 to 2^20 candidates
+    against an empty visited set, one about half inside the candidates'
+    range and one of 4,000,000 pairs dense in it (so windows pass S), and
+    the parent's kernel, each checked against the plain version first."""
+    lib = build.library()
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    res = {}
+    for c in FD_CANDIDATES:
+        ch, cl = CS._sorted_pairs(rng.randint(0, 64, c), rng.randint(0, 70_000, c))
+        cand = (torch.from_numpy(ch).to(dev), torch.from_numpy(cl).to(dev))
+        ckey = np.unique(ch.astype(np.int64) << 32 | cl)
+        others = np.unique(rng.randint(64, 128, 960_000).astype(np.int64) << 32
+                           | rng.randint(0, 70_000, 960_000))
+        v480 = np.sort(np.concatenate([rng.choice(ckey, min(240_000, len(ckey) // 2),
+                                                  replace=False),
+                                       rng.choice(others, 240_000, replace=False)]))
+        vsets = {"empty visited": (none, none),
+                 "visited, half in the candidates' range":
+                     (torch.from_numpy((v480 >> 32).astype(np.int32)).to(dev),
+                      torch.from_numpy((v480 & 0xFFFFFFFF).astype(np.int32)).to(dev)),
+                 "visited dense in the candidates' range": CS.dense_visited(dev, 64, 62_500)}
+        for vkind, (vh, vl) in vsets.items():
+            v = int(vh.shape[0])
+            vlabel = f"{vkind}, {v} pairs" if v else vkind
+            want = FD.frontier_dedup_plain(*cand, vh, vl)
+            mask = torch.empty(c, dtype=torch.bool, device=dev)
+            st = build.stream_handle(mask)
+            shapes = [(tile, 0) for tile in FD.TILES] if v == 0 else \
+                [(tile, s) for tile in FD.TILES for s in FD_CHUNKS]
+            fns = {}
+            for (th, it), chunk in shapes:
+                name = f"T={th * it} ({th}x{it})" + (f", S={chunk}" if chunk else
+                                                     ", no chunk" if v else "")
+                fns[name] = lambda th=th, it=it, chunk=chunk: build.check(
+                    lib.frontier_dedup_launch(
+                        cand[0].data_ptr(), cand[1].data_ptr(), c, vh.data_ptr(), vl.data_ptr(),
+                        v, mask.data_ptr(), th, it, FD.smem_bytes(chunk) if chunk else 0, st),
+                    "frontier_dedup")
+            if "parent_fd" in libs:
+                f = libs["parent_fd"].frontier_dedup_launch
+                fns["parent"] = lambda f=f: build.check(f(
+                    cand[0].data_ptr(), cand[1].data_ptr(), c, vh.data_ptr(), vl.data_ptr(), v,
+                    mask.data_ptr(), st), "parent frontier_dedup")
+            row = {}
+            for name, fn in fns.items():
+                mask.fill_(True)
+                fn()
+                CS.require(torch.equal(mask, want), f"frontier_dedup {name} disagrees with the "
+                                                    f"plain version ({c}, {vlabel})")
+                row[name] = CS.device_ms(fn, 200, kernel="frontier_dedup")
+            row["wrapper"] = CS.device_ms(lambda: FD.frontier_dedup(*cand, vh, vl), 200,
+                                          kernel="frontier_dedup")
+            res[f"{c} candidates, {vlabel}"] = row
+            CS.log(f"frontier_dedup {c} candidates, {vlabel}: {json.dumps(row)}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None,
@@ -321,7 +472,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     libs = build_libraries(args.parent)
     rng = np.random.RandomState(args.seed)
-    res = {"card": card, "expr_eval.cu": compiler_report(args.parent),
+    res = {"card": card, "hash_probe": sweep_hash_probe(libs, rng, dev),
+           "frontier_dedup": sweep_frontier_dedup(libs, rng, dev),
+           "compiler": compiler_report(args.parent),
            "expr_eval": sweep_expr_eval(libs, rng, dev, args.parent),
            "join_expand": sweep_join_expand(libs, rng, dev),
            "gather_emit": sweep_gather_emit(libs, rng, dev)}

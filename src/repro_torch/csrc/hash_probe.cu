@@ -13,39 +13,60 @@
 // qlo ^ (qhi * 0x85EBCA6B) with INT32_MIN mapped to 0; then
 // q = ((uint32(mix) * 0x9E3779B1) >> 16) & (P - 1).
 //
-// What bounds it on the H100: memory latency more than bytes. Each probe
-// reads its key and writes two ints (16 bytes with a pair key), and makes
-// two binary searches of about log2(N/P) dependent loads of 32-byte sectors
-// inside its partition. A 4096-key probe of a 3.9M-row build in 1024
-// partitions is 2 x 12 steps per key.
+// What bounds it on the H100: memory latency, not bytes. Each probe reads
+// its key and writes two ints (16 bytes with a pair key); what sets the
+// time is the chain of dependent L2 round trips. One thread per key, with a
+// binary search for each bound, made about 26 of them for a 4096-key probe
+// of a 3.9M-row build in 1024 partitions (two part_starts loads and two
+// searches of about 12 steps), and its 16 blocks left most SMs idle.
 //
-// Design: one thread per probe key: two loads of part_starts, then a
-// lower-bound and an upper-bound binary search on (hi, lo) within that
-// partition's slice, the second starting from the first's answer. Rows of
-// lower partitions all come first, so these positions equal the TPU
-// kernel's counts exactly. The TPU kernel avoided gathers by comparing
-// every probe with every build row in VMEM tiles, O(C * N) work; the
-// searches are O(C * log(N / P)).
+// Design: a group of G lanes per probe key (G a power of two from 8 to 32,
+// chosen by kernel_sweep.py and passed by the wrapper), 256 / G keys a
+// block, so a 4096-key batch fills 4096 * G / 256 blocks.
+//   1. Every lane loads the key (one broadcast load), and lanes 0 and 1 of
+//      the group load part_starts[q] and part_starts[q + 1] (one sector),
+//      which a shuffle hands to the group.
+//   2. The lower bound by pair_search::narrow: (G + 1)-ary rounds of G
+//      pivot loads in flight at once, until at most G rows are left
+//      (3,800 rows: two rounds at G = 16).
+//   3. One last round reads 2G rows from there in two coalesced loads,
+//      clipped at the partition's end: a ballot of "below the key" gives
+//      lo, a ballot of "equal to the key" the run's length. The window
+//      holds at least G rows from lo, so only a run of G or more rows that
+//      fills it goes on to a k-ary upper-bound search of [start + 2G, end).
+//   4. Lanes 0 and 1 write lo and hi.
+// About 5 dependent round trips instead of 26; each round touches G sectors
+// instead of one, which a latency-bound kernel can afford at the engine's
+// batches of at most 4,096 keys (at 65,536 keys and more the one-thread
+// kernel's fewer sectors win: PERF.md). Rows of lower partitions all come
+// first, so these positions equal the TPU kernel's counts exactly. The TPU
+// kernel avoided gathers by comparing every probe with every build row in
+// VMEM tiles, O(C * N) work; the searches are O(C * G * log(N / P) /
+// log(G + 1)).
 
 #include <cuda_runtime.h>
+
+#include "pair_search.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ bool pair_less(int ah, int al, int bh, int bl) {
-  return ah < bh || (ah == bh && al < bl);
-}
-
-__global__ void hash_probe_kernel(const int* __restrict__ part_starts,
-                                  int n_parts, const int* __restrict__ shi,
-                                  const int* __restrict__ slo,
-                                  const int* __restrict__ qhi,
-                                  const int* __restrict__ qlo, int c,
-                                  int* __restrict__ lo_out,
-                                  int* __restrict__ hi_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c) return;
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+hash_probe_kernel(const int* __restrict__ part_starts, int n_parts,
+                  const int* __restrict__ shi, const int* __restrict__ slo,
+                  const int* __restrict__ qhi, const int* __restrict__ qlo, int c,
+                  int* __restrict__ lo_out, int* __restrict__ hi_out) {
+  constexpr int KEYS = THREADS / G;
+  constexpr int WINDOW = 2 * G;  // the last round's rows: G to search, G more of the run
+  const unsigned mask = pair_search::group_mask<G>();
+  const int gl = threadIdx.x & (G - 1);
+  const long long key = (long long)blockIdx.x * KEYS + threadIdx.x / G;
+  // a group past the batch's end searches for the last key and writes
+  // nothing: its lanes take part in every ballot and shuffle like the rest
+  const bool valid = key < c;
+  const int i = valid ? (int)key : c - 1;
   const int ql = qlo[i];
   const int qh = qhi ? qhi[i] : 0;
   unsigned mix = (unsigned)ql;
@@ -54,40 +75,47 @@ __global__ void hash_probe_kernel(const int* __restrict__ part_starts,
     if (mix == 0x80000000u) mix = 0u;
   }
   const int p = (int)(((mix * 0x9E3779B1u) >> 16) & (unsigned)(n_parts - 1));
-  const int end = part_starts[p + 1];
-  int a = part_starts[p], b = end;
-  while (a < b) {  // first row not below the key
-    int m = a + ((b - a) >> 1);
-    int vh = shi ? shi[m] : 0;
-    if (pair_less(vh, slo[m], qh, ql)) {
-      a = m + 1;
-    } else {
-      b = m;
-    }
+  const int ps = part_starts[p + (gl & 1)];
+  int a = __shfl_sync(mask, ps, 0, G);
+  const int end = __shfl_sync(mask, ps, 1, G);
+  int b = end;
+  pair_search::narrow<G>(shi, slo, a, b, qh, ql, false, mask, gl);
+  int run;
+  const int lo = pair_search::last_round<G, 2>(shi, slo, a, end, qh, ql, false, mask, gl, &run);
+  int hi = lo + run;
+  if (hi == a + WINDOW && hi < end) {
+    // the run fills the window: its end lies in [a + WINDOW, end]
+    int ua = a + WINDOW, ub = end;
+    pair_search::narrow<G>(shi, slo, ua, ub, qh, ql, true, mask, gl);
+    hi = pair_search::last_round<G, 1>(shi, slo, ua, ub, qh, ql, true, mask, gl);
   }
-  lo_out[i] = a;
-  b = end;
-  while (a < b) {  // first row above the key
-    int m = a + ((b - a) >> 1);
-    int vh = shi ? shi[m] : 0;
-    if (!pair_less(qh, ql, vh, slo[m])) {
-      a = m + 1;
-    } else {
-      b = m;
-    }
-  }
-  hi_out[i] = a;
+  if (valid && gl < 2) (gl == 0 ? lo_out : hi_out)[i] = gl == 0 ? lo : hi;
+}
+
+template <int G>
+int launch(const int* part_starts, int n_parts, const int* shi, const int* slo,
+           const int* qhi, const int* qlo, int c, int* lo, int* hi, cudaStream_t st) {
+  constexpr int KEYS = THREADS / G;
+  const unsigned int blocks = (unsigned int)(((long long)c + KEYS - 1) / KEYS);
+  hash_probe_kernel<G><<<blocks, THREADS, 0, st>>>(part_starts, n_parts, shi, slo, qhi, qlo, c,
+                                                   lo, hi);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// group: lanes per probe key, 8, 16 or 32 (the wrapper's GROUP); any other
+// value returns cudaErrorInvalidValue without launching.
 extern "C" int hash_probe_launch(const int* part_starts, int n_parts,
                                  const int* shi, const int* slo,
                                  const int* qhi, const int* qlo, int c,
-                                 int* lo, int* hi, void* stream) {
+                                 int* lo, int* hi, int group, void* stream) {
   if (c <= 0) return (int)cudaGetLastError();
-  int blocks = (c + THREADS - 1) / THREADS;
-  hash_probe_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      part_starts, n_parts, shi, slo, qhi, qlo, c, lo, hi);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (group) {
+    case 8: return launch<8>(part_starts, n_parts, shi, slo, qhi, qlo, c, lo, hi, st);
+    case 16: return launch<16>(part_starts, n_parts, shi, slo, qhi, qlo, c, lo, hi, st);
+    case 32: return launch<32>(part_starts, n_parts, shi, slo, qhi, qlo, c, lo, hi, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -4,10 +4,10 @@ Every ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into an
 object file — one ``nvcc`` process per source, all started together — and
 the objects link into one shared library with a plain C interface, loaded
 with ``ctypes``. The library lives in ``build/repro_torch/`` under the
-repository root and is named by a hash of the sources, the flags and the
-compiler, so a changed source or toolkit rebuilds and an unchanged one
-loads at once. The build runs at the first kernel launch of a process,
-never at import.
+repository root and is named by a hash of the sources, the headers they
+include (``csrc/*.cuh``), the flags and the compiler, so a changed source,
+header or toolkit rebuilds and an unchanged one loads at once. The build
+runs at the first kernel launch of a process, never at import.
 """
 
 from __future__ import annotations
@@ -35,6 +35,11 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    """The headers the sources include: hashed, not compiled apart."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -46,14 +51,14 @@ def _nvcc() -> str:
 
 
 def _digest(srcs: List[Path], nvcc: str) -> str:
-    """Hash of the sources, the flags and the compiler (its path and its
-    ``--version``), so a new toolkit rebuilds too."""
+    """Hash of the sources and the headers, the flags and the compiler (its
+    path and its ``--version``), so a new toolkit rebuilds too."""
     version = subprocess.run(
         [nvcc, "--version"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True, check=True,
     ).stdout
     h = hashlib.sha256(" ".join([nvcc, version, *NVCC_FLAGS]).encode())
-    for s in srcs:
+    for s in [*srcs, *headers()]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -115,11 +120,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         "expr_eval_limits": [P, P, P, P],
         "segment_scan_launch": [P, P, P, L, I, P, P],
         "radix_partition_launch": [P, L, I, P, P, P],
-        "hash_probe_launch": [P, I, P, P, P, P, I, P, P, P],
+        "hash_probe_launch": [P, I, P, P, P, P, I, P, P, I, P],
         "bloom_build_launch": [P, L, I, P, P],
         "bloom_probe_launch": [P, I, P, I, P, P],
         "sorted_search_launch": [P, I, P, I, I, P, P, P, P],
-        "frontier_dedup_launch": [P, P, L, P, P, I, P, P],
+        "frontier_dedup_launch": [P, P, L, P, P, I, P, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

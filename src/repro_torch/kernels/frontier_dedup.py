@@ -15,20 +15,87 @@ composite key assumes non-negative pairs; the CUDA kernel and the plain
 version order pairs as signed int32 values, which is the same order on
 the engine's domain (dictionary codes >= -1, shifted by one in DISTINCT).
 
-CUDA kernel: ``csrc/frontier_dedup.cu``. ``frontier_dedup_plain`` is the
-same function in PyTorch (the adjacent compare, then ``torch.searchsorted``
-on the int64 pair key for membership); the wrapper takes it for CPU
-tensors only.
+CUDA kernel: ``csrc/frontier_dedup.cu``: a block covers a tile of
+``threads * items`` candidates and stages its window of the visited set in
+shared memory, ``CHUNK`` pairs at a time, or searches it where it is long
+(``launch_shape``). The tiles are
+laid on the candidate columns' 16-byte phase, and the wrapper lays the
+mask on the same phase (``mask_offset``), so that a thread's mask bytes go
+out in one store. ``frontier_dedup_plain`` is the same function in PyTorch
+(the adjacent compare, then ``torch.searchsorted`` on the int64 pair key
+for membership); the wrapper takes it for CPU tensors only.
+
+Besides ``launches``, the wrapper counts the sizes it launches on, as plain
+integers: ``candidates`` (summed), ``max_candidates`` and ``max_visited``
+(``sizes()``, ``reset_sizes()``).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.core import vecops
 from repro_torch.kernels import build
 
+# csrc/frontier_dedup.cu's compiled tiles, (threads, candidates a thread).
+# launch_shape takes the large tile from LARGE_FROM candidates, staging
+# CHUNK visited pairs in shared memory at once, while the visited set holds
+# at most STAGED_UP_TO pairs a candidate; otherwise the small tile, where
+# more blocks fill the card and the kernel searches every window without
+# staging (PERF.md's sweep, kernel_sweep.py)
+TILES = ((64, 4), (128, 4), (256, 4), (256, 8), (256, 16))
+SMALL_TILE = (64, 4)
+LARGE_TILE = (256, 8)
+LARGE_FROM = 524288
+STAGED_UP_TO = 2
+CHUNK = 4096
+PAIR_BYTES = 8  # a staged visited pair: two int32
+SMEM_MAX = 232448  # the H100's shared memory a block
 launches = 0
+candidates = 0
+max_candidates = 0
+max_visited = 0
+
+
+def sizes() -> dict:
+    return {"candidates": candidates, "max_candidates": max_candidates,
+            "max_visited": max_visited}
+
+
+def reset_sizes() -> None:
+    global candidates, max_candidates, max_visited
+    candidates = max_candidates = max_visited = 0
+
+
+def launch_shape(c: int, v: int) -> Tuple[int, int, int]:
+    """The kernel's (threads, candidates a thread, dynamic shared memory)
+    for ``c`` candidates and ``v`` visited pairs: the large tile for a
+    large launch with an empty visited set (no shared memory) or a staged
+    one (a chunk of CHUNK pairs), else the small tile, whose windows are
+    searched (no shared memory)."""
+    if c >= LARGE_FROM and v == 0:
+        return (*LARGE_TILE, 0)
+    if c >= LARGE_FROM and v <= STAGED_UP_TO * c:
+        return (*LARGE_TILE, smem_bytes(CHUNK))
+    return (*SMALL_TILE, 0)
+
+
+def smem_bytes(chunk: int) -> int:
+    """Shared memory for a chunk of ``chunk`` staged visited pairs."""
+    if not 1 <= chunk <= SMEM_MAX // PAIR_BYTES:
+        raise ValueError(f"frontier_dedup: a chunk of {chunk} pairs does not fit a block")
+    return PAIR_BYTES * chunk
+
+
+def mask_offset(hi_ptr: int, lo_ptr: int, buf_ptr: int) -> int:
+    """Where in a buffer at ``buf_ptr`` the mask starts, so that it lies on
+    the kernel's tile phase: the candidate columns' 16-byte phase (in
+    int32 elements) when the two columns share one, else 0."""
+    phase = (hi_ptr >> 2) & 3
+    shift = phase if phase == (lo_ptr >> 2) & 3 else 0
+    return (shift - buf_ptr) % 16
 
 
 def frontier_dedup_plain(cand_hi, cand_lo, vis_hi, vis_lo) -> torch.Tensor:
@@ -49,7 +116,7 @@ def frontier_dedup_plain(cand_hi, cand_lo, vis_hi, vis_lo) -> torch.Tensor:
 def frontier_dedup(cand_hi: torch.Tensor, cand_lo: torch.Tensor,
                    vis_hi: torch.Tensor, vis_lo: torch.Tensor) -> torch.Tensor:
     """(C,) bool mask over the sorted candidates (see module docstring)."""
-    global launches
+    global launches, candidates, max_candidates, max_visited
     dev = cand_hi.device
     for name, x in (("cand_hi", cand_hi), ("cand_lo", cand_lo),
                     ("vis_hi", vis_hi), ("vis_lo", vis_lo)):
@@ -65,13 +132,17 @@ def frontier_dedup(cand_hi: torch.Tensor, cand_lo: torch.Tensor,
         raise ValueError(f"frontier_dedup: unsupported device {dev}")
     c = int(cand_hi.shape[0])
     v = int(vis_hi.shape[0])
-    mask = torch.empty(c, dtype=torch.bool, device=dev)
     if c == 0:
-        return mask
-    lib = build.library()
-    build.check(lib.frontier_dedup_launch(
+        return torch.empty(0, dtype=torch.bool, device=dev)
+    buf = torch.empty(c + 15, dtype=torch.bool, device=dev)
+    off = mask_offset(cand_hi.data_ptr(), cand_lo.data_ptr(), buf.data_ptr())
+    mask = buf[off: off + c]
+    build.check(build.library().frontier_dedup_launch(
         cand_hi.data_ptr(), cand_lo.data_ptr(), c, vis_hi.data_ptr(), vis_lo.data_ptr(),
-        v, mask.data_ptr(), build.stream_handle(mask),
+        v, mask.data_ptr(), *launch_shape(c, v), build.stream_handle(mask),
     ), "frontier_dedup")
     launches += 1
+    candidates += c
+    max_candidates = max(max_candidates, c)
+    max_visited = max(max_visited, v)
     return mask
