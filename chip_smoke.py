@@ -1084,6 +1084,22 @@ def dedup_edge_cases(rng, dev, cand, visited):
     dc = (torch.from_numpy(dh).to(dev), torch.from_numpy(dl).to(dev))
     out.append(("visited 4,000,000 dense in the candidates' range (searched)", dc,
                 dense_visited(dev, 64, 62_500)))
+    # tiles past the visited set's last pair have an empty window at its
+    # end: the visited columns are views of longer tensors whose next word
+    # is the last candidate, so a read past the set drops it
+    sh, sl = _sorted_pairs(rng.randint(0, 64, 4096), rng.randint(0, 70_000, 4096))
+    for label, (ch, cl), hi_span in (("2^20 candidates (searched)", (dh, dl), 64),
+                                     ("2^20 candidates (staged)", (dh, dl), 32),
+                                     ("4,096 candidates (searched)", (sh, sl), 64)):
+        vh, vl = dense_visited(dev, hi_span, 62_500)
+        require((int(ch[-1]), int(cl[-1])) > (int(vh[-1]), int(vl[-1])),
+                "the last candidate lies past the visited set")
+        full_h = torch.cat([vh, torch.tensor([ch[-1]], dtype=torch.int32, device=dev)])
+        full_l = torch.cat([vl, torch.tensor([cl[-1]], dtype=torch.int32, device=dev)])
+        v = int(vh.shape[0])
+        out.append((f"{label}, tiles past the end of {v} visited, the next word a candidate",
+                    (torch.from_numpy(ch).to(dev), torch.from_numpy(cl).to(dev)),
+                    (full_h[:v], full_l[:v])))
     # 2,000,000 visited pairs dense in the lower half of the candidates'
     # range: staged, and its tiles' windows pass CHUNK (two chunks each)
     out.append(("visited 2,000,000 dense in half the candidates' range (staged)", dc,
@@ -1091,7 +1107,6 @@ def dedup_edge_cases(rng, dev, cand, visited):
     # few candidates against a dense visited set (no chunk: every window
     # searched), and candidates mostly in one corner, so that the tiles of
     # the spread-out rest have windows of many tiles (searched in-kernel)
-    sh, sl = _sorted_pairs(rng.randint(0, 64, 4096), rng.randint(0, 70_000, 4096))
     out.append(("4,096 candidates, visited 4,000,000 dense", (torch.from_numpy(sh).to(dev),
                 torch.from_numpy(sl).to(dev)), dense_visited(dev, 64, 62_500)))
     kh = np.concatenate([np.zeros(1_000_000, np.int64), rng.randint(1, 64, 48_576)])

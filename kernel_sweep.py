@@ -1,31 +1,35 @@
 """Sweep the compiled shapes of join_expand, gather_emit, expr_eval,
 hash_probe and frontier_dedup on the card.
 
-The port compiles two instances of join_expand and gather_emit and picks
-one from the input (join_expand: a tile for small windows and one for
-large; gather_emit: a short unroll for narrow plans and one to the caps).
-This script compiles the candidates from the same sources into its own
-library under ``build/kernel_sweep/`` — a small ``.cu`` that includes the
-source and exports each instance of its ``launch`` template — checks each
-instance against the plain PyTorch version, and prints its device time per
-launch (``torch.profiler``, as ``chip_smoke.py`` measures). expr_eval's
-instance and block size are launch arguments: every instance that takes a
-program is swept through the wrapper's launch (``expr_eval._launch``,
-which ``expr_eval`` calls at ``launch_shape``'s choice) at 32 to 256
-threads on six programs, at 4,096 and 2^20 rows. hash_probe's group size
-G (8, 16, 32 lanes a key) is swept at 4,096, 65,536 and 2^20 keys over
-the 3,891,273-row build in 1,024 partitions, in one partition, and over a
-build whose keys repeat 1,000 times; frontier_dedup's tile T (threads
-times candidates a thread, 256 to 4,096) and shared-memory chunk S (none,
-or 1,024 to 16,384 visited pairs) at 4,096 to 2^20 candidates against an
-empty visited set, one of about 480,000 pairs half inside the
-candidates' range, and one of 4,000,000 pairs dense in it (so a tile's
-window passes S). Both are launch arguments of the library the wrappers
-use, and every instance is checked against the plain version before it
-is timed. The script also prints ``nvcc -Xptxas -v`` and the local-memory
-(LDL / STL) and shared-memory (LDS / STS) instruction counts of
-``cuobjdump -sass`` for ``expr_eval.cu``, ``hash_probe.cu`` and
-``frontier_dedup.cu``.
+The port compiles one or two instances of join_expand, gather_emit,
+hash_probe and frontier_dedup and picks one from the input (join_expand:
+a tile for small windows and one for large; gather_emit: a short unroll
+for narrow plans and one to the caps; hash_probe: one group size;
+frontier_dedup: a small tile whose windows are searched and a large one
+that stages them). This script compiles the candidates from the same
+sources into its own libraries under ``build/kernel_sweep/`` — a small
+``.cu`` for each that includes the source and exports each instance of its
+``launch`` template — checks each instance against the plain PyTorch
+version, and prints its device time per launch (``torch.profiler``, as
+``chip_smoke.py`` measures). expr_eval's instance and block size are
+launch arguments: every instance that takes a program is swept through the
+wrapper's launch (``expr_eval._launch``, which ``expr_eval`` calls at
+``launch_shape``'s choice) at 32 to 256 threads on six programs, at 4,096
+and 2^20 rows. hash_probe's group size G (8, 16, 32 lanes a key) is swept
+at 4,096, 65,536 and 2^20 keys over the 3,891,273-row build in 1,024
+partitions, in one partition, and over a build whose keys repeat 1,000
+times; frontier_dedup's tile T (threads times candidates a thread, 256 to
+4,096) and shared-memory chunk S (none, or 1,024 to 16,384 visited pairs)
+at 4,096 to 2^20 candidates against an empty visited set, one of about
+480,000 pairs half inside the candidates' range, and one of 4,000,000
+pairs dense in it (so a tile's window passes S). Then frontier_dedup's
+launches in ``chip_smoke.py``'s paths phase (p1-p5 on the full-size LSQB
+store) are recorded and replayed one by one at each compiled shape, with
+their sizes and the visited pairs inside the candidates' range. Every
+instance is checked against the plain version before it is timed. The
+script also prints ``nvcc -Xptxas -v`` and the local-memory (LDL / STL)
+and shared-memory (LDS / STS) instruction counts of ``cuobjdump -sass``
+for ``expr_eval.cu``, ``hash_probe.cu`` and ``frontier_dedup.cu``.
 
 With ``--parent DIR`` (an earlier checkout) it also builds and times that
 checkout's one-thread-per-key ``hash_probe.cu`` and one-thread-per-
@@ -71,8 +75,11 @@ JE_SHAPES = ((64, 64), (64, 256), (128, 128), (128, 256), (128, 512), (128, 1024
 GE_UNROLLS = ((8, 2), (16, 4))
 COUNTS = (4096, 16384, 65536, 131072, 262144, 524288, 1 << 20)
 HP_KEYS = (4096, 65536, 1 << 20)  # hash_probe batch sizes
+HP_GROUPS = (8, 16, 32)  # hash_probe's lanes a key
 FD_CANDIDATES = (1 << 20, 524288, 262144, 65536, 4096)
+FD_TILES = ((64, 4), (128, 4), (256, 4), (256, 8), (256, 16))  # (threads, candidates a thread)
 FD_CHUNKS = (0, 1024, 4096, 16384)  # frontier_dedup's S in visited pairs (0: searched)
+REPLAY_ITERS = 20  # launches timed for each recorded paths-phase launch
 # an earlier commit's kernels timed beside this tree's with --parent
 PARENT_SOURCES = {"parent_ee": "expr_eval.cu", "parent_hp": "hash_probe.cu",
                   "parent_fd": "frontier_dedup.cu"}
@@ -105,11 +112,34 @@ def _emit_source() -> str:
     return "\n".join(lines) + "\n"
 
 
+def _probe_source() -> str:
+    lines = [f'#include "{build.CSRC / "hash_probe.cu"}"']
+    for g in HP_GROUPS:
+        lines.append(
+            f"extern \"C\" int hp_{g}(const int* ps, int np, const int* shi, const int* slo, "
+            f"const int* qhi, const int* qlo, int c, int* lo, int* hi, void* st) {{ "
+            f"if (c <= 0) return 0; return launch<{g}>(ps, np, shi, slo, qhi, qlo, c, lo, hi, "
+            f"(cudaStream_t)st); }}")
+    return "\n".join(lines) + "\n"
+
+
+def _dedup_source() -> str:
+    lines = [f'#include "{build.CSRC / "frontier_dedup.cu"}"']
+    for t, it in FD_TILES:
+        lines.append(
+            f"extern \"C\" int fd_{t}_{it}(const int* hi, const int* lo, long long c, "
+            f"const int* vhi, const int* vlo, int v, int smem, unsigned char* mask, void* st) {{ "
+            f"if (c <= 0) return 0; return launch<{t}, {it}>(hi, lo, c, vhi, vlo, v, smem, mask, "
+            f"(cudaStream_t)st); }}")
+    return "\n".join(lines) + "\n"
+
+
 def build_libraries(parent):
     """Compile the instance libraries (and the parent's kernel), one nvcc
     each, all started together."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {"je": _instances_source(), "ge": _emit_source()}
+    jobs = {"je": _instances_source(), "ge": _emit_source(), "hp": _probe_source(),
+            "fd": _dedup_source()}
     srcs = {}
     for name, text in jobs.items():
         srcs[name] = OUT_DIR / f"{name}_sweep.cu"
@@ -134,6 +164,10 @@ def build_libraries(parent):
     for rows, pairs in GE_UNROLLS:
         getattr(libs["ge"], f"ge_{rows}_{pairs}").argtypes = [P, P, L, P, L, I, P, P, L, P, L,
                                                               P, P]
+    for g in HP_GROUPS:
+        getattr(libs["hp"], f"hp_{g}").argtypes = [P, I, P, P, P, P, I, P, P, P]
+    for t, it in FD_TILES:
+        getattr(libs["fd"], f"fd_{t}_{it}").argtypes = [P, P, L, P, P, I, I, P, P]
     if "parent_ee" in libs:
         libs["parent_ee"].expr_eval_launch.argtypes = [P, P, P, L, P, P, P]
     if parent is not None:
@@ -361,7 +395,6 @@ def _probe_build(rng, dev, label):
 def sweep_hash_probe(libs, rng, dev):
     """Each group size G at each batch size on three builds, and the
     parent's kernel, each checked against the plain version first."""
-    lib = build.library()
     res = {}
     for blabel in ("3,891,273 rows, P=1024", "3,891,273 rows, P=1",
                    "keys repeated 1,000 times, P=1024"):
@@ -375,9 +408,9 @@ def sweep_hash_probe(libs, rng, dev):
             lo = torch.empty_like(q)
             hi = torch.empty_like(q)
             st = build.stream_handle(q)
-            fns = {f"G={g}": (lambda g=g: build.check(lib.hash_probe_launch(
+            fns = {f"G={g}": (lambda f=getattr(libs["hp"], f"hp_{g}"): build.check(f(
                 starts.data_ptr(), n_parts, None, skl.data_ptr(), None, q.data_ptr(), c,
-                lo.data_ptr(), hi.data_ptr(), g, st), "hash_probe")) for g in HJ.GROUPS}
+                lo.data_ptr(), hi.data_ptr(), st), "hash_probe")) for g in HP_GROUPS}
             if "parent_hp" in libs:
                 f = libs["parent_hp"].hash_probe_launch
                 fns["parent"] = lambda f=f: build.check(f(
@@ -404,7 +437,6 @@ def sweep_frontier_dedup(libs, rng, dev):
     against an empty visited set, one about half inside the candidates'
     range and one of 4,000,000 pairs dense in it (so windows pass S), and
     the parent's kernel, each checked against the plain version first."""
-    lib = build.library()
     none = torch.zeros(0, dtype=torch.int32, device=dev)
     res = {}
     for c in FD_CANDIDATES:
@@ -427,17 +459,13 @@ def sweep_frontier_dedup(libs, rng, dev):
             want = FD.frontier_dedup_plain(*cand, vh, vl)
             mask = torch.empty(c, dtype=torch.bool, device=dev)
             st = build.stream_handle(mask)
-            shapes = [(tile, 0) for tile in FD.TILES] if v == 0 else \
-                [(tile, s) for tile in FD.TILES for s in FD_CHUNKS]
+            shapes = [(tile, 0) for tile in FD_TILES] if v == 0 else \
+                [(tile, s) for tile in FD_TILES for s in FD_CHUNKS]
             fns = {}
             for (th, it), chunk in shapes:
                 name = f"T={th * it} ({th}x{it})" + (f", S={chunk}" if chunk else
                                                      ", no chunk" if v else "")
-                fns[name] = lambda th=th, it=it, chunk=chunk: build.check(
-                    lib.frontier_dedup_launch(
-                        cand[0].data_ptr(), cand[1].data_ptr(), c, vh.data_ptr(), vl.data_ptr(),
-                        v, mask.data_ptr(), th, it, FD.smem_bytes(chunk) if chunk else 0, st),
-                    "frontier_dedup")
+                fns[name] = _dedup_fn(libs, (th, it), chunk, cand, (vh, vl), mask)
             if "parent_fd" in libs:
                 f = libs["parent_fd"].frontier_dedup_launch
                 fns["parent"] = lambda f=f: build.check(f(
@@ -454,6 +482,104 @@ def sweep_frontier_dedup(libs, rng, dev):
                                           kernel="frontier_dedup")
             res[f"{c} candidates, {vlabel}"] = row
             CS.log(f"frontier_dedup {c} candidates, {vlabel}: {json.dumps(row)}")
+    return res
+
+
+def _dedup_fn(libs, tile, chunk, cand, vis, mask):
+    """One launch of the swept frontier_dedup instance ``tile`` staging
+    ``chunk`` visited pairs (0: every window searched)."""
+    f = getattr(libs["fd"], f"fd_{tile[0]}_{tile[1]}")
+    c, v = int(cand[0].shape[0]), int(vis[0].shape[0])
+    smem = FD.smem_bytes(chunk) if chunk else 0
+    st = build.stream_handle(mask)
+    return lambda: build.check(f(cand[0].data_ptr(), cand[1].data_ptr(), c, vis[0].data_ptr(),
+                                 vis[1].data_ptr(), v, smem, mask.data_ptr(), st),
+                               "frontier_dedup")
+
+
+def record_paths_dedup(dev):
+    """The inputs of every frontier_dedup launch of chip_smoke's paths phase
+    (p1-p5 on the full-size LSQB store under EngineConfig()): per query, a
+    list of (candidates, visited, the candidate columns' 16-byte phases),
+    each tensor a copy."""
+    import repro_torch
+    from repro_torch.core.paths import engine as PE
+
+    store = CS.load_full_store(dev, CS.FULL_SCALE, CS.SEED, {})
+    engine = repro_torch.Engine(store, CS._config((None, None)), device=dev)
+    calls, real = {}, PE.frontier_dedup
+
+    def recording(ch, cl, vh, vl):
+        phase = tuple((x.data_ptr() >> 2) & 3 for x in (ch, cl))
+        calls[name].append(((ch.clone(), cl.clone()), (vh.clone(), vl.clone()), phase))
+        return real(ch, cl, vh, vl)
+
+    PE.frontier_dedup = recording
+    try:
+        for name, text in CS.PATH_QUERIES.items():
+            calls[name] = []
+            CS.run_query(engine, text)
+    finally:
+        PE.frontier_dedup = real
+    del engine, store
+    return calls
+
+
+def _in_range(cand, vis):
+    """The visited pairs between the first candidate and the last."""
+    from repro_torch.core import vecops
+
+    if int(vis[0].shape[0]) == 0:
+        return 0
+    kc = vecops._pair_comp(cand[0][[0, -1]], cand[1][[0, -1]])
+    kv = vecops._pair_comp(*vis)
+    lo = torch.searchsorted(kv, kc[:1])
+    hi = torch.searchsorted(kv, kc[1:], right=True)
+    return int(hi - lo)
+
+
+def replay_paths_dedup(libs, dev):
+    """Each recorded paths-phase launch replayed alone, its candidate
+    columns at their recorded 16-byte phases: its sizes, the visited pairs
+    inside the candidates' range, launch_shape's choice, and the device ms
+    of this tree's wrapper, of the small tile searching every window, of
+    the large tile staging CHUNK pairs (or, with no visited set, the large
+    tile), and of the parent's kernel, each checked against the plain
+    version first. Per query, the sums over its launches."""
+    calls = record_paths_dedup(dev)
+    res = {}
+    for name, launches in calls.items():
+        if not launches:
+            continue
+        rows = []
+        for (ch, cl), vis, phase in launches:
+            cand = (CS._at_offset(ch, phase[0]), CS._at_offset(cl, phase[1]))
+            c, v = int(ch.shape[0]), int(vis[0].shape[0])
+            want = FD.frontier_dedup_plain(*cand, *vis)
+            mask = torch.empty(c, dtype=torch.bool, device=dev)
+            fns = {"wrapper": lambda cand=cand, vis=vis: FD.frontier_dedup(*cand, *vis),
+                   "small tile, searched": _dedup_fn(libs, FD.SMALL_TILE, 0, cand, vis, mask),
+                   "large tile" + (f", S={FD.CHUNK}" if v else ""): _dedup_fn(
+                       libs, FD.LARGE_TILE, FD.CHUNK if v else 0, cand, vis, mask)}
+            if "parent_fd" in libs:
+                f = libs["parent_fd"].frontier_dedup_launch
+                fns["parent"] = lambda f=f, cand=cand, vis=vis, mask=mask, c=c, v=v: build.check(f(
+                    cand[0].data_ptr(), cand[1].data_ptr(), c, vis[0].data_ptr(),
+                    vis[1].data_ptr(), v, mask.data_ptr(), build.stream_handle(mask)),
+                    "parent frontier_dedup")
+            row = {"c": c, "v": v, "v_in_range": _in_range(cand, vis), "phases": list(phase),
+                   "shape": list(FD.launch_shape(c, v))}
+            for label, fn in fns.items():
+                mask.fill_(True)
+                got = fn()
+                CS.require(torch.equal(got if label == "wrapper" else mask, want),
+                           f"frontier_dedup {label} disagrees on {name}'s launch (c={c}, v={v})")
+                row[label] = CS.device_ms(fn, REPLAY_ITERS, kernel="frontier_dedup")
+            rows.append(row)
+            CS.log(f"paths {name} frontier_dedup launch: {json.dumps(row)}")
+        total = {k: sum(r[k] for r in rows) for k in rows[0] if k.startswith(("wrapper", "parent"))}
+        res[name] = {"launches": rows, "sum_ms": total}
+        CS.log(f"paths {name} frontier_dedup, {len(rows)} launches, summed ms: {json.dumps(total)}")
     return res
 
 
@@ -474,6 +600,7 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(args.seed)
     res = {"card": card, "hash_probe": sweep_hash_probe(libs, rng, dev),
            "frontier_dedup": sweep_frontier_dedup(libs, rng, dev),
+           "frontier_dedup_paths": replay_paths_dedup(libs, dev),
            "compiler": compiler_report(args.parent),
            "expr_eval": sweep_expr_eval(libs, rng, dev, args.parent),
            "join_expand": sweep_join_expand(libs, rng, dev),

@@ -62,6 +62,11 @@ namespace {
 constexpr long long MAX_BLOCKS = 1 << 20;
 constexpr int PAIR_BYTES = 2 * sizeof(int);  // a staged visited pair
 constexpr int SMEM_DEFAULT = 48 * 1024, SMEM_MAX = 232448;  // the H100's per-block limits
+// the compiled tiles, (threads, candidates a thread): a small one for small
+// launches, whose windows are searched, and a large one (kernel_sweep.py
+// builds the other candidates from this source)
+constexpr int SMALL_THREADS = 64, SMALL_ITEMS = 4;
+constexpr int LARGE_THREADS = 256, LARGE_ITEMS = 8;
 // a window longer than this many times the tile is searched, not staged
 constexpr int DIRECT_RATIO = 8;
 
@@ -166,7 +171,9 @@ frontier_dedup_kernel(const int* __restrict__ hi, const int* __restrict__ lo, lo
       }
       __syncthreads();
       const int vb = window[0], ve = window[1];
-      if (chunk == 0 || ve - vb > DIRECT_RATIO * TILE) {
+      // an empty window reads nothing: a tile past the set's last pair has
+      // vb == ve == v, and vhi[v] lies past the set
+      if (ve > vb && (chunk == 0 || ve - vb > DIRECT_RATIO * TILE)) {
         // a window far longer than the tile (or no chunk: the wrapper
         // expects such windows): staging it would read many pairs per
         // candidate, so each thread searches it for its ITEMS candidates
@@ -187,7 +194,8 @@ frontier_dedup_kernel(const int* __restrict__ hi, const int* __restrict__ lo, lo
         for (int u = 0; u < ITEMS; ++u) {
           const int vh = vhi[base[u]], vl = vlo[base[u]];
           // base[u] is the last pair below the candidate, or the window's
-          // first; the candidate occurs iff it is that pair or the next
+          // first, and lies in [vb, ve); the candidate occurs iff it is
+          // that pair or the next
           bool seen = vh == h[u] && vl == l[u];
           if (!seen && pair_less(vh, vl, h[u], l[u]) && base[u] + 1 < ve)
             seen = vhi[base[u] + 1] == h[u] && vlo[base[u] + 1] == l[u];
@@ -264,11 +272,11 @@ int launch(const int* hi, const int* lo, long long c, const int* vhi, const int*
 }  // namespace
 
 // threads, items: the block's threads and candidates a thread, one of the
-// compiled tiles (64, 4), (128, 4), (256, 4), (256, 8), (256, 16). smem: the
-// dynamic shared memory, 8 bytes a staged visited pair (the wrapper's
-// CHUNK), or 0 for an empty visited set or where every window is to be
-// searched, not staged. Both come from the wrapper's launch_shape. Other
-// values return cudaErrorInvalidValue without launching.
+// two compiled tiles (frontier_dedup_limits). smem: the dynamic shared
+// memory, PAIR_BYTES a staged visited pair (the wrapper's CHUNK), or 0 for
+// an empty visited set or where every window is to be searched, not
+// staged. Both come from the wrapper's launch_shape. Other values return
+// cudaErrorInvalidValue without launching.
 extern "C" int frontier_dedup_launch(const int* hi, const int* lo, long long c,
                                      const int* vhi, const int* vlo, int v,
                                      unsigned char* mask, int threads, int items, int smem,
@@ -276,12 +284,22 @@ extern "C" int frontier_dedup_launch(const int* hi, const int* lo, long long c,
   if (c <= 0) return (int)cudaGetLastError();
   if (smem < 0 || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (threads * 100 + items) {
-    case 6404: return launch<64, 4>(hi, lo, c, vhi, vlo, v, smem, mask, st);
-    case 12804: return launch<128, 4>(hi, lo, c, vhi, vlo, v, smem, mask, st);
-    case 25604: return launch<256, 4>(hi, lo, c, vhi, vlo, v, smem, mask, st);
-    case 25608: return launch<256, 8>(hi, lo, c, vhi, vlo, v, smem, mask, st);
-    case 25616: return launch<256, 16>(hi, lo, c, vhi, vlo, v, smem, mask, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (threads == SMALL_THREADS && items == SMALL_ITEMS)
+    return launch<SMALL_THREADS, SMALL_ITEMS>(hi, lo, c, vhi, vlo, v, smem, mask, st);
+  if (threads == LARGE_THREADS && items == LARGE_ITEMS)
+    return launch<LARGE_THREADS, LARGE_ITEMS>(hi, lo, c, vhi, vlo, v, smem, mask, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The compiled tiles and the limits the wrapper sizes its launches by,
+// checked once when the library loads (kernels/frontier_dedup.py).
+extern "C" int frontier_dedup_limits(int* small_threads, int* small_items, int* large_threads,
+                                     int* large_items, int* pair_bytes, int* smem_max) {
+  *small_threads = SMALL_THREADS;
+  *small_items = SMALL_ITEMS;
+  *large_threads = LARGE_THREADS;
+  *large_items = LARGE_ITEMS;
+  *pair_bytes = PAIR_BYTES;
+  *smem_max = SMEM_MAX;
+  return 0;
 }

@@ -20,9 +20,10 @@
 // of a 3.9M-row build in 1024 partitions (two part_starts loads and two
 // searches of about 12 steps), and its 16 blocks left most SMs idle.
 //
-// Design: a group of G lanes per probe key (G a power of two from 8 to 32,
-// chosen by kernel_sweep.py and passed by the wrapper), 256 / G keys a
-// block, so a 4096-key batch fills 4096 * G / 256 blocks.
+// Design: a group of G lanes per probe key (G a power of two from 8 to 32;
+// the library compiles GROUP, which kernel_sweep.py chose from G = 8, 16
+// and 32 built from this source), 256 / G keys a block, so a 4096-key batch
+// fills 4096 * G / 256 blocks.
 //   1. Every lane loads the key (one broadcast load), and lanes 0 and 1 of
 //      the group load part_starts[q] and part_starts[q + 1] (one sector),
 //      which a shuffle hands to the group.
@@ -51,6 +52,7 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int GROUP = 16;  // lanes per probe key
 
 template <int G>
 __global__ void __launch_bounds__(THREADS)
@@ -104,18 +106,11 @@ int launch(const int* part_starts, int n_parts, const int* shi, const int* slo,
 
 }  // namespace
 
-// group: lanes per probe key, 8, 16 or 32 (the wrapper's GROUP); any other
-// value returns cudaErrorInvalidValue without launching.
 extern "C" int hash_probe_launch(const int* part_starts, int n_parts,
                                  const int* shi, const int* slo,
                                  const int* qhi, const int* qlo, int c,
-                                 int* lo, int* hi, int group, void* stream) {
+                                 int* lo, int* hi, void* stream) {
   if (c <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (group) {
-    case 8: return launch<8>(part_starts, n_parts, shi, slo, qhi, qlo, c, lo, hi, st);
-    case 16: return launch<16>(part_starts, n_parts, shi, slo, qhi, qlo, c, lo, hi, st);
-    case 32: return launch<32>(part_starts, n_parts, shi, slo, qhi, qlo, c, lo, hi, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch<GROUP>(part_starts, n_parts, shi, slo, qhi, qlo, c, lo, hi,
+                       (cudaStream_t)stream);
 }

@@ -28,6 +28,11 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
+# a block's dynamic shared memory on the H100, opted in: the wrappers size
+# their launches by it, and each source that takes shared memory exports
+# its own, checked against it when the library loads
+SMEM_MAX = 232_448
+
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -120,11 +125,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         "expr_eval_limits": [P, P, P, P],
         "segment_scan_launch": [P, P, P, L, I, P, P],
         "radix_partition_launch": [P, L, I, P, P, P],
-        "hash_probe_launch": [P, I, P, P, P, P, I, P, P, I, P],
+        "hash_probe_launch": [P, I, P, P, P, P, I, P, P, P],
         "bloom_build_launch": [P, L, I, P, P],
         "bloom_probe_launch": [P, I, P, I, P, P],
         "sorted_search_launch": [P, I, P, I, I, P, P, P, P],
         "frontier_dedup_launch": [P, P, L, P, P, I, P, I, I, I, P],
+        "frontier_dedup_limits": [P, P, P, P, P, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

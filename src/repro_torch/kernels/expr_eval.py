@@ -41,7 +41,7 @@ from repro_torch.core.exprs import terms as T
 from repro_torch.kernels import build
 
 THREADS = 128  # a block's threads (kernel_sweep.py)
-SMEM_MAX = 232_448  # a block's dynamic shared memory on the H100, opted in
+SMEM_MAX = build.SMEM_MAX  # a block's dynamic shared memory, opted in
 SHORT_INSTRS = 4  # the "registers" instance's instructions, by value
 SHORT_REGS = 4  # and registers
 WINDOW = 256  # instructions staged in shared memory at a time

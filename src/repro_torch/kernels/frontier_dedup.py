@@ -32,6 +32,8 @@ integers: ``candidates`` (summed), ``max_candidates`` and ``max_visited``
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -39,20 +41,20 @@ import torch
 from repro_torch.core import vecops
 from repro_torch.kernels import build
 
-# csrc/frontier_dedup.cu's compiled tiles, (threads, candidates a thread).
+# csrc/frontier_dedup.cu's two compiled tiles, (threads, candidates a
+# thread), checked against the library when it loads (_check_limits).
 # launch_shape takes the large tile from LARGE_FROM candidates, staging
 # CHUNK visited pairs in shared memory at once, while the visited set holds
 # at most STAGED_UP_TO pairs a candidate; otherwise the small tile, where
 # more blocks fill the card and the kernel searches every window without
 # staging (PERF.md's sweep, kernel_sweep.py)
-TILES = ((64, 4), (128, 4), (256, 4), (256, 8), (256, 16))
 SMALL_TILE = (64, 4)
 LARGE_TILE = (256, 8)
 LARGE_FROM = 524288
 STAGED_UP_TO = 2
 CHUNK = 4096
 PAIR_BYTES = 8  # a staged visited pair: two int32
-SMEM_MAX = 232448  # the H100's shared memory a block
+SMEM_MAX = build.SMEM_MAX
 launches = 0
 candidates = 0
 max_candidates = 0
@@ -98,6 +100,15 @@ def mask_offset(hi_ptr: int, lo_ptr: int, buf_ptr: int) -> int:
     return (shift - buf_ptr) % 16
 
 
+@functools.lru_cache(maxsize=1)
+def _check_limits(lib) -> None:
+    got = [ctypes.c_int() for _ in range(6)]
+    lib.frontier_dedup_limits(*[ctypes.byref(x) for x in got])
+    want = (*SMALL_TILE, *LARGE_TILE, PAIR_BYTES, SMEM_MAX)
+    if tuple(x.value for x in got) != want:
+        raise RuntimeError(f"frontier_dedup: kernel shapes {[x.value for x in got]} != {want}")
+
+
 def frontier_dedup_plain(cand_hi, cand_lo, vis_hi, vis_lo) -> torch.Tensor:
     c = int(cand_hi.shape[0])
     mask = torch.ones(c, dtype=torch.bool, device=cand_hi.device)
@@ -137,7 +148,9 @@ def frontier_dedup(cand_hi: torch.Tensor, cand_lo: torch.Tensor,
     buf = torch.empty(c + 15, dtype=torch.bool, device=dev)
     off = mask_offset(cand_hi.data_ptr(), cand_lo.data_ptr(), buf.data_ptr())
     mask = buf[off: off + c]
-    build.check(build.library().frontier_dedup_launch(
+    lib = build.library()
+    _check_limits(lib)
+    build.check(lib.frontier_dedup_launch(
         cand_hi.data_ptr(), cand_lo.data_ptr(), c, vis_hi.data_ptr(), vis_lo.data_ptr(),
         v, mask.data_ptr(), *launch_shape(c, v), build.stream_handle(mask),
     ), "frontier_dedup")

@@ -20,7 +20,8 @@ the build's were. For an absent key ``lo == hi`` is its insertion position
 (the reference's numpy oracle returns ``lo = 0`` there instead).
 
 CUDA kernel: ``csrc/hash_probe.cu``, which also computes the probe's
-partition ids; it answers each probe key with a group of ``GROUP`` lanes.
+partition ids; it answers each probe key with a group of lanes (the
+kernel's compile-time ``GROUP``, chosen by ``kernel_sweep.py``'s sweep).
 ``hash_probe_plain`` is the same function in PyTorch, following the
 reference's numpy oracle (a composite ``searchsorted``, and a segmented
 binary search for pair keys too wide for the composite); the wrapper takes
@@ -39,10 +40,6 @@ from repro_torch.kernels.radix_partition import radix_partition
 
 _I32 = torch.int32
 _I64 = torch.int64
-# csrc/hash_probe.cu's compiled group sizes (lanes searching for one probe
-# key) and the one the wrapper launches (PERF.md's sweep, kernel_sweep.py)
-GROUPS = (8, 16, 32)
-GROUP = 16
 launches = 0
 
 
@@ -130,7 +127,7 @@ def hash_probe(part_starts: torch.Tensor, skey_hi: Optional[torch.Tensor],
         part_starts.data_ptr(), n_parts,
         None if skey_hi is None else skey_hi.data_ptr(), skey_lo.data_ptr(),
         None if qkey_hi is None else qkey_hi.data_ptr(), qkey_lo.data_ptr(), c,
-        lo.data_ptr(), hi.data_ptr(), GROUP, build.stream_handle(lo),
+        lo.data_ptr(), hi.data_ptr(), build.stream_handle(lo),
     ), "hash_probe")
     launches += 1
     return lo, hi

@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops  # noqa: E402
 
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import expr_eval as EE  # noqa: E402
 from repro_torch.kernels import frontier_dedup as FD  # noqa: E402
 from repro_torch.kernels import hash_join as HJ  # noqa: E402
 
@@ -221,16 +222,22 @@ def test_frontier_dedup_on_misaligned_slices_matches_reference(offsets, backend)
 
 
 def test_hash_probe_group_is_a_compiled_instance():
-    assert HJ.GROUP in HJ.GROUPS
-    assert all(8 <= g <= 32 and g & (g - 1) == 0 for g in HJ.GROUPS)
+    """The library compiles one group size, a power of two from 8 to 32,
+    and its launch takes no shape argument (the sweep's other sizes are
+    built from the same source by kernel_sweep.py)."""
     src = (build.CSRC / "hash_probe.cu").read_text()
-    assert {int(g) for g in re.findall(r"case (\d+): return launch<", src)} == set(HJ.GROUPS)
+    (group,) = re.findall(r"constexpr int GROUP = (\d+);", src)
+    assert int(group) in (8, 16, 32)
+    assert re.findall(r"return launch<(\w+)>", src) == ["GROUP"]
+    assert "group" not in src[src.index('extern "C" int hash_probe_launch'):]
 
 
 def test_frontier_dedup_shapes():
     src = (build.CSRC / "frontier_dedup.cu").read_text()
-    compiled = {(int(t), int(i)) for t, i in re.findall(r"return launch<(\d+), (\d+)>", src)}
-    assert compiled == set(FD.TILES) and {FD.SMALL_TILE, FD.LARGE_TILE} <= compiled
+    consts = {k: int(v) for k, v in re.findall(r"(\w+_(?:THREADS|ITEMS)) = (\d+)", src)}
+    assert (consts["SMALL_THREADS"], consts["SMALL_ITEMS"]) == FD.SMALL_TILE
+    assert (consts["LARGE_THREADS"], consts["LARGE_ITEMS"]) == FD.LARGE_TILE
+    assert len(re.findall(r"return launch<", src)) == 2  # the two tiles alone
     chunk = 8 * FD.CHUNK
     big = FD.LARGE_FROM
     # small launches: the small tile, every window searched (no chunk)
@@ -250,6 +257,29 @@ def test_frontier_dedup_shapes():
     for bad in (0, FD.SMEM_MAX // 8 + 1):
         with pytest.raises(ValueError, match="chunk"):
             FD.smem_bytes(bad)
+
+
+def test_frontier_dedup_limits_match_the_library_export():
+    """The wrapper's tiles and limits are those frontier_dedup_limits
+    exports, one value each in the source; the card's shared memory is one
+    constant for every wrapper."""
+    src = (build.CSRC / "frontier_dedup.cu").read_text()
+    assert re.search(r"SMEM_MAX = (\d+);", src).group(1) == str(build.SMEM_MAX)
+    assert FD.SMEM_MAX == EE.SMEM_MAX == build.SMEM_MAX
+    assert "PAIR_BYTES = 2 * sizeof(int)" in src and FD.PAIR_BYTES == 8
+
+    class Lib:
+        def __init__(self, vals):
+            self.vals = vals
+
+        def frontier_dedup_limits(self, *refs):
+            for r, x in zip(refs, self.vals):
+                r._obj.value = x
+            return 0
+
+    FD._check_limits(Lib((*FD.SMALL_TILE, *FD.LARGE_TILE, FD.PAIR_BYTES, FD.SMEM_MAX)))
+    with pytest.raises(RuntimeError, match="kernel shapes"):
+        FD._check_limits(Lib((*FD.SMALL_TILE, 256, 16, FD.PAIR_BYTES, FD.SMEM_MAX)))
 
 
 @pytest.mark.parametrize("buf", [0, 4, 512, 1000, 1 << 40])
