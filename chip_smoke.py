@@ -12,6 +12,11 @@ script exits non-zero:
             and the plain version's (and, where one PyTorch call computes
             the same function, that call's) device time per call from
             torch.profiler, and each one's time per call with CUDA events;
+            radix_partition also at its edges (key views at every 4-byte
+            phase, 0 to 2^24 keys, 1 to 8,192 partitions, skewed keys), and
+            bloom_probe also as the fused SIP mask of a scan batch (one to
+            six filters, range-only and empty ranges, short batches, masks
+            partly False, codes at every phase) beside the unfused step;
   full      the LSQB social graph at the paper's SF 0.3 size (scale 160,
             about 7.3M triples) on the card, through ``Engine.execute``,
             each count held against a closed form computed with numpy from
@@ -21,7 +26,9 @@ script exits non-zero:
             which must launch the four merge-path kernels, and the
             reference's default configuration (cost-based joins, cost-gated
             SIP; q1, q2, q4, q5, q6, q7), which must launch the hash join's
-            kernels on every query and the bloom filter's on q4, q5 and q6;
+            kernels on every query and the bloom filter's on q4, q5 and q6
+            (the bloom_probe launches that carried no filter words are
+            counted apart);
   paths     property paths p1-p5 on the same store under the default
             configuration (counters set to 0 before, read after), each
             count against a numpy closed form; frontier_dedup must launch
@@ -33,8 +40,9 @@ script exits non-zero:
             closed forms; frontier_dedup must launch in d1, d2, b4 and b8;
   follow-ups  a second run of each default-path query, of the merge
             path's q1 and of p1-p5 counts its host syncs, and a third of q6
-            under torch.profiler gives the device's busy time and the top
-            device and host ops;
+            under torch.profiler gives the device's busy time, the top
+            device and host ops and the cudaLaunchKernel and
+            cudaMemsetAsync calls;
   breadth   the nine LSQB queries, p1-p5, d1 and d2 at LSQB scale 1,
             the eight BSBM BI queries at BSBM scale 1 and the fault probes
             (plans wider than one gather_emit launch, values float32 cannot
@@ -53,6 +61,7 @@ the last is a JSON object with one entry per kernel; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -754,18 +763,34 @@ def check_segment_scan(rng, dev):
     return err, t, main_bound
 
 
+# radix_partition's edges: key counts and partition counts, each pair at
+# one of the four 4-byte phases, so that every instance runs (batch to
+# 4,096 keys, small to 2^18 and with few partitions to 2^20, large beyond)
+RADIX_NS = (0, 1, 4095, 65_536, 262_143, 3_891_273, 1 << 24)
+RADIX_PARTS = (1, 2, 16, 1024, 8192)
+
+
 def check_radix_partition(rng, dev):
     from repro_torch.kernels import radix_partition as RP
 
     n = 3_891_273  # the full-size q1 build: the :knows scan's subject column
     keys = torch.from_numpy(rng.randint(0, 2_000_000, n).astype(np.int32)).to(dev)
-    cases = [
-        ("n=3,891,273 P=1024", keys, 1024),
-        ("P=1", keys, 1),
-        ("all -1 keys", torch.full((n,), -1, dtype=torch.int32, device=dev), 1024),
-        ("n=1", keys[:1].clone(), 1024),
-        ("n=0", keys[:0].clone(), 1024),
-    ]
+    # the edges draw from their own generator, so that the later checks'
+    # inputs stay those of earlier runs
+    erng = np.random.RandomState(SEED + 1)
+    big = torch.from_numpy(erng.randint(-(2 ** 31), 2 ** 31 - 1, 1 << 24,
+                                        dtype=np.int64).astype(np.int32)).to(dev)
+    cases = [(f"n={m:,} P={p} at phase {(i + j) % 4}", _at_offset(big[:m], (i + j) % 4), p)
+             for i, m in enumerate(RADIX_NS) for j, p in enumerate(RADIX_PARTS)]
+    cases.append(("n=1,000,000 P=16 at phase 1", _at_offset(big[:1_000_000], 1), 16))
+    cases += [(f"n=3,891,273 P=1024 at phase {ph}", _at_offset(keys, ph), 1024)
+              for ph in (1, 2, 3)]
+    for p in (1, 1024, 8192):
+        for label, v in (("all -1", -1), ("all equal", 77)):
+            cases.append((f"{label} keys, n=3,891,273 P={p}",
+                          torch.full((n,), v, dtype=torch.int32, device=dev), p))
+    cases.append(("sorted runs (a build's subject column), P=1024",
+                  torch.from_numpy(_sorted_keys(erng, n, 40)).to(dev), 1024))
     for label, k, p in cases:
         pid, hist = RP.radix_partition(k, p)
         ppid, phist = RP.radix_partition_plain(k, p)
@@ -773,8 +798,28 @@ def check_radix_partition(rng, dev):
                 f"radix_partition disagrees with its plain version ({label})")
         require(int(hist.sum()) == k.shape[0], f"radix_partition: histogram total ({label})")
         log(f"  radix_partition {label}: ok")
+    ran = {RP.launch_shape(int(k.shape[0]), p)[0] for _, k, p in cases}
+    require(ran == {RP.SMALL, RP.BATCH, RP.LARGE},
+            f"radix_partition: the edges ran instances {sorted(ran)}, not all three")
     t = timings("radix_partition", lambda: RP.radix_partition(keys, 1024),
                 lambda: RP.radix_partition_plain(keys, 1024), 10)
+    # back-to-back launches find the 31 MB of keys and pids in the 50 MB L2,
+    # where the DRAM bound does not hold: ms is taken with a 64 MB write
+    # between launches (not counted), the warm time beside it
+    flush = torch.empty(1 << 24, dtype=torch.int32, device=dev)
+    t["keys in L2"] = {"ms": t["ms"]}
+    t["ms"] = device_ms(lambda: (flush.zero_(), RP.radix_partition(keys, 1024)), 200,
+                        kernel="radix_partition")
+    log(f"  radix_partition keys out of L2: {t['ms']:.6f} ms, in L2 {t['keys in L2']['ms']:.6f}")
+    # the launch-bound size: 4,096 keys, one call's device time and its
+    # time per call (the wrapper no longer zero-fills the histogram)
+    small = keys[:4096].clone()
+    t["n=4096"] = {"ms": device_ms(lambda: RP.radix_partition(small, 1024), 200,
+                                   kernel="radix_partition"),
+                   "call_ms": call_ms(lambda: RP.radix_partition(small, 1024), 200),
+                   "call_device_ms": device_ms(lambda: RP.radix_partition(small, 1024), 200),
+                   "bound_ms": bound(8 * 4096 + 4 * 1024, 6 * 4096)[0]}
+    log(f"  radix_partition n=4096: {json.dumps(t['n=4096'])}")
     # keys read, pids written, the histogram written; ~6 integer ops a key
     return 0, t, bound(8 * n + 4 * 1024, 6 * n)
 
@@ -932,17 +977,157 @@ def check_bloom(rng, dev):
     q = torch.cat([keys[torch.randint(0, n, (c // 2,), device=dev)],
                    torch.randint(300_000, 600_000, (c // 2 - 32,), device=dev, dtype=torch.int32),
                    torch.full((32,), -1, dtype=torch.int32, device=dev)])
+    for label, qq in (("4,096 queries", q), ("4,095 queries at phase 1", _at_offset(q[1:], 1))):
+        got = BF.bloom_probe(words, qq)
+        require(torch.equal(got, BF.bloom_probe_plain(words, qq)),
+                f"bloom_probe disagrees with its plain version ({label})")
     got = BF.bloom_probe(words, q)
-    require(torch.equal(got, BF.bloom_probe_plain(words, q)),
-            "bloom_probe disagrees with its plain version")
     require(bool(got[: c // 2].all()), "bloom_probe: a false negative")
     log(f"  bloom_probe {c} queries: {int(got[c // 2:].sum())} false positives of "
         f"{c - c // 2} non-members, ok")
     t = timings("bloom_probe", lambda: BF.bloom_probe(words, q),
                 lambda: BF.bloom_probe_plain(words, q), 20)
-    # a query read, one 32-byte sector of words, a bool written
-    rows["bloom_probe"] = (0, t, bound(c * (4 + 32 + 1), 12 * c))
+    t.update(check_sip_mask(dev, words))
+    # a query read, a bool written, each 32-byte sector of words that these
+    # queries touch read once
+    rows["bloom_probe"] = (0, t, bound(c * (4 + 1) + 32 * _word_sectors(words, q), 12 * c))
     return rows
+
+
+def _word_sectors(words, codes):
+    """32-byte sectors of ``words`` that probes of ``codes`` touch."""
+    from repro_torch.core import vecops as TV
+
+    word, _ = TV.bloom_hash(codes, int(words.shape[0]))
+    return int(torch.unique(word // 8).shape[0])
+
+
+# the fused SIP mask's cases: (filter kinds, capacity, n_rows, mask partly
+# False, the codes' 4-byte phase); kinds "bloom" (the full-size q6 build's
+# filter first, then smaller builds), "range", "empty"
+SIP_CASES = {
+    "one filter": (("bloom",), 4096, 4096, False, 0),
+    "two filters (q5's shape)": (("bloom", "bloom"), 4096, 4096, False, 0),
+    "six filters: two launches": (("bloom",) * 3 + ("range", "bloom", "bloom"),
+                                  4096, 4096, False, 0),
+    "range only": (("range",), 4096, 4096, False, 0),
+    "range beside a bloom filter": (("range", "bloom"), 1024, 1000, False, 0),
+    "empty range": (("empty", "bloom"), 4096, 4096, False, 0),
+    "n_rows below capacity": (("bloom",), 4096, 2049, False, 0),
+    "mask partly False, capacity 4,097": (("bloom", "bloom"), 4097, 3999, True, 0),
+    "codes at phase 1, capacity 4,097": (("bloom", "bloom"), 4097, 4095, True, 1),
+    "codes at phase 2, capacity 4,098": (("bloom",), 4098, 4098, False, 2),
+    "codes at phase 3, capacity 4,099": (("bloom", "range"), 4099, 4001, True, 3),
+    "one row": (("bloom",), 32, 1, False, 0),
+    "no rows": (("bloom",), 32, 0, True, 0),
+}
+
+
+def _sip_inputs(rng, dev, words, case):
+    """A case's (mask, n_rows, filters): codes in [-1, 300,000) (NULLs,
+    members, non-members) as row views of one flat buffer at the case's
+    phase, the rows past n_rows NULL."""
+    from repro_torch.kernels import bloom_filter as BF
+
+    kinds, cap, n, partly, phase = SIP_CASES[case]
+    flat = torch.full((len(kinds) * (cap + 8) + 8,), -1, dtype=torch.int32, device=dev)
+    filters = []
+    for k, kind in enumerate(kinds):
+        start = 4 * (k * (cap // 4 + 2)) + phase
+        flat[start: start + n] = torch.from_numpy(
+            rng.randint(-1, 300_000, n).astype(np.int32)).to(dev)
+        codes = flat[start: start + n]
+        if kind == "bloom":
+            if k == 0:
+                w, lo, hi = words, 0, 299_999
+            else:
+                w, lo, hi = BF.bloom_build(torch.from_numpy(
+                    rng.randint(-1, 300_000, 50_000).astype(np.int32)).to(dev))
+            filters.append((codes, w, lo, hi))
+        elif kind == "range":
+            lo = int(rng.randint(-1, 150_000))
+            filters.append((codes, None, lo, lo + 100_000))
+        else:
+            filters.append((codes, None, 10, 9))
+    mask = torch.zeros(cap, dtype=torch.bool, device=dev)
+    mask[:n] = (torch.from_numpy(rng.rand(n) < 0.7).to(dev) if partly else True)
+    return mask, n, filters
+
+
+def _unfused_sip_step(mask, n, filters):
+    """The scan's SIP step before the fused kernel, with this tree's ops:
+    per filter the range test, the probe, the AND, a zeroed
+    full-capacity mask, its slice copy and with_mask's in-place AND."""
+    from repro_torch.kernels import bloom_filter as BF
+
+    for codes, words, lo, hi in filters:
+        m = (codes >= lo) & (codes <= hi)
+        if words is not None:
+            m &= BF.bloom_probe(words, codes)
+        full = torch.zeros(mask.shape[0], dtype=torch.bool, device=mask.device)
+        full[:n] = m
+        mask.logical_and_(full)
+    return mask
+
+
+def host_calls(fn, iters: int = 20) -> dict:
+    """cudaLaunchKernel and cudaMemsetAsync calls per call of ``fn``
+    (torch.profiler's host events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    return {k: names.count(k) / iters for k in ("cudaLaunchKernel", "cudaMemsetAsync")}
+
+
+def check_sip_mask(dev, words):
+    """The fused SIP mask (bloom_probe's second entry point) against
+    sip_mask_plain on the card, bit for bit, in place, into a fresh mask and
+    with no mask; then the device time of its launch and its time per call
+    beside the unfused step, at 4,096 rows with one and two filters."""
+    from repro_torch.kernels import bloom_filter as BF
+
+    rng = np.random.RandomState(SEED + 2)
+    out = {}
+    for case in SIP_CASES:
+        mask, n, filters = _sip_inputs(rng, dev, words, case)
+        want = BF.sip_mask_plain(mask.clone(), n, filters)
+        before = BF.probe_launches
+        got = BF.sip_mask(mask.clone(), n, filters)
+        launched = BF.probe_launches - before
+        fresh = BF.sip_mask(mask, n, filters, out=torch.empty_like(mask))
+        require(torch.equal(got, want) and torch.equal(fresh, want),
+                f"sip_mask disagrees with its plain version ({case})")
+        require(torch.equal(BF.sip_mask(None, n, filters),
+                            BF.sip_mask_plain(None, n, filters)),
+                f"sip_mask with no mask disagrees with its plain version ({case})")
+        require(torch.equal(_unfused_sip_step(mask.clone(), n, filters), want),
+                f"sip_mask differs from the unfused step ({case})")
+        require(launched == -(-len(filters) // BF.SIP_TERMS),
+                f"sip_mask: {launched} launches for {len(filters)} filters ({case})")
+        log(f"  sip_mask {case}: {int(got.sum())} of {n} rows kept, {launched} launch(es), ok")
+    for case, key in (("one filter", "sip_mask 1 filter"),
+                      ("two filters (q5's shape)", "sip_mask 2 filters")):
+        mask, n, filters = _sip_inputs(rng, dev, words, case)
+        fused = lambda: BF.sip_mask(mask, n, filters)  # noqa: E731
+        unfused = lambda: _unfused_sip_step(mask, n, filters)  # noqa: E731
+        sectors = sum(_word_sectors(f[1], f[0]) for f in filters if f[1] is not None)
+        b_ms, b_by = bound(4 * n * len(filters) + 2 * mask.shape[0] + 32 * sectors,
+                           12 * n * len(filters))
+        out[key] = {"ms": device_ms(fused, 200, kernel="bloom_probe"),
+                    "call_ms": call_ms(fused, 200),
+                    "unfused_call_ms": call_ms(unfused, 200),
+                    "unfused_device_ms": device_ms(unfused, 200),
+                    "host_calls": host_calls(fused), "unfused_host_calls": host_calls(unfused),
+                    "plain_ms": device_ms(lambda: BF.sip_mask_plain(mask, n, filters), 20),
+                    "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  {key}, {n} rows: {json.dumps(out[key])}")
+    return out
 
 
 def _search_bound(keys_np, q_np, sides):
@@ -1292,6 +1477,25 @@ def count_syncs(fn):
     return sum(1 for w in caught if "synchroniz" in str(w.message))
 
 
+@contextlib.contextmanager
+def sip_tally():
+    """Counts the scans' sip_mask calls by their number of filters (one
+    call masks one batch) while the block runs: {filters: calls}."""
+    from repro_torch.kernels import bloom_filter as BF
+
+    tally, real = {}, BF.sip_mask
+
+    def counting(mask, n_rows, filters, out=None):
+        tally[len(filters)] = tally.get(len(filters), 0) + 1
+        return real(mask, n_rows, filters, out)
+
+    BF.sip_mask = counting
+    try:
+        yield tally
+    finally:
+        BF.sip_mask = real
+
+
 def _config(path_cfg):
     import repro_torch
 
@@ -1325,6 +1529,7 @@ def full_phase(dev, store, report):
     path's launch counts."""
     import repro_torch
     from repro_torch import kernels as K
+    from repro_torch.kernels import bloom_filter as BF
 
     t0 = time.perf_counter()
     want = closed_form_counts(store)
@@ -1337,14 +1542,20 @@ def full_phase(dev, store, report):
         K.reset_launch_counts()
         for name in queries:
             before = K.launch_counts()
-            got, wall = run_count(engine, repro_torch.LSQB_QUERIES[name])
+            wordless = BF.wordless_launches
+            with sip_tally() as masked:
+                got, wall = run_count(engine, repro_torch.LSQB_QUERIES[name])
             after = K.launch_counts()
             delta = {k: after[k] - before[k] for k in after}
+            wordless = BF.wordless_launches - wordless
             log(f"  {name}: count={got} closed form={want[name]} wall={wall:.3f} s "
-                f"launches={delta}")
+                f"launches={delta}, bloom_probe launches with no words={wordless}, "
+                f"masked batches by filter count={masked}")
             require(got == want[name], f"{path} {name}: engine count {got} != closed form "
                                        f"{want[name]}")
-            rep["queries"][name] = {"count": got, "wall_s": wall, "launches": delta}
+            rep["queries"][name] = {"count": got, "wall_s": wall, "launches": delta,
+                                    "bloom_probe_wordless": wordless,
+                                    "sip_batches_by_filters": masked}
             if path == "default":
                 for k in ("radix_partition", "hash_probe") + (
                         ("bloom_build", "bloom_probe") if name in SIP_QUERIES else ()):
@@ -1611,7 +1822,8 @@ def full_followups(engines, report):
     log(f"  default {name} profile (a third run): device busy {prof['device_busy_s']:.3f} s "
         f"of {rep['wall_s']:.3f} s unprofiled wall, idle share {prof['idle_share']:.4f}, "
         f"profiled run {prof['profiled_wall_s']:.1f} s, its events summed in "
-        f"{prof['analysis_s']:.1f} s")
+        f"{prof['analysis_s']:.1f} s, {prof['cuda_launch_kernel']} cudaLaunchKernel and "
+        f"{prof['cuda_memset']} cudaMemsetAsync calls")
     for key, count, us in prof["device_ops"]:
         log(f"    device {us / 1e3:10.1f} ms {count:8d}x {key[:90]}")
     for kname, (count, us) in prof["kernels"].items():
@@ -1670,7 +1882,9 @@ def device_profile(fn, top: int = 8):
                for name in KERNEL_INFO}
     return {"device_busy_s": busy, "profiled_wall_s": profiled_wall,
             "analysis_s": time.perf_counter() - t0 - profiled_wall,
-            "device_ops": dev[:top], "host_ops": host[:top], "kernels": kernels}
+            "device_ops": dev[:top], "host_ops": host[:top], "kernels": kernels,
+            "cuda_launch_kernel": host_t["cudaLaunchKernel"][0],
+            "cuda_memset": host_t["cudaMemsetAsync"][0]}
 
 
 def canonical_rows(res, dictionary):

@@ -1,12 +1,14 @@
 """Sweep the compiled shapes of join_expand, gather_emit, expr_eval,
-hash_probe and frontier_dedup on the card.
+hash_probe, frontier_dedup, radix_partition and bloom_probe on the card.
 
-The port compiles one or two instances of join_expand, gather_emit,
-hash_probe and frontier_dedup and picks one from the input (join_expand:
-a tile for small windows and one for large; gather_emit: a short unroll
-for narrow plans and one to the caps; hash_probe: one group size;
-frontier_dedup: a small tile whose windows are searched and a large one
-that stages them). This script compiles the candidates from the same
+The port compiles one or a few instances of join_expand, gather_emit,
+hash_probe, frontier_dedup, radix_partition and bloom_probe and picks one
+from the input (join_expand: a tile for small windows and one for large;
+gather_emit: a short unroll for narrow plans and one to the caps;
+hash_probe: one group size; frontier_dedup: a small tile whose windows are
+searched and a large one that stages them; radix_partition: a batch, a
+small and a large instance by the key count; bloom_probe: one row a thread,
+four for wide launches). This script compiles the candidates from the same
 sources into its own libraries under ``build/kernel_sweep/`` — a small
 ``.cu`` for each that includes the source and exports each instance of its
 ``launch`` template — checks each instance against the plain PyTorch
@@ -25,20 +27,33 @@ at 4,096 to 2^20 candidates against an empty visited set, one of about
 pairs dense in it (so a tile's window passes S). Then frontier_dedup's
 launches in ``chip_smoke.py``'s paths phase (p1-p5 on the full-size LSQB
 store) are recorded and replayed one by one at each compiled shape, with
-their sizes and the visited pairs inside the candidates' range. Every
-instance is checked against the plain version before it is timed. The
-script also prints ``nvcc -Xptxas -v`` and the local-memory (LDL / STL)
-and shared-memory (LDS / STS) instruction counts of ``cuobjdump -sass``
-for ``expr_eval.cu``, ``hash_probe.cu`` and ``frontier_dedup.cu``.
+their sizes and the visited pairs inside the candidates' range.
+radix_partition is swept at 4,096 to 2^24 keys, 1 to 8,192 partitions
+(and the engine's own pairs), uniform and skewed keys: the wrapper and
+its time per call, each instance, the pids-only variant, torch.bincount
+of the pids (the histogram half's yardstick); at a few inputs every
+variant (vector width, vectors a thread, block size, histogram and flush
+modes) and every blocks-per-SM and sub-histogram-copies shape. The SIP
+step of a 4,096-row scan batch (one and two filters) is timed fused and
+as the unfused sequence, per call and on the device, and bloom_probe at
+one, two and four rows a thread. Every instance is checked against the
+plain version before it is timed. The script also prints ``nvcc -Xptxas
+-v`` and the local-memory (LDL / STL) and shared-memory (LDS / STS)
+instruction counts of ``cuobjdump -sass`` for ``expr_eval.cu``,
+``hash_probe.cu``, ``frontier_dedup.cu``, ``radix_partition.cu`` and
+``bloom_filter.cu``.
 
 With ``--parent DIR`` (an earlier checkout) it also builds and times that
-checkout's one-thread-per-key ``hash_probe.cu`` and one-thread-per-
-candidate ``frontier_dedup.cu`` on the same inputs, and, where that
-checkout's ``expr_eval`` takes its program by value (the float32 kernel),
-its ``expr_eval.cu`` on the programs it takes; and it reports the same
-compiler output for the parent's sources.
+checkout's one-thread-per-key ``hash_probe.cu``, one-thread-per-candidate
+``frontier_dedup.cu``, one-key-a-thread ``radix_partition.cu`` (its
+kernel, its kernel with the histogram's zero fill, and its wrapper per
+call) and ``bloom_filter.cu`` (its probe, and the unfused SIP step around
+it) on the same inputs, and, where that checkout's ``expr_eval`` takes its
+program by value (the float32 kernel), its ``expr_eval.cu`` on the
+programs it takes; and it reports the same compiler output for the
+parent's sources. ``--only`` runs some of the sweeps.
 
-    python3 kernel_sweep.py [--parent DIR] [--json OUT]
+    python3 kernel_sweep.py [--parent DIR] [--only NAMES] [--json OUT]
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them.
 """
@@ -80,10 +95,50 @@ FD_CANDIDATES = (1 << 20, 524288, 262144, 65536, 4096)
 FD_TILES = ((64, 4), (128, 4), (256, 4), (256, 8), (256, 16))  # (threads, candidates a thread)
 FD_CHUNKS = (0, 1024, 4096, 16384)  # frontier_dedup's S in visited pairs (0: searched)
 REPLAY_ITERS = 20  # launches timed for each recorded paths-phase launch
+# radix_partition's compiled variants: (threads, keys a vector, vectors a
+# thread, histogram mode, flush mode); histogram 0: pids only, 1: shared
+# atomics (the wrapper's), 2: __match_any_sync merging, 3: the same merging
+# into the zeroed histogram, no shared memory (the wrapper's batch
+# instance); flush 0: atomics into the zeroed histogram (the wrapper's),
+# 1: atomics into a scratch the last block copies out (a ticket), 2:
+# per-block partials the last block sums. Modes 1 and 3 with flush 0 are
+# radix_partition.cu's own template; the others are RP_VARIANT_KERNEL's.
+RP_LARGE, RP_SMALL = (512, 4, 4, 1, 0), (256, 1, 1, 1, 0)  # the wrapper's instances
+RP_VARIANTS = {"large": RP_LARGE, "small": RP_SMALL,
+               "small, match_any": (256, 1, 1, 2, 0), "small, 4 keys a vector": (256, 4, 1, 1, 0),
+               "small, pid only": (256, 1, 1, 0, 0), "large, pid only": (512, 4, 4, 0, 0),
+               "VEC=1": (512, 1, 4, 1, 0), "VEC=2": (512, 2, 4, 1, 0),
+               "VPT=1": (512, 4, 1, 1, 0), "VPT=2": (512, 4, 2, 1, 0),
+               "VPT=8": (512, 4, 8, 1, 0), "256 threads": (256, 4, 4, 1, 0),
+               "1024 threads": (1024, 4, 4, 1, 0), "match_any": (512, 4, 4, 2, 0),
+               "ticket flush": (512, 4, 4, 1, 1), "partials flush": (512, 4, 4, 1, 2),
+               "small, global atomics": (256, 1, 1, 3, 0), "small, 128 threads": (128, 1, 1, 1, 0),
+               "small, 512 threads": (512, 1, 1, 1, 0), "large, global atomics": (512, 4, 4, 3, 0)}
+RP_BLOCKS_PER_SM = (1, 2, 4, 8)
+RP_COPIES = (1, 2, 4, 16)
+RP_NS = (4096, 65536, 1 << 18, 1 << 20, 3_891_273, 1 << 24)
+RP_PARTS = (1, 16, 1024, 8192)
+RP_DISTS = ("uniform", "skewed")
+# the engine's (build keys, partitions): P = n / 4,096 up to 1,024
+# (core/operators/hash_join.py, _n_parts_for)
+RP_ENGINE = ((4096, 1), (65536, 16), (1 << 18, 64), (1 << 20, 256), (3_891_273, 1024))
+# the (n, P, keys) inputs every variant and launch shape runs on
+RP_FOCUS = ((3_891_273, 1024, "uniform"), (3_891_273, 1024, "skewed"),
+            (3_891_273, 1024, "sorted runs"), (3_891_273, 8192, "uniform"),
+            (4096, 1, "uniform"), (4096, 1024, "uniform"), (4096, 8192, "skewed"),
+            (65536, 8192, "skewed"), (65536, 16, "skewed"), (262144, 1, "uniform"),
+            (1 << 24, 1024, "uniform"))
+SIP_ROWS = 4096
+SIP_ITEMS = (1, 2, 4)  # bloom_probe's rows a thread
+SIP_QUERIES = (4096, 65536, 1 << 18, 1 << 20)  # bloom_probe(words, queries) sizes
 # an earlier commit's kernels timed beside this tree's with --parent
 PARENT_SOURCES = {"parent_ee": "expr_eval.cu", "parent_hp": "hash_probe.cu",
-                  "parent_fd": "frontier_dedup.cu"}
-REPORTED = ("expr_eval.cu", "hash_probe.cu", "frontier_dedup.cu")  # compiler_report's sources
+                  "parent_fd": "frontier_dedup.cu", "parent_rp": "radix_partition.cu",
+                  "parent_bf": "bloom_filter.cu"}
+SWEEPS = ("hash_probe", "frontier_dedup", "frontier_dedup_paths", "compiler", "expr_eval",
+          "join_expand", "gather_emit", "radix_partition", "sip_step")
+REPORTED = ("expr_eval.cu", "hash_probe.cu", "frontier_dedup.cu", "radix_partition.cu",
+            "bloom_filter.cu")  # compiler_report's sources
 EE_THREADS = (32, 64, 128, 256)
 EE_ROWS = (4096, 1 << 20)
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -134,12 +189,138 @@ def _dedup_source() -> str:
     return "\n".join(lines) + "\n"
 
 
+# the radix_partition variants the library does not ship, built from
+# radix_partition.cu's device functions: pids only, __match_any_sync
+# merging into shared sub-histograms, and two flushes that need no zeroed
+# histogram, each counted by a ticket that the last block resets
+RP_VARIANT_KERNEL = r"""
+constexpr int V_NONE = 0, V_ATOMIC = 1, V_MATCH = 2;
+constexpr int F_DIRECT = 0, F_TICKET = 1, F_PARTIALS = 2;
+
+template <int T, int V, int PER, int HIST, int FLUSH>
+__global__ void __launch_bounds__(T)
+radix_partition_variant_kernel(const int* __restrict__ keys, long long n, long long head, int n_parts,
+               int copies, int* __restrict__ pid, int* __restrict__ hist,
+               int* __restrict__ scratch, unsigned* ticket) {
+  extern __shared__ int4 sh4[];
+  int* sh = reinterpret_cast<int*>(sh4);
+  __shared__ bool last;
+  if (HIST != V_NONE) zero_shared<T>(sh4, copies * n_parts);
+  int* my = sh + ((threadIdx.x >> 5) % copies) * n_parts;
+  walk<T, V, PER>(keys, n, head, (unsigned)(n_parts - 1), pid,
+                  [&](int p) { if (HIST != V_NONE) atomicAdd(&my[p], 1); },
+                  [&](const int (&p)[PER][V], bool full, long long base, long long nv) {
+                    if constexpr (HIST == V_ATOMIC) add_step<T, V, PER>(my, p, full, base, nv);
+                    if constexpr (HIST == V_MATCH) match_step<T, V, PER>(my, p, full, base, nv);
+                  });
+  if (HIST == V_NONE) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_parts; i += T) {
+    const int c = sum_copies(sh, i, n_parts, copies);
+    if (gridDim.x == 1) hist[i] = c;
+    else if (FLUSH == F_DIRECT) { if (c) atomicAdd(&hist[i], c); }
+    else if (FLUSH == F_TICKET) { if (c) atomicAdd(&scratch[i], c); }
+    else scratch[(long long)blockIdx.x * n_parts + i] = c;
+  }
+  if (FLUSH == F_DIRECT || gridDim.x == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < n_parts; i += T) {
+    int c = 0;
+    if (FLUSH == F_TICKET) {
+      c = __ldcg(&scratch[i]);
+      if (c) scratch[i] = 0;
+    } else {
+      for (unsigned b = 0; b < gridDim.x; ++b) c += __ldcg(&scratch[(long long)b * n_parts + i]);
+    }
+    hist[i] = c;
+  }
+  if (threadIdx.x == 0) *ticket = 0;
+}
+
+// F_DIRECT needs hist zeroed; F_TICKET a scratch of n_parts zeros and
+// F_PARTIALS one of n_parts ints a block, and both a zero ticket
+template <int T, int V, int PER, int HIST, int FLUSH, int BLOCKS_PER_SM>
+int variant_launch(const int* keys, long long n, int n_parts, int copies, int* pid, int* hist,
+                   int* scratch, unsigned* ticket, cudaStream_t stream) {
+  const size_t smem = HIST != V_NONE ? (size_t)copies * n_parts * sizeof(int) : 0;
+  auto kernel = radix_partition_variant_kernel<T, V, PER, HIST, FLUSH>;
+  long long head = 0;
+  unsigned blocks = 0;
+  const int e = prepare<T, V, PER>(kernel, keys, n, n_parts, copies, smem, BLOCKS_PER_SM,
+                                   pid, &head, &blocks);
+  if (e) return e;
+  kernel<<<blocks, T, smem, stream>>>(keys, n, head, n_parts, copies, pid, hist, scratch,
+                                      ticket);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _rp_small(v) -> bool:
+    """Whether variant ``v`` launches as the small instance does (one-key
+    and no-shared-memory shapes): its blocks per SM and one copy."""
+    return v[1:3] == (1, 1) or v[:3] == (256, 4, 1) or v[3] == 3
+
+
+def _rp_default_bps(v) -> int:
+    """The blocks per SM a variant runs at unless swept."""
+    from repro_torch.kernels import radix_partition as RP
+
+    return RP.SMALL_BLOCKS_PER_SM if _rp_small(v) else RP.LARGE_BLOCKS_PER_SM
+
+
+def _rp_instances():
+    """Every (variant, blocks per SM) the sweep launches: each variant at
+    its default, the wrapper's two shared-histogram shapes at each of
+    RP_BLOCKS_PER_SM."""
+    pairs = [(v, _rp_default_bps(v)) for v in RP_VARIANTS.values()]
+    pairs += [(v, b) for v in (RP_LARGE, RP_SMALL) for b in RP_BLOCKS_PER_SM]
+    return list(dict.fromkeys(pairs))
+
+
+def _rp_name(v, bps) -> str:
+    return "rp_" + "_".join(map(str, v)) + f"_b{bps}"
+
+
+def _radix_source() -> str:
+    lines = [f'#include "{build.CSRC / "radix_partition.cu"}"', "namespace {",
+             RP_VARIANT_KERNEL, "}  // namespace"]
+    for v, bps in _rp_instances():
+        t, vec, per, hist, flush = v
+        if flush == 0 and hist in (1, 3):  # radix_partition.cu's own modes
+            mode = "HIST_ATOMIC" if hist == 1 else "HIST_GLOBAL"
+            call = f"launch<{t}, {vec}, {per}, {mode}, {bps}>(k, n, np, copies, pid, hist, "
+        else:
+            call = (f"variant_launch<{t}, {vec}, {per}, {hist}, {flush}, {bps}>(k, n, np, "
+                    f"copies, pid, hist, scratch, ticket, ")
+        lines.append(
+            f"extern \"C\" int {_rp_name(v, bps)}(const int* k, long long n, int np, "
+            f"int copies, int* pid, int* hist, int* scratch, unsigned* ticket, void* st) {{ "
+            f"return {call}(cudaStream_t)st); }}")
+    return "\n".join(lines) + "\n"
+
+
+def _sip_source() -> str:
+    lines = [f'#include "{build.CSRC / "bloom_filter.cu"}"']
+    for it in SIP_ITEMS:
+        lines.append(
+            f"extern \"C\" int sp_{it}(const void* d, const unsigned char* m, unsigned char* o, "
+            f"int n, int cap, void* st) {{ return launch<{it}>(*static_cast<const SipDesc*>(d), "
+            f"m, o, n, cap, (cudaStream_t)st); }}")
+    return "\n".join(lines) + "\n"
+
+
 def build_libraries(parent):
     """Compile the instance libraries (and the parent's kernel), one nvcc
     each, all started together."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {"je": _instances_source(), "ge": _emit_source(), "hp": _probe_source(),
-            "fd": _dedup_source()}
+            "fd": _dedup_source(), "rp": _radix_source(), "sp": _sip_source()}
     srcs = {}
     for name, text in jobs.items():
         srcs[name] = OUT_DIR / f"{name}_sweep.cu"
@@ -168,12 +349,19 @@ def build_libraries(parent):
         getattr(libs["hp"], f"hp_{g}").argtypes = [P, I, P, P, P, P, I, P, P, P]
     for t, it in FD_TILES:
         getattr(libs["fd"], f"fd_{t}_{it}").argtypes = [P, P, L, P, P, I, I, P, P]
+    for v, bps in _rp_instances():
+        getattr(libs["rp"], _rp_name(v, bps)).argtypes = [P, L, I, I, P, P, P, P, P]
+    for it in SIP_ITEMS:
+        getattr(libs["sp"], f"sp_{it}").argtypes = [P, P, P, I, I, P]
     if "parent_ee" in libs:
         libs["parent_ee"].expr_eval_launch.argtypes = [P, P, P, L, P, P, P]
     if parent is not None:
         # one thread per key / candidate, no shape arguments
         libs["parent_hp"].hash_probe_launch.argtypes = [P, I, P, P, P, P, I, P, P, P]
         libs["parent_fd"].frontier_dedup_launch.argtypes = [P, P, L, P, P, I, P, P]
+        # one key a thread, a histogram the caller zeroes; one query a thread
+        libs["parent_rp"].radix_partition_launch.argtypes = [P, L, I, P, P, P]
+        libs["parent_bf"].bloom_probe_launch.argtypes = [P, I, P, I, P, P]
     return libs
 
 
@@ -583,13 +771,280 @@ def replay_paths_dedup(libs, dev):
     return res
 
 
+def _radix_keys(rng, n, dist):
+    if dist == "uniform":
+        return rng.randint(-(2 ** 31), 2 ** 31 - 1, n, dtype=np.int64).astype(np.int32)
+    if dist == "sorted runs":  # a build's sorted subject column, runs of 1-40
+        return CS._sorted_keys(rng, n, 40)
+    # skewed: half NULL, the rest Zipf-distributed over 2M codes
+    keys = (rng.zipf(1.3, n) % 2_000_000).astype(np.int32)
+    keys[rng.rand(n) < 0.5] = -1
+    return keys
+
+
+class _RadixRun:
+    """The launches of one radix_partition input: every swept variant and
+    launch shape, the wrapper, the parent's kernel and torch.bincount of
+    the pids, each checked against the plain version first."""
+
+    def __init__(self, libs, dev, keys, n_parts):
+        from repro_torch.kernels import radix_partition as RP
+
+        self.libs, self.keys, self.p, self.n = libs, keys, n_parts, int(keys.shape[0])
+        self.want = RP.radix_partition_plain(keys, n_parts)
+        buf = torch.empty(self.n + RP.VEC - 1, dtype=torch.int32, device=dev)
+        off = RP.pid_offset(keys.data_ptr(), buf.data_ptr())
+        self.pid = buf[off: off + self.n]
+        self.hist = torch.zeros(n_parts, dtype=torch.int32, device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        # the ticket flush's scratch (zero between launches), the partials'
+        # rows, and their tickets
+        self.acc = torch.zeros(RP.MAX_PARTS, dtype=torch.int32, device=dev)
+        self.rows = torch.zeros(sms * max(RP_BLOCKS_PER_SM) * RP.MAX_PARTS, dtype=torch.int32,
+                                device=dev)
+        self.tickets = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.st = build.stream_handle(keys)
+
+    def shape(self, v):
+        """(blocks per SM, copies) for variant ``v`` as the wrapper would
+        launch it: small shapes one copy, the others as many as the large
+        instance keeps."""
+        from repro_torch.kernels import radix_partition as RP
+
+        bps = _rp_default_bps(v)
+        if _rp_small(v):
+            return bps, 1
+        return bps, RP.copies_for(self.p, bps, v[0], max(1, min(RP.MAX_COPIES, 4096 // self.p)))
+
+    def variant(self, v, bps, copies):
+        f = getattr(self.libs["rp"], _rp_name(v, bps))
+        scratch = self.rows if v[4] == 2 else self.acc
+        ticket = self.tickets[v[4] - 1:] if v[4] else self.tickets
+        return lambda: build.check(f(
+            self.keys.data_ptr(), self.n, self.p, copies, self.pid.data_ptr(),
+            self.hist.data_ptr(), scratch.data_ptr(), ticket.data_ptr(), self.st),
+            "radix_partition")
+
+    def parent(self):
+        f = self.libs["parent_rp"].radix_partition_launch
+
+        def run():
+            self.hist.zero_()
+            build.check(f(self.keys.data_ptr(), self.n, self.p, self.pid.data_ptr(),
+                          self.hist.data_ptr(), self.st), "parent radix_partition")
+        return run
+
+    def parent_wrapper(self):
+        f = self.libs["parent_rp"].radix_partition_launch
+
+        def run():
+            pid = torch.empty(self.n, dtype=torch.int32, device=self.keys.device)
+            hist = torch.zeros(self.p, dtype=torch.int32, device=self.keys.device)
+            build.check(f(self.keys.data_ptr(), self.n, self.p, pid.data_ptr(),
+                          hist.data_ptr(), build.stream_handle(self.keys)),
+                        "parent radix_partition")
+            return pid, hist
+        return run
+
+    def check(self, name, fn, v=None):
+        """Run ``fn`` once on a zeroed histogram (the direct flush adds into
+        it) and compare; a pids-only variant's histogram is not compared."""
+        self.pid.fill_(-7)
+        self.hist.zero_()
+        fn()
+        ok = torch.equal(self.pid, self.want[0]) and (
+            v is not None and v[3] == 0 or torch.equal(self.hist, self.want[1]))
+        CS.require(ok, f"radix_partition {name} disagrees with the plain version "
+                       f"(n={self.n}, P={self.p})")
+
+    def time(self, fn, iters):
+        return CS.device_ms(fn, iters, kernel="radix_partition")
+
+
+def sweep_radix_partition(libs, rng, dev):
+    """At every n, P and key distribution: the wrapper (its device time and
+    its time per call), both of its instances at their launch shapes, the
+    pids-only variant of the wrapper's instance, the parent's kernel (alone,
+    and with its histogram's zero fill) and torch.bincount of the pids (the
+    histogram half's library yardstick: not one call for the whole
+    function). At RP_FOCUS's inputs every compiled variant at its launch
+    shape, and the large and small instances at each blocks per SM and
+    sub-histogram copies that fit."""
+    from repro_torch.kernels import radix_partition as RP
+
+    res = {"grid": {}, "variants": {}}
+    inputs = [(n, p, d) for d in RP_DISTS for n in RP_NS for p in RP_PARTS]
+    inputs += [(n, p, d) for d in RP_DISTS for n, p in RP_ENGINE if p not in RP_PARTS]
+    for n, p, dist in inputs + [f for f in RP_FOCUS if f not in inputs]:
+        keys = torch.from_numpy(_radix_keys(rng, n, dist)).to(dev)
+        run = _RadixRun(libs, dev, keys, p)
+        iters = 50 if n >= 1 << 20 else 200
+        row = {}
+        wrapper = lambda: RP.radix_partition(keys, p)  # noqa: E731
+        got = wrapper()
+        CS.require(torch.equal(got[0], run.want[0]) and torch.equal(got[1], run.want[1]),
+                   f"radix_partition's wrapper disagrees (n={n}, P={p}, {dist})")
+        row["wrapper"] = run.time(wrapper, iters)
+        row["wrapper per call (events)"] = CS.call_ms(wrapper, iters)
+        large = RP.launch_shape(n, p)[0] == RP.LARGE
+        for name in ("large", "small", "small, global atomics",
+                     "large, pid only" if large else "small, pid only"):
+            v = RP_VARIANTS[name]
+            fn = run.variant(v, *run.shape(v))
+            run.check(name, fn, v)
+            row[name] = run.time(fn, iters)
+        if "parent_rp" in libs:
+            run.check("parent", run.parent())
+            row["parent"] = run.time(run.parent(), iters)
+            row["parent with zero fill"] = CS.device_ms(run.parent(), iters)
+            # the parent's wrapper (fresh pid, zeroed histogram, one launch)
+            # and this tree's, per call with CUDA events, in turns
+            turns = {"parent wrapper": run.parent_wrapper(), "wrapper": wrapper}
+            for i, name in enumerate(("parent wrapper", "wrapper", "wrapper", "parent wrapper")):
+                row[f"{name} per call (events), turn {i + 1}"] = CS.call_ms(turns[name], iters)
+        pid = run.want[0]
+        row["torch.bincount(pid) (histogram half only)"] = CS.device_ms(
+            lambda: torch.bincount(pid, minlength=p), iters)
+        if (n, p, dist) in RP_FOCUS:
+            var = {}
+            for name, v in RP_VARIANTS.items():
+                fn = run.variant(v, *run.shape(v))
+                run.check(name, fn, v)
+                var[name] = run.time(fn, iters)
+            for name in ("large", "small"):
+                v = RP_VARIANTS[name]
+                for bps in RP_BLOCKS_PER_SM:
+                    fit = RP.copies_for(p, bps, v[0], v[0] // 32)
+                    for copies in RP_COPIES:
+                        if copies > fit:
+                            continue
+                        fn = run.variant(v, bps, copies)
+                        label = f"{name}, {bps} blocks per SM, {copies} copies"
+                        run.check(label, fn, v)
+                        var[label] = run.time(fn, iters)
+            # the wrapper on keys the L2 cache does not hold: a 64 MB write
+            # between launches evicts them (not timed)
+            flush = torch.empty(1 << 24, dtype=torch.int32, device=dev)
+            var["wrapper, inputs out of L2"] = run.time(lambda: (flush.zero_(), wrapper()), iters)
+            res["variants"][f"n={n}, P={p}, {dist}"] = var
+            CS.log(f"radix_partition variants n={n}, P={p}, {dist}: {json.dumps(var)}")
+        if (n, p, dist) in inputs:
+            res["grid"][f"n={n}, P={p}, {dist}"] = row
+        CS.log(f"radix_partition n={n}, P={p}, {dist}: {json.dumps(row)}")
+        del run, keys
+    return res
+
+
+def sweep_sip_step(libs, rng, dev):
+    """The SIP step of one 4,096-row scan batch with one and two filters:
+    the fused call (one bloom_probe launch) against the unfused sequence
+    of earlier trees (per filter two comparisons, their AND, the probe, its
+    AND, a zeroed full-capacity mask, its slice copy and the in-place AND)
+    with the parent's bloom_probe kernel, each from its first torch call to
+    the mask: CUDA-event time per call, taken in turns (parent, fused,
+    fused, parent), and the device time of all its ops."""
+    from repro_torch.kernels import bloom_filter as BF
+
+    n = SIP_ROWS
+    words = [BF.bloom_build(torch.from_numpy(rng.randint(0, 300_000, m).astype(np.int32))
+                            .to(dev))[0] for m in (1_369_041, 50_000)]
+    res = {}
+    for k in (1, 2):
+        cols = torch.from_numpy(rng.randint(-1, 300_000, (k, n)).astype(np.int32)).to(dev)
+        filters = [(cols[j], words[j], 0, 299_999) for j in range(k)]
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        fused = lambda: BF.sip_mask(mask, n, filters)  # noqa: E731
+        want = BF.sip_mask_plain(mask.clone(), n, filters)
+        CS.require(torch.equal(BF.sip_mask(mask.clone(), n, filters), want),
+                   f"sip_mask disagrees with its plain version ({k} filters)")
+        row = {}
+        steps = {"fused": fused}
+        if "parent_bf" in libs:
+            f = libs["parent_bf"].bloom_probe_launch
+
+            def parent(target, f=f):
+                for codes, w, lo, hi in filters:
+                    m = (codes >= lo) & (codes <= hi)
+                    out = torch.empty(n, dtype=torch.bool, device=dev)
+                    build.check(f(w.data_ptr(), int(w.shape[0]), codes.data_ptr(), n,
+                                  out.data_ptr(), build.stream_handle(out)), "parent bloom_probe")
+                    m &= out
+                    full = torch.zeros(n, dtype=torch.bool, device=dev)
+                    full[:n] = m
+                    target.logical_and_(full)
+                return target
+
+            CS.require(torch.equal(parent(mask.clone()), want),
+                       f"the parent's SIP step disagrees ({k} filters)")
+            steps["parent"] = lambda: parent(mask)
+        order = ["parent", "fused", "fused", "parent"] if "parent" in steps else ["fused"] * 2
+        for i, name in enumerate(order):
+            row[f"{name} per call (events), turn {i + 1}"] = CS.call_ms(steps[name], 200)
+        for name, fn in steps.items():
+            row[f"{name} device ms (all ops)"] = CS.device_ms(fn, 200)
+        row["fused kernel device ms"] = CS.device_ms(fused, 200, kernel="bloom_probe")
+        desc = BF._descriptor(filters)
+        for it in SIP_ITEMS:
+            fn = _sip_variant(libs, it, desc, mask, mask, n)
+            got = mask.clone()
+            _sip_variant(libs, it, desc, got, got, n)()
+            CS.require(torch.equal(got, BF.sip_mask_plain(mask.clone(), n, filters)),
+                       f"sip_mask at {it} rows a thread disagrees ({k} filters)")
+            row[f"kernel device ms, {it} rows a thread"] = CS.device_ms(fn, 200,
+                                                                       kernel="bloom_probe")
+        res[f"{k} filter(s), {n} rows"] = row
+        CS.log(f"SIP step, {k} filter(s), {n} rows: {json.dumps(row)}")
+    # bloom_probe(words, queries): no mask, one filter over the int32 range
+    for c in SIP_QUERIES:
+        q = torch.from_numpy(rng.randint(-1, 300_000, c).astype(np.int32)).to(dev)
+        want = BF.bloom_probe_plain(words[0], q)
+        out = torch.empty(c, dtype=torch.bool, device=dev)
+        desc = BF._descriptor([(q, words[0], -(2 ** 31), 2 ** 31 - 1)])
+        row = {"wrapper": CS.device_ms(lambda: BF.bloom_probe(words[0], q), 200,
+                                       kernel="bloom_probe")}
+        CS.require(torch.equal(BF.bloom_probe(words[0], q), want),
+                   f"bloom_probe disagrees with its plain version ({c} queries)")
+        for it in SIP_ITEMS:
+            fn = _sip_variant(libs, it, desc, None, out, c)
+            out.fill_(True)
+            fn()
+            CS.require(torch.equal(out, want), f"bloom_probe at {it} rows a thread disagrees")
+            row[f"{it} rows a thread"] = CS.device_ms(fn, 200, kernel="bloom_probe")
+        if "parent_bf" in libs:
+            f = libs["parent_bf"].bloom_probe_launch
+            fn = lambda f=f: build.check(f(  # noqa: E731
+                words[0].data_ptr(), int(words[0].shape[0]), q.data_ptr(), c, out.data_ptr(),
+                build.stream_handle(out)), "parent bloom_probe")
+            out.fill_(False)
+            fn()
+            CS.require(torch.equal(out, want), "the parent's bloom_probe disagrees")
+            row["parent"] = CS.device_ms(fn, 200, kernel="bloom_probe")
+        res[f"bloom_probe, {c} queries"] = row
+        CS.log(f"bloom_probe, {c} queries: {json.dumps(row)}")
+    return res
+
+
+def _sip_variant(libs, items, desc, mask_in, out, n):
+    """One launch of the swept probe instance at ``items`` rows a thread."""
+    f = getattr(libs["sp"], f"sp_{items}")
+    st = build.stream_handle(out)
+    return lambda: build.check(f(ctypes.addressof(desc),
+                                 None if mask_in is None else mask_in.data_ptr(),
+                                 out.data_ptr(), n, int(out.shape[0]), st), "sip_mask")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None,
                     help="root of an earlier checkout whose expr_eval.cu is timed beside")
     ap.add_argument("--json", default=None, help="write the results here")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--only", default=",".join(SWEEPS),
+                    help="comma-separated sweeps to run, of: " + ", ".join(SWEEPS))
     args = ap.parse_args(argv)
+    only = args.only.split(",")
+    if set(only) - set(SWEEPS):
+        ap.error(f"unknown sweeps {sorted(set(only) - set(SWEEPS))}")
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -598,13 +1053,19 @@ def main(argv=None) -> int:
     print(card, flush=True)
     libs = build_libraries(args.parent)
     rng = np.random.RandomState(args.seed)
-    res = {"card": card, "hash_probe": sweep_hash_probe(libs, rng, dev),
-           "frontier_dedup": sweep_frontier_dedup(libs, rng, dev),
-           "frontier_dedup_paths": replay_paths_dedup(libs, dev),
-           "compiler": compiler_report(args.parent),
-           "expr_eval": sweep_expr_eval(libs, rng, dev, args.parent),
-           "join_expand": sweep_join_expand(libs, rng, dev),
-           "gather_emit": sweep_gather_emit(libs, rng, dev)}
+    runs = {"hash_probe": lambda: sweep_hash_probe(libs, rng, dev),
+            "frontier_dedup": lambda: sweep_frontier_dedup(libs, rng, dev),
+            "frontier_dedup_paths": lambda: replay_paths_dedup(libs, dev),
+            "compiler": lambda: compiler_report(args.parent),
+            "expr_eval": lambda: sweep_expr_eval(libs, rng, dev, args.parent),
+            "join_expand": lambda: sweep_join_expand(libs, rng, dev),
+            "gather_emit": lambda: sweep_gather_emit(libs, rng, dev),
+            "radix_partition": lambda: sweep_radix_partition(libs, rng, dev),
+            "sip_step": lambda: sweep_sip_step(libs, rng, dev)}
+    res = {"card": card}
+    for name in SWEEPS:
+        if name in only:
+            res[name] = runs[name]()
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(res, indent=1))

@@ -245,6 +245,23 @@ class ColumnBatch:
             self.var_ids, self.columns, self.mask & mask, self.n_rows, self.sorted_by
         )
 
+    def with_sip_mask(self, filters) -> "ColumnBatch":
+        """``with_mask`` of the SIP filters' keep-mask (``(codes, words or
+        None, lo, hi)`` each; see ``kernels.bloom_filter.sip_mask``), with
+        the same ownership rules, computed into the mask by one kernel
+        launch: in place for a pooled batch, into a fresh mask for an
+        unpooled one."""
+        from repro_torch.kernels.bloom_filter import sip_mask
+
+        if self.pool is not None:
+            sip_mask(self.mask, self.n_rows, filters)
+            pool, self.pool = self.pool, None
+            return ColumnBatch(
+                self.var_ids, self.columns, self.mask, self.n_rows, self.sorted_by, pool
+            )
+        fresh = sip_mask(self.mask, self.n_rows, filters, out=torch.empty_like(self.mask))
+        return ColumnBatch(self.var_ids, self.columns, fresh, self.n_rows, self.sorted_by)
+
 
 def concat_batches(
     batches: Sequence[ColumnBatch],

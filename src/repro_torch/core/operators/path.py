@@ -149,16 +149,10 @@ class PathExpand(BatchOperator):
         b = ColumnBatch.from_columns(
             self._var_ids, cols, self.device, self._sorted_var, pool=self.pool
         )
-        for f in self.sip_filters:
-            if f.var not in self._var_ids:
-                continue
-            m = f.mask(b.column(f.var))
-            if m is None:
-                continue
-            full = torch.zeros(b.capacity, dtype=torch.bool, device=self.device)
-            full[: b.n_rows] = m
-            b = b.with_mask(full)
-        return b
+        # every filter's range and bloom test over the batch, one launch
+        terms = [t for t in (f.term(b.column(f.var)) for f in self.sip_filters
+                             if f.var in self._var_ids) if t is not None]
+        return b.with_sip_mask(terms) if terms else b
 
     def can_skip(self, var: Optional[int]) -> bool:
         return var is not None and var == self._sorted_var

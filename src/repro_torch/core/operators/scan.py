@@ -160,14 +160,10 @@ class IndexScan(BatchOperator):
                 self._end = min(self._end, end)
 
     def _apply_sip_masks(self, b: ColumnBatch) -> ColumnBatch:
-        for f in self.sip_filters:
-            m = f.mask(b.column(f.var))
-            if m is None:
-                continue
-            full = torch.zeros(b.capacity, dtype=torch.bool, device=b.device)
-            full[: b.n_rows] = m
-            b = b.with_mask(full)
-        return b
+        """Every filter's range and bloom test over the batch, one launch."""
+        terms = [t for t in (f.term(b.column(f.var)) for f in self.sip_filters)
+                 if t is not None]
+        return b.with_sip_mask(terms) if terms else b
 
     def can_skip(self, var: Optional[int]) -> bool:
         return (

@@ -7,7 +7,8 @@ the join sees their rows:
 
   * a scan sorted by the filtered variable seeks to the range's low end
     and stops past its high end, and bloom-masks inside the range;
-  * an unsorted scan applies the range and bloom test as a batch mask.
+  * an unsorted scan applies the range and bloom test as a batch mask:
+    every filter of the batch in one ``sip_mask`` launch (``term``).
 
 No false negatives, so SIP is a pure prefilter: the same multiset of rows
 with SIP on or off.
@@ -24,7 +25,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.bloom_filter import bloom_build, bloom_probe
+from repro_torch.kernels.bloom_filter import SipTerm, bloom_build, sip_mask
 
 
 class SipFilter:
@@ -64,16 +65,19 @@ class SipFilter:
         self.ensure()
         return (self.lo, self.hi) if self._available else None
 
+    def term(self, codes: torch.Tensor) -> Optional[SipTerm]:
+        """The filter over ``codes`` as ``sip_mask`` takes it, ``(codes,
+        words or None, lo, hi)``, or None for pass-through."""
+        self.ensure()
+        if not self._available:
+            return None
+        return codes, self.words, self.lo, self.hi
+
     def mask(self, codes: torch.Tensor) -> Optional[torch.Tensor]:
         """Bool keep-mask over ``codes`` (range and bloom membership), or
         None for pass-through. May keep non-members (bloom false
         positives), never drops a member. The bloom probe launches on
         every batch: testing first whether any code is in range would be a
         host read per batch, and the AND gives the same mask."""
-        self.ensure()
-        if not self._available:
-            return None
-        m = (codes >= self.lo) & (codes <= self.hi)
-        if self.words is not None:
-            m &= bloom_probe(self.words, codes)
-        return m
+        t = self.term(codes)
+        return None if t is None else sip_mask(None, int(codes.shape[0]), [t])

@@ -12,17 +12,32 @@ Words are an int32 tensor holding the uint32 bit patterns.
 where both of the query's bits are set in its word. No false negatives;
 false positives at roughly the filter's load.
 
+``sip_mask(mask, n_rows, filters)`` is a scan batch's whole SIP mask:
+each filter is ``(codes, words or None, lo, hi)``, and for ``i < n_rows``
+``out[i] = mask[i] and`` every filter's ``lo <= codes[i] <= hi`` and, where
+it has words, membership of ``codes[i]``; ``out[i]`` is False from
+``n_rows`` to the mask's end. ``out`` is ``mask`` unless given (in place);
+a ``mask`` of None reads as all True.
+
 Keys of -1 (NULL_ID) hash like any other value. The Pallas build kernel
 skips INT32_MIN keys (its padding); codes are >= -1, so it never arises.
 
-CUDA kernels: ``csrc/bloom_filter.cu``. ``bloom_build_plain`` and
-``bloom_probe_plain`` are the same functions in PyTorch; the wrappers take
-them for CPU tensors only.
+CUDA kernels: ``csrc/bloom_filter.cu``. ``bloom_probe`` and ``sip_mask``
+are two entry points of one kernel: ``sip_mask`` passes up to ``SIP_TERMS``
+filters by value in one launch (a longer list takes further launches over
+the same mask), and ``bloom_probe`` is its one-filter case over the whole
+int32 range, writing a fresh mask. ``bloom_build_plain``,
+``bloom_probe_plain`` and ``sip_mask_plain`` are the same functions in
+PyTorch; the wrappers take them for CPU tensors only. ``probe_launches``
+counts the probe kernel's launches in both modes, ``wordless_launches``
+those whose filters carried no words (range only).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -31,8 +46,17 @@ from repro_torch.kernels import build
 
 _I32 = torch.int32
 _I64 = torch.int64
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+# filters one launch's descriptor holds (csrc/bloom_filter.cu), checked
+# when the library loads
+SIP_TERMS = 4
+_DESC_WORDS = 4 * SIP_TERMS + 1  # 64-bit words: four a filter, then the count
 build_launches = 0
 probe_launches = 0
+wordless_launches = 0
+
+# a SIP filter as sip_mask takes it: (codes, words or None, lo, hi)
+SipTerm = Tuple[torch.Tensor, Optional[torch.Tensor], int, int]
 
 
 def _key_range(keys: torch.Tensor) -> Tuple[int, int]:
@@ -59,6 +83,32 @@ def bloom_build_plain(keys: torch.Tensor, n_words: int) -> torch.Tensor:
 def bloom_probe_plain(words: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     word, bits = vecops.bloom_hash(queries, int(words.shape[0]))
     return (vecops._u32(words)[word] & bits) == bits
+
+
+def _clamp_range(lo: int, hi: int) -> Tuple[int, int]:
+    """The inclusive range [lo, hi] cut to int32 (codes are int32): an empty
+    range stays empty."""
+    lo, hi = max(int(lo), _INT32_MIN), min(int(hi), _INT32_MAX)
+    return (lo, hi) if lo <= hi else (0, -1)
+
+
+def sip_mask_plain(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTerm],
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    out = _sip_out(mask, n_rows, filters, out)
+    keep = out[:n_rows]
+    if mask is None:
+        keep.fill_(True)
+    elif out is not mask:
+        keep.copy_(mask[:n_rows])
+    for codes, words, lo, hi in filters:
+        c = codes[:n_rows]
+        lo, hi = _clamp_range(lo, hi)
+        m = (c >= lo) & (c <= hi)
+        if words is not None:
+            m &= bloom_probe_plain(words, c)
+        keep &= m
+    out[n_rows:] = False
+    return out
 
 
 def bloom_build(keys: torch.Tensor,
@@ -111,6 +161,86 @@ def bloom_probe(words: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
         ), "bloom_probe")
         probe_launches += 1
     return out
+
+
+def sip_mask(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTerm],
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The SIP mask of a batch's first ``n_rows`` rows (see module
+    docstring); returns ``out``."""
+    global probe_launches, wordless_launches
+    out = _sip_out(mask, n_rows, filters, out)
+    dev = out.device
+    for x in ((out,) if mask is None else (mask, out)):
+        if x.dtype != torch.bool or x.dim() != 1 or not x.is_contiguous() or x.device != dev:
+            raise ValueError("sip_mask: masks must be contiguous 1-D bool tensors on one device")
+    if mask is not None and mask.shape != out.shape:
+        raise ValueError("sip_mask: mask and out differ in length")
+    if not 0 <= n_rows <= int(out.shape[0]):
+        raise ValueError(f"sip_mask: n_rows={n_rows} outside the mask's {int(out.shape[0])}")
+    for codes, words, _, _ in filters:
+        _check_1d("sip_mask", "codes", codes)
+        if int(codes.shape[0]) < n_rows or codes.device != dev:
+            raise ValueError(f"sip_mask: codes must hold {n_rows} rows on {dev}")
+        if words is not None:
+            _check_1d("sip_mask", "words", words)
+            w = int(words.shape[0])
+            if w < 1 or w & (w - 1) or words.device != dev:
+                raise ValueError(f"sip_mask: words must be a power of two on {dev}")
+    if dev.type == "cpu":
+        return sip_mask_plain(mask, n_rows, filters, out)
+    if dev.type != "cuda":
+        raise ValueError(f"sip_mask: unsupported device {dev}")
+    lib = build.library()
+    _check_limits(lib)
+    stream = build.stream_handle(out)
+    src = mask
+    for k in range(0, max(len(filters), 1), SIP_TERMS):
+        chunk = filters[k: k + SIP_TERMS]
+        desc = _descriptor(chunk)  # kept alive through the call
+        build.check(lib.sip_mask_launch(
+            ctypes.addressof(desc), None if src is None else src.data_ptr(),
+            out.data_ptr(), n_rows, int(out.shape[0]), stream), "sip_mask")
+        probe_launches += 1
+        wordless_launches += all(t[1] is None for t in chunk)
+        src = out
+    return out
+
+
+def _sip_out(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTerm],
+             out: Optional[torch.Tensor]) -> torch.Tensor:
+    """``out``, else ``mask`` (in place), else a fresh mask of ``n_rows``
+    on the first filter's device."""
+    if out is not None:
+        return out
+    if mask is not None:
+        return mask
+    if not filters:
+        raise ValueError("sip_mask: give a mask, an out or a filter")
+    return torch.empty(n_rows, dtype=torch.bool, device=filters[0][0].device)
+
+
+def _descriptor(chunk: Sequence[SipTerm]) -> ctypes.Array:
+    """The kernel's by-value descriptor: per filter the codes and words
+    pointers, the words' index mask and (lo, hi) packed in one word."""
+    d = (ctypes.c_uint64 * _DESC_WORDS)()
+    for k, (codes, words, lo, hi) in enumerate(chunk):
+        lo, hi = _clamp_range(lo, hi)
+        d[4 * k] = codes.data_ptr()
+        if words is not None:
+            d[4 * k + 1] = words.data_ptr()
+            d[4 * k + 2] = int(words.shape[0]) - 1
+        d[4 * k + 3] = (lo & 0xFFFFFFFF) | (hi & 0xFFFFFFFF) << 32
+    d[4 * SIP_TERMS] = len(chunk)
+    return d
+
+
+@functools.lru_cache(maxsize=1)
+def _check_limits(lib) -> None:
+    got = [ctypes.c_int() for _ in range(2)]
+    lib.sip_mask_limits(*[ctypes.byref(x) for x in got])
+    want = (SIP_TERMS, 8 * _DESC_WORDS)
+    if tuple(x.value for x in got) != want:
+        raise RuntimeError(f"sip_mask: kernel descriptor {[x.value for x in got]} != {want}")
 
 
 def _check_1d(who: str, name: str, x: torch.Tensor) -> None:

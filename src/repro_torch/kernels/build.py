@@ -124,10 +124,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         "expr_eval_launch": [P, P, I, I, I, I, I, I, P, P, L, P, P, I, I, L, P, P, P],
         "expr_eval_limits": [P, P, P, P],
         "segment_scan_launch": [P, P, P, L, I, P, P],
-        "radix_partition_launch": [P, L, I, P, P, P],
+        "radix_partition_launch": [P, L, I, I, I, P, P, P],
+        "radix_partition_limits": [P, P, P, P, P, P],
         "hash_probe_launch": [P, I, P, P, P, P, I, P, P, P],
         "bloom_build_launch": [P, L, I, P, P],
         "bloom_probe_launch": [P, I, P, I, P, P],
+        "sip_mask_launch": [P, P, P, I, I, P],
+        "sip_mask_limits": [P, P],
         "sorted_search_launch": [P, I, P, I, I, P, P, P, P],
         "frontier_dedup_launch": [P, P, L, P, P, I, P, I, I, I, P],
         "frontier_dedup_limits": [P, P, P, P, P, P],
