@@ -17,6 +17,10 @@ script exits non-zero:
             bloom_probe also as the fused SIP mask of a scan batch (one to
             six filters, range-only and empty ranges, short batches, masks
             partly False, codes at every phase) beside the unfused step;
+            bloom_build also on keys in the hash join's order, all equal,
+            half NULL, at phases 1 and 3, 4,096 to 2^24 keys and W from 1
+            to 2^20 words, one launch and one copy a build, timed in random
+            and grouped order;
   full      the LSQB social graph at the paper's SF 0.3 size (scale 160,
             about 7.3M triples) on the card, through ``Engine.execute``,
             each count held against a closed form computed with numpy from
@@ -38,13 +42,20 @@ script exits non-zero:
             mix at scale 36 (7.2M triples; all but b6, whose 233M-row
             self-join runs in breadth only), d1, d2, b4 and b8 against
             closed forms; frontier_dedup must launch in d1, d2, b4 and b8;
+  explore   the BSBM explore mix e1-e5 (EXPLORE_INSTANCES instantiations
+            of each from the seed) on the same scale-36 store, e3 (a cross
+            product) against its closed form; then cross products of
+            1,000 x 1,000 and 1,000 x 2,000 rows drained from CrossJoin,
+            each against nl x nr, their host syncs equal (after one
+            uncounted drain of each);
   follow-ups  a second run of each default-path query, of the merge
             path's q1 and of p1-p5 counts its host syncs, and a third of q6
             under torch.profiler gives the device's busy time, the top
             device and host ops and the cudaLaunchKernel and
             cudaMemsetAsync calls;
   breadth   the nine LSQB queries, p1-p5, d1 and d2 at LSQB scale 1,
-            the eight BSBM BI queries at BSBM scale 1 and the fault probes
+            the eight BSBM BI queries and the explore mix at BSBM scale 1
+            and the fault probes
             (plans wider than one gather_emit launch, values float32 cannot
             hold, a 210-instruction BIND) on a small store, on the card and on
             the CPU (the kernels' plain versions) under the default
@@ -150,6 +161,7 @@ DISTINCT_QUERIES = {
 BSBM_SCALE = 36.0
 BSBM_SEED = 7  # the generator's default
 BSBM_FULL_QUERIES = ("b1", "b2", "b3", "b4", "b5", "b7", "b8")
+EXPLORE_INSTANCES = 3  # instantiations of each BSBM explore template (e1-e5)
 DEDUP_QUERIES = ("d1", "d2", "b4", "b8")  # distinct-phase queries that must run frontier_dedup
 # the fault probes, on probe_store in the breadth phase: plans past one
 # gather_emit launch (19 and 20 emitted rows, one key and five pairs) and
@@ -948,6 +960,64 @@ def check_hash_probe(rng, dev):
     return 0, t, bound(nbytes, 60 * c)
 
 
+def _engine_order(keys, n_parts):
+    """``keys`` as the hash join lays its build out (``HashJoin.sip_keys``):
+    sorted by radix partition, then by key, so equal keys sit together."""
+    from repro_torch.kernels import radix_partition as RP
+
+    pid, _ = RP.radix_partition_plain(keys, n_parts)
+    return keys[torch.argsort((pid.to(torch.int64) << 32) | keys.to(torch.int64))].contiguous()
+
+
+def _device_ops(fn, iters: int = 20) -> dict:
+    """{name: count} of the device kernels and copies that ``iters`` calls
+    of ``fn`` ran, from torch.profiler (which may drop an event now and
+    then, so a count may fall short)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    ops = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cpu:
+            ops[e.name()] = ops.get(e.name(), 0) + 1
+    return ops
+
+
+# bloom_build's shapes timed beside the full-size q6 build's random order
+BLOOM_TIMED = ("n=1,369,041 in the engine's order", "n=1,369,041 all equal",
+               "n=1,369,041 half NULL", "n=4,096", "n=2^24")
+
+
+# bloom_build's shapes beyond the full-size q6 build (keys in [0, 300,000)
+# unless named): (label, keys, n_words or None)
+def _bloom_shapes(rng, dev, keys):
+    n = int(keys.shape[0])
+    u = lambda m, hi=300_000: torch.from_numpy(  # noqa: E731
+        rng.randint(0, hi, m).astype(np.int32)).to(dev)
+    half = keys.clone()
+    half[torch.from_numpy(rng.permutation(n)[: n // 2]).to(dev)] = -1
+    return [("n=1,369,041", keys, None),
+            ("n=1,369,041 in the engine's order", _engine_order(keys, 1024), None),
+            ("n=1,369,041 all equal", torch.full((n,), 12345, dtype=torch.int32, device=dev), None),
+            ("n=1,369,041 half NULL", half, None),
+            ("n=1,369,040 at phase 1", _at_offset(keys[1:], 1), None),
+            ("n=4,096", u(4096), None),
+            ("n=4,093 at phase 3", _at_offset(u(4093), 3), None),
+            ("n=40,000 (W = 2^15)", u(40_000), None),
+            ("n=100,000 (W = 2^16)", u(100_000, 1 << 30), None),
+            ("n=300,000 into 2^18 words", u(300_000), 1 << 18),
+            ("n=2^24", u(1 << 24, 1 << 24), None),
+            ("1,000 NULL keys", torch.full((1000,), -1, dtype=torch.int32, device=dev), None),
+            ("one key", u(1), None),
+            ("empty", keys[:0].clone(), None)]
+
+
 def check_bloom(rng, dev):
     """bloom_build and bloom_probe: their checks and timings."""
     from repro_torch.core import vecops as TV
@@ -958,21 +1028,38 @@ def check_bloom(rng, dev):
     n_words = TV.bloom_n_words(n)
     require(n_words == 1 << 20, "bloom: the full-size build should fill 2^20 words")
     rows = {}
-    for label, k in (("n=1,369,041", keys), ("NULL keys", torch.full((1000,), -1, dtype=torch.int32,
-                                                                        device=dev)),
-                     ("empty", keys[:0].clone())):
-        words, lo, hi = BF.bloom_build(k)
-        pwords, plo, phi = BF.bloom_build(k.cpu())
+    shapes = _bloom_shapes(rng, dev, keys)
+    for label, k, w in shapes:
+        before = BF.build_launches
+        words, lo, hi = BF.bloom_build(k, w)
+        require(BF.build_launches - before == 1, f"bloom_build: not one launch ({label})")
+        w = TV.bloom_n_words(k.shape[0]) if w is None else w
+        pwords, plo, phi = BF.bloom_build(k.cpu(), w)
         require(torch.equal(words.cpu(), pwords) and (lo, hi) == (plo, phi),
                 f"bloom_build disagrees with its plain version on the CPU ({label})")
-        require(torch.equal(words, BF.bloom_build_plain(k, TV.bloom_n_words(k.shape[0]))),
+        require(torch.equal(words, BF.bloom_build_plain(k, w)),
                 f"bloom_build disagrees with its plain version on the card ({label})")
-        log(f"  bloom_build {label}: {TV.bloom_n_words(k.shape[0])} words, range ({lo}, {hi}) ok")
-    words, _, _ = BF.bloom_build(keys)
+        log(f"  bloom_build {label}: {w} words, range ({lo}, {hi}) ok")
+    ran = _device_ops(lambda: BF.bloom_build(keys))
+    require(all("bloom_build_kernel" in x or "DtoH" in x for x in ran)
+            and any("bloom_build_kernel" in x for x in ran),
+            f"bloom_build: 20 calls ran {ran}, not the kernel and a copy alone")
+    log(f"  bloom_build, 20 calls on the device: {ran}")
     t = timings("bloom_build", lambda: BF.bloom_build(keys),
                 lambda: BF.bloom_build_plain(keys, n_words), 5)
     # keys read once, words written once; ~12 integer ops a key
-    rows["bloom_build"] = (0, t, bound(4 * n + 4 * n_words, 12 * n))
+    b = bound(4 * n + 4 * n_words, 12 * n)
+    rows["bloom_build"] = (0, t, b)
+    for label, k, _ in shapes:
+        if label not in BLOOM_TIMED:
+            continue
+        kn = int(k.shape[0])
+        t[f"bloom_build {label}"] = {
+            "ms": device_ms(lambda: BF.bloom_build(k), 200, kernel="bloom_build"),
+            "call_ms": call_ms(lambda: BF.bloom_build(k), 200),
+            "bound_ms": bound(4 * kn + 4 * TV.bloom_n_words(kn), 12 * kn)[0]}
+        log(f"  bloom_build {label}: {json.dumps(t[f'bloom_build {label}'])}")
+    words, _, _ = BF.bloom_build(keys)
 
     q = torch.cat([keys[torch.randint(0, n, (c // 2,), device=dev)],
                    torch.randint(300_000, 600_000, (c // 2 - 32,), device=dev, dtype=torch.int32),
@@ -1464,9 +1551,14 @@ def run_query(engine, text):
     return res, time.perf_counter() - t0
 
 
-def count_syncs(fn):
+# PyTorch's one-time notice when the sync debug mode first warns: not a sync
+SYNC_MODE_NOTICE = "Synchronization debug mode is a prototype feature"
+
+
+def count_syncs(fn, sources=None):
     """Run ``fn`` with PyTorch's CUDA sync debugging on; returns the number
-    of synchronising operations it reported."""
+    of synchronising operations it reported (their messages' first lines
+    appended to ``sources`` when it is a list)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1474,7 +1566,11 @@ def count_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum(1 for w in caught if "synchroniz" in str(w.message))
+    synced = [str(w.message) for w in caught if "synchroniz" in str(w.message)
+              and not str(w.message).startswith(SYNC_MODE_NOTICE)]
+    if sources is not None:
+        sources.extend(m.splitlines()[0][:160] for m in synced)
+    return len(synced)
 
 
 @contextlib.contextmanager
@@ -1551,6 +1647,8 @@ def full_phase(dev, store, report):
             log(f"  {name}: count={got} closed form={want[name]} wall={wall:.3f} s "
                 f"launches={delta}, bloom_probe launches with no words={wordless}, "
                 f"masked batches by filter count={masked}")
+            if path == "default" and name in SIP_QUERIES:
+                log(f"  {name}: build_launches={delta['bloom_build']}")
             require(got == want[name], f"{path} {name}: engine count {got} != closed form "
                                        f"{want[name]}")
             rep["queries"][name] = {"count": got, "wall_s": wall, "launches": delta,
@@ -1791,6 +1889,95 @@ def distinct_phase(engine, store, dev, report):
             require(int(rows[0]["n"]) == bwant["b8"],
                     f"bsbm b8: {rows[0]['n']} != closed form {bwant['b8']}")
             log(f"  b8: {bwant['b8']} unreviewed products, equal to the closed form")
+    return K.launch_counts(), bstore, meta
+
+
+def explore_queries(meta, seed):
+    """EXPLORE_INSTANCES instantiations of each BSBM explore template (e1-e5)
+    from ``seed``: {name: text}."""
+    from repro_torch.data import BSBM_EXPLORE_TEMPLATES, instantiate_explore
+
+    rng = np.random.RandomState(seed)
+    return {f"{name}.{k}": instantiate_explore(tpl, meta, rng)
+            for name, tpl in sorted(BSBM_EXPLORE_TEMPLATES.items())
+            for k in range(EXPLORE_INSTANCES)}
+
+
+def e3_closed_form(store, text):
+    """e3's rows from the quads: the product's features times its
+    producers."""
+    q = store.index_array("spoc")
+    d = store.dict
+    mine = q[q[:, 0] == d.lookup(re.search(r":product\d+", text).group(0))]
+    return int((mine[:, 1] == d.lookup(":productFeature")).sum()) * \
+        int((mine[:, 1] == d.lookup(":producer")).sum())
+
+
+def _pred_subjects(store, pred, k):
+    """The first ``k`` subjects of ``pred``'s scan (a psoc slice) as a
+    (1, k) device block."""
+    rng = store.range_for_pattern("psoc", (None, store.dict.lookup(pred), None, None))
+    require(rng.hi - rng.lo >= k, f"fewer than {k} {pred} triples")
+    return store.index_columns("psoc")[1][rng.lo: rng.lo + k][None, :].contiguous()
+
+
+def drain_cross(left, right, dev):
+    """A CrossJoin over two materialized blocks, drained: (rows, batches),
+    the rows summed on the device and read once at the end."""
+    from repro_torch.core.operators.cross import CrossJoin
+    from repro_torch.core.operators.sort import MaterializedSource
+
+    op = CrossJoin(MaterializedSource((1,), left), MaterializedSource((2,), right), dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    batches = 0
+    while (b := op.next_batch()) is not None:
+        total += b.mask[: b.n_rows].sum()
+        batches += 1
+    return int(total), batches
+
+
+def explore_phase(dev, bstore, meta, report):
+    """The BSBM explore mix on the scale-36 store: e1-e5, EXPLORE_INSTANCES
+    of each, e3 against its closed form; then a cross product of at least
+    10^6 rows and one of twice as many, each against nl x nr, with their
+    host syncs and what made them (each drained once before, uncounted),
+    which must be equal. Returns the phase's launch counts."""
+    import repro_torch
+    from repro_torch import kernels as K
+
+    rep = report["explore"] = {"scale": BSBM_SCALE, "queries": {}}
+    engine = repro_torch.Engine(bstore, repro_torch.EngineConfig(), device=dev)
+    K.reset_launch_counts()
+    for name, text in explore_queries(meta, SEED).items():
+        before = K.launch_counts()
+        res, wall = run_query(engine, text)
+        n = len(res.decoded(bstore.dict))
+        delta = {k: v - before[k] for k, v in K.launch_counts().items() if v - before[k]}
+        rep["queries"][name] = {"rows": n, "wall_s": wall, "launches": delta}
+        log(f"  {name}: {n} rows, wall={wall:.3f} s, launches={delta}")
+        if name.startswith("e3"):
+            want = e3_closed_form(bstore, text)
+            require(n == want, f"explore {name}: {n} rows != closed form {want}")
+            require(delta.get("join_expand", 0) > 0 and delta.get("gather_emit", 0) > 0,
+                    f"explore {name}: the cross join launched no join_expand / gather_emit")
+    left = _pred_subjects(bstore, ":producer", 1000)
+    rights = {k: _pred_subjects(bstore, ":vendor", k) for k in (1000, 2000)}
+    for right in rights.values():  # first-use work (allocations) left out of the counts
+        drain_cross(left, right, dev)
+    for k, right in rights.items():
+        out, sources = {}, []
+        t0 = time.perf_counter()
+        syncs = count_syncs(lambda: out.update(zip(("rows", "batches"),
+                                                    drain_cross(left, right, dev))), sources)
+        wall = time.perf_counter() - t0
+        require(out["rows"] == 1000 * k, f"cross product: {out['rows']} rows != {1000 * k}")
+        rep[f"cross 1000 x {k}"] = {**out, "syncs": syncs, "wall_s": wall, "sources": sources}
+        log(f"  cross product 1,000 x {k:,}: {out['rows']} rows in {out['batches']} batches, "
+            f"{syncs} host syncs, {wall:.3f} s (sync debug mode on): {sources}")
+    a, b = rep["cross 1000 x 1000"], rep["cross 1000 x 2000"]
+    require(a["syncs"] == b["syncs"] and a["batches"] < b["batches"],
+            f"cross product: host syncs depend on the batches ({a['syncs']} for "
+            f"{a['batches']}, {b['syncs']} for {b['batches']})")
     return K.launch_counts()
 
 
@@ -1920,20 +2107,23 @@ def probe_store(device, seed):
 
 def breadth_results(device, scale, seed):
     """{config: {query: (rows, wall seconds)}} for the nine LSQB queries,
-    p1-p5, d1 and d2 at LSQB ``scale``, the eight BSBM BI queries at
-    BSBM_BREADTH_SCALE and the fault probes on ``probe_store``, under every
+    p1-p5, d1 and d2 at LSQB ``scale``, the eight BSBM BI queries and the
+    explore mix (``explore_queries``) at BSBM_BREADTH_SCALE and the fault
+    probes on ``probe_store``, under every
     breadth configuration, on ``device``."""
     import repro_torch
     from repro_torch.data import BSBM_BI_QUERIES, generate_ecommerce_graph
 
     store, _ = repro_torch.generate_social_graph(scale=scale, seed=seed, device=device)
-    bstore, _ = generate_ecommerce_graph(scale=BSBM_BREADTH_SCALE, seed=BSBM_SEED, device=device)
+    bstore, bmeta = generate_ecommerce_graph(scale=BSBM_BREADTH_SCALE, seed=BSBM_SEED,
+                                             device=device)
     pstore = probe_store(device, seed)
     if device.type == "cuda":
         log(f"  LSQB scale {scale}: {store.n_quads} triples; BSBM scale {BSBM_BREADTH_SCALE}: "
             f"{bstore.n_quads} triples; fault probes: {pstore.n_quads} triples")
     work = [(store, {**repro_torch.LSQB_QUERIES, **PATH_QUERIES, **DISTINCT_QUERIES}),
-            (bstore, BSBM_BI_QUERIES), (pstore, PROBE_QUERIES)]
+            (bstore, {**BSBM_BI_QUERIES, **explore_queries(bmeta, seed)}),
+            (pstore, PROBE_QUERIES)]
     out = {}
     for cfg_name, cfg in BREADTH_CONFIGS.items():
         out[cfg_name] = {}
@@ -2009,7 +2199,11 @@ def main() -> int:
     log(f"paths: {elapsed()}")
     path_launches["paths"] = paths_phase(engines["default"], store, report)
     log(f"distinct: {elapsed()}")
-    path_launches["distinct"] = distinct_phase(engines["default"], store, dev, report)
+    path_launches["distinct"], bstore, bmeta = distinct_phase(engines["default"], store, dev,
+                                                             report)
+    log(f"explore: {elapsed()}")
+    path_launches["explore"] = explore_phase(dev, bstore, bmeta, report)
+    del bstore
     for name, (_, _, path) in KERNEL_INFO.items():
         rows[name]["launches"] = path_launches[path][name]
         rows[name]["launches_by_path"] = {p: n[name] for p, n in path_launches.items()}

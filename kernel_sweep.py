@@ -1,5 +1,6 @@
 """Sweep the compiled shapes of join_expand, gather_emit, expr_eval,
-hash_probe, frontier_dedup, radix_partition and bloom_probe on the card.
+hash_probe, frontier_dedup, radix_partition, bloom_probe and bloom_build
+on the card.
 
 The port compiles one or a few instances of join_expand, gather_emit,
 hash_probe, frontier_dedup, radix_partition and bloom_probe and picks one
@@ -36,8 +37,12 @@ variant (vector width, vectors a thread, block size, histogram and flush
 modes) and every blocks-per-SM and sub-histogram-copies shape. The SIP
 step of a 4,096-row scan batch (one and two filters) is timed fused and
 as the unfused sequence, per call and on the device, and bloom_probe at
-one, two and four rows a thread. Every instance is checked against the
-plain version before it is timed. The script also prints ``nvcc -Xptxas
+one, two and four rows a thread. bloom_build is swept at 4,096 to 2^24
+keys in random order, the hash join's grouped order, all equal and half
+NULL: its wrapper, its kernel at 256 to 1,024 threads and 1 to 264 blocks,
+and the merges that lost (BB_VARIANTS, built from bloom_filter.cu's device
+functions). Every instance is checked against the plain version before it
+is timed. The script also prints ``nvcc -Xptxas
 -v`` and the local-memory (LDL / STL) and shared-memory (LDS / STS)
 instruction counts of ``cuobjdump -sass`` for ``expr_eval.cu``,
 ``hash_probe.cu``, ``frontier_dedup.cu``, ``radix_partition.cu`` and
@@ -48,7 +53,9 @@ checkout's one-thread-per-key ``hash_probe.cu``, one-thread-per-candidate
 ``frontier_dedup.cu``, one-key-a-thread ``radix_partition.cu`` (its
 kernel, its kernel with the histogram's zero fill, and its wrapper per
 call) and ``bloom_filter.cu`` (its probe, and the unfused SIP step around
-it) on the same inputs, and, where that checkout's ``expr_eval`` takes its
+it; its one-thread-a-key build, alone and with its wrapper's zero fill,
+``aminmax`` and ``stack``, per call in turns with this tree's) on the same
+inputs, and, where that checkout's ``expr_eval`` takes its
 program by value (the float32 kernel), its ``expr_eval.cu`` on the
 programs it takes; and it reports the same compiler output for the
 parent's sources. ``--only`` runs some of the sweeps.
@@ -128,6 +135,27 @@ RP_FOCUS = ((3_891_273, 1024, "uniform"), (3_891_273, 1024, "skewed"),
             (4096, 1, "uniform"), (4096, 1024, "uniform"), (4096, 8192, "skewed"),
             (65536, 8192, "skewed"), (65536, 16, "skewed"), (262144, 1, "uniform"),
             (1 << 24, 1024, "uniform"))
+# bloom_build: key counts, key orders, this tree's threads and blocks, and
+# the merges that lost (BB_VARIANT_KERNEL): "pre-zeroed" (the shipped merge
+# into words zeroed by a fill before the launch: what the in-launch zeroing
+# costs), "rotated" (each block merges from its own offset), "atomic poll"
+# (the flag polled with atomics, not acquire loads), "shared line" (the
+# ticket and the flag on the range's L2 line), "control warp" (a warp that
+# reads no keys takes the ticket and zeroes or waits while the others read
+# keys), "cluster" (a
+# cluster's copies ORed through distributed shared memory into partials, a
+# ticket a slice, the last cluster ORing the partials; no zeroed words),
+# "spread" (one copy a cluster spread over its blocks, keys routed by
+# remote atomics, the slices ORed into pre-zeroed words), "first writer"
+# (the first block to reach each 128-word slice stores it, the others OR
+# in after its flag)
+BB_KEYS = (4096, 65536, 1 << 18, 1_369_041, 1 << 24)
+BB_ORDERS = ("random", "grouped", "all equal", "half NULL")
+BB_THREADS = (256, 512, 1024)
+BB_BLOCKS = (1, 2, 8, 16, 32, 48, 64, 96, 128, 132, 264)
+BB_VARIANTS = {"pre-zeroed": 0, "shared line": 8, "control warp": 9, "rotated": 1,
+               "atomic poll": 7, "cluster 8x8": 2, "cluster 4x16": 3, "spread 15x8": 4,
+               "spread 30x4": 5, "first writer": 6}
 SIP_ROWS = 4096
 SIP_ITEMS = (1, 2, 4)  # bloom_probe's rows a thread
 SIP_QUERIES = (4096, 65536, 1 << 18, 1 << 20)  # bloom_probe(words, queries) sizes
@@ -136,7 +164,7 @@ PARENT_SOURCES = {"parent_ee": "expr_eval.cu", "parent_hp": "hash_probe.cu",
                   "parent_fd": "frontier_dedup.cu", "parent_rp": "radix_partition.cu",
                   "parent_bf": "bloom_filter.cu"}
 SWEEPS = ("hash_probe", "frontier_dedup", "frontier_dedup_paths", "compiler", "expr_eval",
-          "join_expand", "gather_emit", "radix_partition", "sip_step")
+          "join_expand", "gather_emit", "radix_partition", "sip_step", "bloom_build")
 REPORTED = ("expr_eval.cu", "hash_probe.cu", "frontier_dedup.cu", "radix_partition.cu",
             "bloom_filter.cu")  # compiler_report's sources
 EE_THREADS = (32, 64, 128, 256)
@@ -261,6 +289,308 @@ int variant_launch(const int* keys, long long n, int n_parts, int copies, int* p
 """
 
 
+# bloom_build's losing merges, built from bloom_filter.cu's device
+# functions (zero_copy_and_fill, add_keys, block_range, bloom_hash)
+BB_VARIANT_KERNEL = r"""
+namespace cg = cooperative_groups;
+
+// the shipped merge; pre-zeroed (ZERO = false: the caller zeroed the
+// reachable words), rotated (ROTATE: block b merges from word b R / G),
+// atomic-poll (POLL_ATOMIC) and shared-line (SHARED: the ticket and the
+// flag in state[2], state[3], on the range's line) forms of it
+template <int T, bool ZERO, bool ROTATE, bool POLL_ATOMIC, bool SHARED>
+__global__ void __launch_bounds__(T, 1)
+bloom_build_atomic_kernel(const int* __restrict__ keys, long long n, int n_words,
+                          unsigned* __restrict__ words, unsigned* __restrict__ state) {
+  extern __shared__ unsigned s_words[];
+  __shared__ unsigned s_red[T / 16];
+  __shared__ unsigned s_ticket;
+  unsigned* ticket = state + (SHARED ? 2 : TICKET);
+  unsigned* flag = state + (SHARED ? 3 : FLAG);
+  const int r_words = n_words < REACH ? n_words : REACH;
+  if (ZERO && threadIdx.x == 0) s_ticket = atomicAdd(ticket, 1u);
+  zero_copy_and_fill<T>(n_words, words, s_words);
+  __syncthreads();
+  const bool zeroes = ZERO && s_ticket == 0;
+  if (zeroes) {
+    for (int i = threadIdx.x; i < r_words; i += T) words[i] = 0u;
+    __syncthreads();
+    if (threadIdx.x == 0) { __threadfence(); atomicExch(flag, 1u); }
+  }
+  unsigned lo_m = 0u, hi_m = 0u;
+  add_keys<T>(keys, n, n_words, s_words, lo_m, hi_m);
+  block_range<T>(lo_m, hi_m, s_red, state);
+  if (ZERO && !zeroes && threadIdx.x == 0) {
+    if (POLL_ATOMIC) {
+      while (atomicAdd(flag, 0u) == 0u) __nanosleep(64);
+      __threadfence();
+    } else {
+      while (load_acquire(flag) == 0u) __nanosleep(32);
+    }
+  }
+  __syncthreads();
+  const int start = ROTATE ? (int)(((long long)blockIdx.x * r_words / gridDim.x) & ~31LL) : 0;
+  for (int j = threadIdx.x; j < r_words; j += T) {
+    const int i = (j + start) & (r_words - 1);
+    const unsigned v = s_words[i];
+    if (v) atomicOr(words + i, v);
+  }
+}
+
+// The control warp's part of a merge: take the start ticket; the block
+// that takes ticket 0 zeroes the reachable words and raises the flag, the
+// others wait for the flag (a block that holds ticket 0 is running and
+// waits on nothing, so the wait ends). The other warps read keys meanwhile.
+__device__ __forceinline__ void zero_or_wait(unsigned* __restrict__ words, int r_words,
+                                             unsigned* state) {
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned ticket = 0;
+  if (lane == 0) ticket = atomicAdd(state + TICKET, 1u);
+  ticket = __shfl_sync(0xffffffffu, ticket, 0);
+  if (ticket == 0) {
+    uint4* z = reinterpret_cast<uint4*>(words);  // R is 1, 2 or a multiple of 4
+    for (int i = lane; i < r_words >> 2; i += 32) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = (r_words & ~3) + lane; i < r_words; i += 32) words[i] = 0u;
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) atomicExch(state + FLAG, 1u);
+  } else if (lane == 0) {
+    while (load_acquire(state + FLAG) == 0u) __nanosleep(32);
+    __threadfence();
+  }
+  __syncwarp();
+}
+
+// control warp: the last warp reads no keys; it takes the ticket and
+// zeroes or waits (zero_or_wait) while the others read keys
+template <int T>
+__global__ void __launch_bounds__(T, 1)
+bloom_build_control_kernel(const int* __restrict__ keys, long long n, int n_words,
+                           unsigned* __restrict__ words, unsigned* __restrict__ state) {
+  extern __shared__ unsigned s_words[];
+  __shared__ unsigned s_red[T / 16];
+  const int r_words = n_words < REACH ? n_words : REACH;
+  zero_copy_and_fill<T>(n_words, words, s_words);
+  __syncthreads();
+  unsigned lo_m = 0u, hi_m = 0u;
+  if (threadIdx.x < T - 32) add_keys<T - 32>(keys, n, n_words, s_words, lo_m, hi_m);
+  else zero_or_wait(words, r_words, state);
+  block_range<T>(lo_m, hi_m, s_red, state);
+  for (int i = threadIdx.x; i < r_words; i += T) {
+    const unsigned v = s_words[i];
+    if (v) atomicOr(words + i, v);
+  }
+}
+
+// cluster: each cluster ORs its blocks' copies through distributed shared
+// memory, block `rank` one slice, into its row of partial (or the words,
+// with one cluster); the last cluster to write a slice (a ticket a slice
+// in state[2 + rank]) ORs the slice's partials into the words
+template <int T>
+__global__ void __launch_bounds__(T)
+bloom_build_cluster_kernel(const int* __restrict__ keys, long long n, int n_words,
+                           unsigned* __restrict__ words, unsigned* __restrict__ partial,
+                           unsigned* __restrict__ state) {
+  extern __shared__ unsigned s_words[];
+  __shared__ unsigned s_red[T / 16];
+  __shared__ bool s_last;
+  const cg::cluster_group cluster = cg::this_cluster();
+  zero_copy_and_fill<T>(n_words, words, s_words);
+  __syncthreads();
+  unsigned lo_m = 0u, hi_m = 0u;
+  add_keys<T>(keys, n, n_words, s_words, lo_m, hi_m);
+  block_range<T>(lo_m, hi_m, s_red, state);
+  cluster.sync();
+  const int c_size = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n_clusters = (int)(gridDim.x / c_size);
+  const int r_words = n_words < REACH ? n_words : REACH;
+  const int w0 = (int)((long long)rank * r_words / c_size);
+  const int w1 = (int)((long long)(rank + 1) * r_words / c_size);
+  unsigned* dst = n_clusters == 1 ? words : partial + (long long)(blockIdx.x / c_size) * r_words;
+  for (int i = w0 + threadIdx.x; i < w1; i += T) {
+    unsigned v[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) v[c] = c < c_size ? cluster.map_shared_rank(s_words, c)[i] : 0u;
+    unsigned acc = 0u;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc |= v[c];
+    dst[i] = acc;
+  }
+  cluster.sync();
+  if (n_clusters == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(state + 2 + rank, 1u) == (unsigned)(n_clusters - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int i = w0 + threadIdx.x; i < w1; i += T) {
+    unsigned acc = 0u;
+    for (int g = 0; g < n_clusters; ++g) acc |= __ldcg(partial + (long long)g * r_words + i);
+    words[i] = acc;
+  }
+}
+
+// spread: one copy a cluster, R / CS words a block; keys routed to their
+// word's block by remote atomics; slices ORed into pre-zeroed words
+template <int T, int CS>
+__global__ void __launch_bounds__(T)
+bloom_build_spread_kernel(const int* __restrict__ keys, long long n, int n_words,
+                          unsigned* __restrict__ words, unsigned* __restrict__ state) {
+  extern __shared__ unsigned s_slice[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int r_words = n_words < REACH ? n_words : REACH;
+  const int slice = r_words / CS;
+  const unsigned wmask = (unsigned)n_words - 1u;
+  const long long tid = (long long)blockIdx.x * T + threadIdx.x;
+  const long long n_threads = (long long)gridDim.x * T;
+  if (n_words > r_words) {
+    uint4* z = reinterpret_cast<uint4*>(words + r_words);
+    const long long nz = (long long)(n_words - r_words) >> 2;
+    for (long long i = tid; i < nz; i += n_threads) z[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = threadIdx.x; i < slice; i += T) s_slice[i] = 0u;
+  cluster.sync();
+  const int shift = __ffs(slice) - 1;
+  for (long long i = tid; i < n; i += n_threads) {  // aligned keys, one a thread
+    unsigned w, b;
+    bloom_hash(keys[i], wmask, &w, &b);
+    atomicOr(cluster.map_shared_rank(s_slice, (int)(w >> shift)) + (w & (slice - 1)), b);
+  }
+  cluster.sync();
+  const int base = (int)cluster.block_rank() * slice;
+  for (int i = threadIdx.x; i < slice; i += T) {
+    const unsigned v = s_slice[i];
+    if (v) atomicOr(words + base + i, v);
+  }
+}
+
+// first writer: the first block to reach each 128-word slice (a ticket a
+// slice in state[2 + s]) stores it and raises its flag (state[2 + S + s]);
+// the others OR in their nonzero words once the flag is up
+template <int T>
+__global__ void __launch_bounds__(T)
+bloom_build_first_kernel(const int* __restrict__ keys, long long n, int n_words,
+                         unsigned* __restrict__ words, unsigned* __restrict__ state) {
+  extern __shared__ unsigned s_words[];
+  __shared__ unsigned s_red[T / 16];
+  zero_copy_and_fill<T>(n_words, words, s_words);
+  __syncthreads();
+  unsigned lo_m = 0u, hi_m = 0u;
+  add_keys<T>(keys, n, n_words, s_words, lo_m, hi_m);
+  block_range<T>(lo_m, hi_m, s_red, state);
+  __syncthreads();
+  const int r_words = n_words < REACH ? n_words : REACH;
+  const int n_slices = r_words >= 128 ? r_words / 128 : 1;
+  const int slice = r_words / n_slices;
+  const unsigned lane = threadIdx.x & 31u;
+  for (int j = threadIdx.x >> 5; j < n_slices; j += T / 32) {
+    const int s = (j + blockIdx.x) % n_slices;
+    unsigned t = 0;
+    if (lane == 0) t = atomicAdd(state + 2 + s, 1u);
+    t = __shfl_sync(0xffffffffu, t, 0);
+    unsigned* dst = words + s * slice;
+    const unsigned* src = s_words + s * slice;
+    if (t == 0) {
+      for (int i = lane; i < slice; i += 32) dst[i] = src[i];
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) atomicExch(state + 2 + n_slices + s, 1u);
+    } else {
+      if (lane == 0) while (atomicAdd(state + 2 + n_slices + s, 0u) == 0u) __nanosleep(64);
+      __syncwarp();
+      __threadfence();
+      for (int i = lane; i < slice; i += 32) { const unsigned v = src[i]; if (v) atomicOr(dst + i, v); }
+    }
+  }
+}
+
+template <typename K>
+int bb_smem(K kernel, int smem, bool non_portable) {
+  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && non_portable)
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return (int)e;
+}
+
+template <typename K, typename... A>
+int bb_cluster_launch(K kernel, int clusters, int cs, int smem, cudaStream_t st, A... args) {
+  int e = bb_smem(kernel, REACH * 4, cs > 8);
+  if (e) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * cs);
+  cfg.blockDim = dim3(1024);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t r = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return r != cudaSuccess ? (int)r : (int)cudaGetLastError();
+}
+
+// variant v (BB_VARIANTS) at 1,024 threads; scratch: the cluster merge's
+// partials; state: zeroed (2 + 2 * 128 words)
+int bb_variant(int v, const int* k, long long n, int nw, unsigned* w, unsigned* scratch,
+               unsigned* state, int blocks, cudaStream_t st) {
+  const int r = nw < REACH ? nw : REACH;
+  int e = 0;
+  switch (v) {
+    case 0:
+      e = bb_smem(bloom_build_atomic_kernel<1024, false, false, false, false>, REACH * 4, false);
+      if (!e) bloom_build_atomic_kernel<1024, false, false, false, false><<<blocks, 1024, r * 4, st>>>(k, n, nw, w, state);
+      break;
+    case 1:
+      e = bb_smem(bloom_build_atomic_kernel<1024, true, true, false, false>, REACH * 4, false);
+      if (!e) bloom_build_atomic_kernel<1024, true, true, false, false><<<blocks, 1024, r * 4, st>>>(k, n, nw, w, state);
+      break;
+    case 7:
+      e = bb_smem(bloom_build_atomic_kernel<1024, true, false, true, false>, REACH * 4, false);
+      if (!e) bloom_build_atomic_kernel<1024, true, false, true, false><<<blocks, 1024, r * 4, st>>>(k, n, nw, w, state);
+      break;
+    case 8:
+      e = bb_smem(bloom_build_atomic_kernel<1024, true, false, false, true>, REACH * 4, false);
+      if (!e) bloom_build_atomic_kernel<1024, true, false, false, true><<<blocks, 1024, r * 4, st>>>(k, n, nw, w, state);
+      break;
+    case 9:
+      e = bb_smem(bloom_build_control_kernel<1024>, REACH * 4, false);
+      if (!e) bloom_build_control_kernel<1024><<<blocks, 1024, r * 4, st>>>(k, n, nw, w, state);
+      break;
+    case 2: return bb_cluster_launch(bloom_build_cluster_kernel<1024>, 8, 8, r * 4, st, k, n, nw, w, scratch, state);
+    case 3: return bb_cluster_launch(bloom_build_cluster_kernel<1024>, 4, 16, r * 4, st, k, n, nw, w, scratch, state);
+    case 4: return bb_cluster_launch(bloom_build_spread_kernel<1024, 8>, 15, 8, r / 8 * 4, st, k, n, nw, w, state);
+    case 5: return bb_cluster_launch(bloom_build_spread_kernel<1024, 4>, 30, 4, r / 4 * 4, st, k, n, nw, w, state);
+    default:
+      e = bb_smem(bloom_build_first_kernel<1024>, REACH * 4, false);
+      if (!e) bloom_build_first_kernel<1024><<<blocks, 1024, r * 4, st>>>(k, n, nw, w, state);
+  }
+  return e ? e : (int)cudaGetLastError();
+}
+"""
+
+
+def _bloom_source() -> str:
+    lines = ["#include <cooperative_groups.h>", f'#include "{build.CSRC / "bloom_filter.cu"}"',
+             "namespace {", BB_VARIANT_KERNEL, "}  // namespace"]
+    for t in BB_THREADS:
+        lines.append(
+            f"extern \"C\" int bb_{t}(const int* k, long long n, int nw, unsigned* w, "
+            f"unsigned* st, int blocks, void* s) {{ return build_launch<{t}>(k, n, nw, w, st, "
+            f"blocks, (cudaStream_t)s); }}")
+    lines.append(
+        "extern \"C\" int bb_variant_launch(int v, const int* k, long long n, int nw, "
+        "unsigned* w, unsigned* scratch, unsigned* st, int blocks, void* s) { return "
+        "bb_variant(v, k, n, nw, w, scratch, st, blocks, (cudaStream_t)s); }")
+    return "\n".join(lines) + "\n"
+
+
 def _rp_small(v) -> bool:
     """Whether variant ``v`` launches as the small instance does (one-key
     and no-shared-memory shapes): its blocks per SM and one copy."""
@@ -320,7 +650,8 @@ def build_libraries(parent):
     each, all started together."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {"je": _instances_source(), "ge": _emit_source(), "hp": _probe_source(),
-            "fd": _dedup_source(), "rp": _radix_source(), "sp": _sip_source()}
+            "fd": _dedup_source(), "rp": _radix_source(), "sp": _sip_source(),
+            "bb": _bloom_source()}
     srcs = {}
     for name, text in jobs.items():
         srcs[name] = OUT_DIR / f"{name}_sweep.cu"
@@ -353,6 +684,9 @@ def build_libraries(parent):
         getattr(libs["rp"], _rp_name(v, bps)).argtypes = [P, L, I, I, P, P, P, P, P]
     for it in SIP_ITEMS:
         getattr(libs["sp"], f"sp_{it}").argtypes = [P, P, P, I, I, P]
+    for t in BB_THREADS:
+        getattr(libs["bb"], f"bb_{t}").argtypes = [P, L, I, P, P, I, P]
+    libs["bb"].bb_variant_launch.argtypes = [I, P, L, I, P, P, P, I, P]
     if "parent_ee" in libs:
         libs["parent_ee"].expr_eval_launch.argtypes = [P, P, P, L, P, P, P]
     if parent is not None:
@@ -362,6 +696,8 @@ def build_libraries(parent):
         # one key a thread, a histogram the caller zeroes; one query a thread
         libs["parent_rp"].radix_partition_launch.argtypes = [P, L, I, P, P, P]
         libs["parent_bf"].bloom_probe_launch.argtypes = [P, I, P, I, P, P]
+        # one key a thread, atomics into words the caller zeroed
+        libs["parent_bf"].bloom_build_launch.argtypes = [P, L, I, P, P]
     return libs
 
 
@@ -1024,6 +1360,104 @@ def sweep_sip_step(libs, rng, dev):
     return res
 
 
+def _bloom_keys(rng, dev, n, order):
+    """Keys in [0, 300,000) (wider past 2^18) in ``order``: random, the hash
+    join's grouped layout (by radix partition at its partition count, then
+    key), all equal, or half NULL."""
+    if order == "all equal":
+        return torch.full((n,), 12345, dtype=torch.int32, device=dev)
+    keys = torch.from_numpy(rng.randint(0, max(300_000, n // 4), n).astype(np.int32)).to(dev)
+    if order == "half NULL":
+        keys[torch.from_numpy(rng.permutation(n)[: n // 2]).to(dev)] = -1
+    if order == "grouped":
+        from repro_torch.core.operators.hash_join import _n_parts_for
+
+        keys = CS._engine_order(keys, _n_parts_for(n))
+    return keys
+
+
+def sweep_bloom_build(libs, rng, dev):
+    """bloom_build at BB_KEYS keys in BB_ORDERS: the wrapper's kernel (device
+    ms, kernel only) and its time per call; the parent's one-thread-a-key kernel
+    (--parent) alone and with its wrapper's zero fill, aminmax and stack
+    (device ms of all of them), and its wrapper's time per call, taken in
+    turns with this tree's (parent, this, this, parent); in random order
+    (and every order at the q6 shape) this tree's kernel at each of
+    BB_THREADS and BB_BLOCKS; and the merges that lost (BB_VARIANTS). Every
+    launch is checked against the plain version first."""
+    from repro_torch.core import vecops as TV
+    from repro_torch.kernels import bloom_filter as BF
+
+    bb = libs["bb"]
+    st = build.stream_handle(torch.empty(1, device=dev))
+    scratch = torch.empty(16 * BF.REACH, dtype=torch.int32, device=dev)
+    res = {}
+    for n in BB_KEYS:
+        for order in BB_ORDERS:
+            keys = _bloom_keys(rng, dev, n, order)
+            nw = TV.bloom_n_words(n)
+            r = min(nw, BF.REACH)
+            want = BF.bloom_build_plain(keys, nw)
+            words = torch.empty(nw, dtype=torch.int32, device=dev)
+            row = {"bound_ms": CS.bound(4 * n + 4 * nw, 12 * n)[0]}
+
+            def checked(label, fn):
+                CS.require(torch.equal(fn(), want), f"bloom_build {label} disagrees ({n}, {order})")
+                return CS.device_ms(fn, 100, kernel="bloom_build")
+
+            row["wrapper"] = checked("wrapper", lambda: BF.bloom_build(keys)[0])
+            if "parent_bf" in libs:
+                f = libs["parent_bf"].bloom_build_launch
+
+                def parent_kernel():
+                    build.check(f(keys.data_ptr(), n, nw, words.data_ptr(), st), "parent")
+                    return words
+
+                def parent_wrapper():
+                    w = torch.zeros(nw, dtype=torch.int32, device=dev)
+                    build.check(f(keys.data_ptr(), n, nw, w.data_ptr(), st), "parent")
+                    lo, hi = torch.aminmax(keys)
+                    return w, torch.stack([lo, hi])
+
+                words.zero_()
+                row["parent kernel"] = checked("parent", parent_kernel)
+                CS.require(torch.equal(parent_wrapper()[0], want), "parent wrapper disagrees")
+                row["parent with fill and range"] = CS.device_ms(parent_wrapper, 100)
+                ours = lambda: BF.bloom_build(keys)  # noqa: E731
+                theirs = lambda: parent_wrapper()[1].tolist()  # noqa: E731
+                calls = [CS.call_ms(fn, 100) for fn in (theirs, ours, ours, theirs)]
+                row["call ms (parent, this, this, parent)"] = calls
+            if order == "random" or n == 1_369_041:
+                for t in (BB_THREADS if order == "random" else (1024,)):
+                    g = getattr(bb, f"bb_{t}")
+                    for blocks in BB_BLOCKS:
+                        if blocks > max(1, -(-n // 512)):
+                            continue
+
+                        def launch(g=g, blocks=blocks):
+                            state = build.zeroed(dev, BF.STATE_WORDS, st)
+                            build.check(g(keys.data_ptr(), n, nw, words.data_ptr(),
+                                          state.data_ptr(), blocks, st), "bloom_build")
+                            return words
+                        row[f"{t} threads, {blocks} blocks"] = checked(f"{t}x{blocks}", launch)
+                for name, v in BB_VARIANTS.items():
+                    if v in (4, 5) and r < 64:
+                        continue
+
+                    def variant(v=v):
+                        if v in (0, 4, 5):
+                            words[:r].zero_()
+                        state = build.zeroed(dev, 2 + 2 * 128, st)
+                        build.check(bb.bb_variant_launch(
+                            v, keys.data_ptr(), n, nw, words.data_ptr(), scratch.data_ptr(),
+                            state.data_ptr(), BF.launch_shape(n), st), name)
+                        return words
+                    row[name] = checked(name, variant)
+            res[f"{n} keys, {order}"] = row
+            CS.log(f"bloom_build {n} keys, {order}: {json.dumps(row)}")
+    return res
+
+
 def _sip_variant(libs, items, desc, mask_in, out, n):
     """One launch of the swept probe instance at ``items`` rows a thread."""
     f = getattr(libs["sp"], f"sp_{items}")
@@ -1061,7 +1495,8 @@ def main(argv=None) -> int:
             "join_expand": lambda: sweep_join_expand(libs, rng, dev),
             "gather_emit": lambda: sweep_gather_emit(libs, rng, dev),
             "radix_partition": lambda: sweep_radix_partition(libs, rng, dev),
-            "sip_step": lambda: sweep_sip_step(libs, rng, dev)}
+            "sip_step": lambda: sweep_sip_step(libs, rng, dev),
+            "bloom_build": lambda: sweep_bloom_build(libs, rng, dev)}
     res = {"card": card}
     for name in SWEEPS:
         if name in only:

@@ -39,6 +39,7 @@ from repro_torch.core.operators.aggregate import (
     StreamingGroupBy,
 )
 from repro_torch.core.operators.base import BatchOperator, close_tree
+from repro_torch.core.operators.cross import CrossJoin
 from repro_torch.core.operators.hash_join import HashJoin
 from repro_torch.core.operators.lookup_join import LookupJoin
 from repro_torch.core.operators.merge_join import MergeJoin
@@ -202,7 +203,7 @@ class Translator:
                 "the legacy row engine and the batch/row adapters",
             )
         if isinstance(n, PL.PCross):
-            raise _not_ported("the cross join", "the remaining sort-join operators")
+            return CrossJoin(self._build(n.left), self._build(n.right), dev, pool=pool)
         if isinstance(n, PL.PFilter):
             return FilterOp(self._build(n.child), n.expr, d, program=n.program)
         if isinstance(n, PL.PExtend):

@@ -4,9 +4,9 @@ information passing (SIP).
 ``bloom_build(keys)`` summarises a join's build-side key column as
 ``(words, lo, hi)``: ``bloom_n_words(len(keys))`` filter words, each key
 setting two bits of one word (``vecops.bloom_hash``), and the inclusive
-code range ``[lo, hi]`` (host ints, from one ``torch.aminmax`` on the
-device). An empty build gives all-zero words and the empty range (0, -1).
-Words are an int32 tensor holding the uint32 bit patterns.
+code range ``[lo, hi]`` (host ints). An empty build gives all-zero words
+and the empty range (0, -1). Words are an int32 tensor holding the uint32
+bit patterns.
 
 ``bloom_probe(words, queries)`` is the (C,) bool membership mask: True
 where both of the query's bits are set in its word. No false negatives;
@@ -22,7 +22,13 @@ a ``mask`` of None reads as all True.
 Keys of -1 (NULL_ID) hash like any other value. The Pallas build kernel
 skips INT32_MIN keys (its padding); codes are >= -1, so it never arises.
 
-CUDA kernels: ``csrc/bloom_filter.cu``. ``bloom_probe`` and ``sip_mask``
+CUDA kernels: ``csrc/bloom_filter.cu``. The build is one launch that
+writes every word and the key range: each block ORs its keys into a copy of
+the ``REACH`` words a key can reach in shared memory, and the blocks OR
+their copies into the words with global atomics (``launch_shape`` gives
+the blocks); the range, a start ticket and a flag come in ``STATE_WORDS``
+words cut from a zeroed slab (``build.zeroed``), and the range comes back
+with one device-to-host read. ``bloom_probe`` and ``sip_mask``
 are two entry points of one kernel: ``sip_mask`` passes up to ``SIP_TERMS``
 filters by value in one launch (a longer list takes further launches over
 the same mask), and ``bloom_probe`` is its one-filter case over the whole
@@ -50,6 +56,17 @@ _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 # filters one launch's descriptor holds (csrc/bloom_filter.cu), checked
 # when the library loads
 SIP_TERMS = 4
+# the build's compiled shape (csrc/bloom_filter.cu), checked when the
+# library loads: threads a block, the words a key can reach ((h1 >> 18)
+# has 14 bits), and the zeroed state words (the range, a start ticket and
+# the flag that the reachable words are zero, on three L2 lines)
+BUILD_THREADS = 1024
+REACH = 1 << 14
+STATE_WORDS = 96
+# the build's launch shape (kernel_sweep.py's choice): a block for every
+# KEYS_PER_BLOCK keys, at most BUILD_BLOCKS (one an SM of the H100)
+KEYS_PER_BLOCK = 8192
+BUILD_BLOCKS = 132
 _DESC_WORDS = 4 * SIP_TERMS + 1  # 64-bit words: four a filter, then the count
 build_launches = 0
 probe_launches = 0
@@ -63,8 +80,20 @@ def _key_range(keys: torch.Tensor) -> Tuple[int, int]:
     if int(keys.shape[0]) == 0:
         return 0, -1
     lo, hi = torch.aminmax(keys)
-    lo_h, hi_h = torch.stack([lo, hi]).tolist()  # one device-to-host read
-    return int(lo_h), int(hi_h)
+    return int(lo), int(hi)
+
+
+def _decode_range(lo_m: int, hi_m: int) -> Tuple[int, int]:
+    """The kernel's range words: the maxima of ``~(key ^ 2^31)`` and of
+    ``key ^ 2^31`` as uint32 (int32 here), so zero is their identity."""
+    lo_m, hi_m = lo_m & 0xFFFFFFFF, hi_m & 0xFFFFFFFF
+    return (1 << 31) - 1 - lo_m, hi_m - (1 << 31)
+
+
+def launch_shape(n: int) -> int:
+    """The blocks of a build of ``n`` keys: one for every ``KEYS_PER_BLOCK``
+    keys, at most ``BUILD_BLOCKS``. One block alone stores its copy."""
+    return min(BUILD_BLOCKS, max(1, -(-n // KEYS_PER_BLOCK)))
 
 
 def bloom_build_plain(keys: torch.Tensor, n_words: int) -> torch.Tensor:
@@ -119,21 +148,25 @@ def bloom_build(keys: torch.Tensor,
     n = int(keys.shape[0])
     if n_words is None:
         n_words = vecops.bloom_n_words(n)
-    if n_words < 1 or n_words & (n_words - 1):
-        raise ValueError(f"bloom_build: n_words={n_words} is not a power of two")
+    if n_words < 1 or n_words & (n_words - 1) or n_words > 1 << 30:
+        raise ValueError(f"bloom_build: n_words={n_words} is not a power of two up to 2^30")
     dev = keys.device
     if dev.type == "cpu":
         return (bloom_build_plain(keys, n_words), *_key_range(keys))
     if dev.type != "cuda":
         raise ValueError(f"bloom_build: unsupported device {dev}")
-    words = torch.zeros(n_words, dtype=_I32, device=dev)
-    if n:
-        lib = build.library()
-        build.check(lib.bloom_build_launch(
-            keys.data_ptr(), n, n_words, words.data_ptr(), build.stream_handle(keys),
-        ), "bloom_build")
-        build_launches += 1
-    return (words, *_key_range(keys))
+    stream = build.stream_handle(keys)
+    words = torch.empty(n_words, dtype=_I32, device=dev)
+    state = build.zeroed(dev, STATE_WORDS, stream)
+    lib = build.library()
+    _check_build_limits(lib)
+    build.check(lib.bloom_build_launch(
+        keys.data_ptr(), n, n_words, words.data_ptr(), state.data_ptr(), launch_shape(n),
+        stream), "bloom_build")
+    build_launches += 1
+    if n == 0:
+        return words, 0, -1
+    return (words, *_decode_range(*state[:2].tolist()))  # one device-to-host read
 
 
 def bloom_probe(words: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
@@ -232,6 +265,15 @@ def _descriptor(chunk: Sequence[SipTerm]) -> ctypes.Array:
         d[4 * k + 3] = (lo & 0xFFFFFFFF) | (hi & 0xFFFFFFFF) << 32
     d[4 * SIP_TERMS] = len(chunk)
     return d
+
+
+@functools.lru_cache(maxsize=1)
+def _check_build_limits(lib) -> None:
+    got = [ctypes.c_int() for _ in range(3)]
+    lib.bloom_build_limits(*[ctypes.byref(x) for x in got])
+    want = (BUILD_THREADS, REACH, STATE_WORDS)
+    if tuple(x.value for x in got) != want:
+        raise RuntimeError(f"bloom_build: kernel shape {[x.value for x in got]} != {want}")
 
 
 @functools.lru_cache(maxsize=1)

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -33,7 +33,12 @@ NVCC_FLAGS = [
 # its own, checked against it when the library loads
 SMEM_MAX = 232_448
 
+# int32 words a slab of zeros holds (4 MB)
+SLAB = 1 << 20
+
 _lib: Optional[ctypes.CDLL] = None
+# (device index, stream handle) -> [slab of zeros, words handed out]
+_slabs: Dict[Tuple[int, int], list] = {}
 
 
 def sources() -> List[Path]:
@@ -127,7 +132,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "radix_partition_launch": [P, L, I, I, I, P, P, P],
         "radix_partition_limits": [P, P, P, P, P, P],
         "hash_probe_launch": [P, I, P, P, P, P, I, P, P, P],
-        "bloom_build_launch": [P, L, I, P, P],
+        "bloom_build_launch": [P, L, I, P, P, I, P],
+        "bloom_build_limits": [P, P, P],
         "bloom_probe_launch": [P, I, P, I, P, P],
         "sip_mask_launch": [P, P, P, I, I, P],
         "sip_mask_limits": [P, P],
@@ -154,3 +160,19 @@ def stream_handle(t) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def zeroed(device, n: int, stream: int):
+    """``n`` int32 zeros on ``device``, cut from a slab that is zeroed once
+    on ``stream`` for many calls (a kernel that adds into zeros, such as
+    radix_partition's histogram or bloom_build's range and tickets, needs
+    no fill launch of its own). Each piece is handed out once."""
+    import torch
+
+    key = (device.index, stream)
+    slab = _slabs.get(key)
+    if slab is None or slab[1] + n > SLAB:
+        slab = _slabs[key] = [torch.zeros(SLAB, dtype=torch.int32, device=device), 0]
+    piece = slab[0][slab[1]: slab[1] + n]
+    slab[1] += n
+    return piece

@@ -18,7 +18,7 @@ a key view at any 4-byte phase takes vector loads and stores;
 ``launch_shape`` picks the instance (batch, small or large, each with its
 blocks per SM compiled in) and the sub-histogram copies a block keeps.
 The kernel adds into a histogram that starts at zero: the wrapper cuts it
-from a slab of zeros (``_zeroed``) that one fill makes ready for many
+from a slab of zeros (``build.zeroed``) that one fill makes ready for many
 calls, so a call is one launch.
 ``radix_partition_plain`` is the same function in PyTorch; the wrapper
 takes it for CPU tensors only.
@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -58,11 +58,7 @@ MAX_COPIES = 4
 # what the card reserves for each block
 SM_SMEM = 233_472
 BLOCK_RESERVE = 1024
-# int32 bins a slab of zeroed histograms holds (4 MB)
-SLAB = 1 << 20
 launches = 0
-# (device index, stream handle) -> [slab of zeros, bins handed out]
-_slabs: Dict[Tuple[int, int], list] = {}
 
 
 def radix_partition_plain(keys: torch.Tensor, n_parts: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -109,18 +105,6 @@ def _check_limits(lib) -> None:
         raise RuntimeError(f"radix_partition: kernel shapes {[x.value for x in got]} != {want}")
 
 
-def _zeroed(keys: torch.Tensor, n_parts: int, stream: int) -> torch.Tensor:
-    """``n_parts`` int32 zeros on ``keys``' device, cut from a slab that is
-    zeroed once on ``stream`` for many histograms."""
-    key = (keys.get_device(), stream)
-    slab = _slabs.get(key)
-    if slab is None or slab[1] + n_parts > SLAB:
-        slab = _slabs[key] = [torch.zeros(SLAB, dtype=torch.int32, device=keys.device), 0]
-    hist = slab[0][slab[1]: slab[1] + n_parts]
-    slab[1] += n_parts
-    return hist
-
-
 def radix_partition(keys: torch.Tensor, n_parts: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pid (n,) int32, histogram (n_parts,) int32) — see module docstring."""
     global launches
@@ -139,7 +123,7 @@ def radix_partition(keys: torch.Tensor, n_parts: int) -> Tuple[torch.Tensor, tor
     off = pid_offset(keys.data_ptr(), buf.data_ptr())
     pid = buf[off: off + n]
     stream = build.stream_handle(keys)
-    hist = _zeroed(keys, n_parts, stream)
+    hist = build.zeroed(keys.device, n_parts, stream)
     lib = build.library()
     _check_limits(lib)
     build.check(lib.radix_partition_launch(

@@ -87,11 +87,22 @@ def _path_scan_plan():
     return PL.PPathScan(A.TriplePattern(A.V(0), A.K(":knows"), A.V(1), A.K(":default")))
 
 
+def _grace_join_plan():
+    """A hand-built grace (partitioned, out-of-core) hash join, which the
+    planner emits only under a memory budget."""
+    from repro_torch.core import algebra as A
+    from repro_torch.core import planner as PL
+
+    def scan(pred, obj):
+        return PL.PScan(A.TriplePattern(A.V(0), A.K(pred), A.V(obj), A.K(":default")), None)
+
+    return PL.PHashJoin(scan(":knows", 1), scan(":hasInterest", 2), keys=(0,), grace=True)
+
+
 @pytest.mark.parametrize("query,what", [
-    # a disconnected BGP plans a cross product (PCross)
-    ("SELECT ?a ?b ?c ?d { ?a :knows ?b . ?c :hasInterest ?d }", "cross join"),
+    (_grace_join_plan, "grace"),
     (_path_scan_plan, "PPathScan"),
-], ids=["cross product", "PPathScan"])
+], ids=["grace hash join", "PPathScan"])
 def test_plan_outside_the_slice_raises(query, what):
     engine = repro_torch.Engine(_cpu_store(), device="cpu")
     with pytest.raises(NotImplementedError, match=what):
