@@ -6,14 +6,16 @@ package, drains the root on the store's device, and copies the projected
 rows to the host once, at the end of the query.
 
 This package covers the reference's default configuration (cost-based
-join strategy, cost-gated SIP) and the forced ``hash`` / ``merge`` and
-SIP ``on`` / ``off`` settings: scans with seek and SIP prefilters, merge,
-lookup and radix-partitioned hash joins (inner / left_outer / semi /
-anti), FILTER and BIND through the expression VM, streaming and
-sort-based GROUP BY with plain and DISTINCT aggregates, DISTINCT, ORDER
-BY, LIMIT/OFFSET, UNION, and property paths through the vectorized
-frontier engine (``PathExpand``). A configuration or plan node outside it
-raises
+join strategy, cost-gated SIP), the forced ``hash`` / ``merge`` and SIP
+``on`` / ``off`` settings, memory budgets with ``spill_dir`` and the
+adaptive merge join: scans with seek and SIP prefilters, merge (with a
+spilling right window), lookup and radix-partitioned hash joins (inner /
+left_outer / semi / anti; grace under a budget), cross products, FILTER
+and BIND through the expression VM, streaming, sort-based and
+partitioned GROUP BY with plain and DISTINCT aggregates, DISTINCT
+(partitioned under a budget), ORDER BY, LIMIT/OFFSET, UNION, and
+property paths through the vectorized frontier engine (``PathExpand``).
+A configuration or plan node outside it raises
 ``NotImplementedError`` naming the part of the port that will bring it; the
 engine never evaluates a query some other way.
 """
@@ -21,6 +23,7 @@ engine never evaluates a query some other way.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -32,7 +35,10 @@ from repro_torch.core.adaptive import AdaptiveBatchSizer
 from repro_torch.core.batch import NULL_ID, BatchPool, bucket_for
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dictionary import Dictionary
+from repro_torch.core.operators.adaptive_join import AdaptiveMergeJoin
 from repro_torch.core.operators.aggregate import (
+    PartitionedDistinct,
+    PartitionedGroupBy,
     SortDistinct,
     SortGroupBy,
     StreamingDistinct,
@@ -63,9 +69,7 @@ _SUPPORTED = {
     "engine": (("barq",), "the legacy row engine with the batch/row adapters"),
     "join_strategy": ((None, "hash", "merge"), None),
     "sip": ((None, "on", "off"), None),
-    "memory_budget": ((None,), "the out-of-core slice"),
-    "spill_dir": ((None,), "the out-of-core slice"),
-    "adaptive_join": (("off",), "the out-of-core and adaptive slice"),
+    "adaptive_join": ((None, "off", "on"), None),
     "cardinality_feedback": (("off",), "the telemetry slice"),
 }
 
@@ -96,6 +100,11 @@ class EngineConfig:
     def check(self) -> None:
         """Raise NotImplementedError for a value this package has not
         ported, ValueError for one the reference does not accept either."""
+        mb = self.memory_budget
+        if mb is not None and (isinstance(mb, bool) or not isinstance(mb, int) or mb < 0):
+            raise ValueError(f"EngineConfig.memory_budget={mb!r}: expected None or bytes >= 0")
+        if self.spill_dir is not None and not isinstance(self.spill_dir, (str, os.PathLike)):
+            raise ValueError(f"EngineConfig.spill_dir={self.spill_dir!r}: expected None or a path")
         for name, (values, later) in _SUPPORTED.items():
             got = getattr(self, name)
             if got not in values:
@@ -158,6 +167,24 @@ class Translator:
         if isinstance(n, PL.PSort):
             return SortByVarOp(self._build(n.child), n.var, dev, self.cfg.max_batch, pool=pool)
         if isinstance(n, PL.PMergeJoin):
+            if (
+                self.cfg.adaptive_join == "on"
+                and n.adaptive_ok
+                and not n.sip_exports
+                and isinstance(n.right, PL.PSort)
+                and n.right.var == n.var
+            ):
+                # defer sort-vs-hash until the build input's true size is
+                # known: the planned Sort is a pipeline breaker, no
+                # ancestor consumes this join's order (adaptive_ok), and no
+                # SIP export hangs off the build window
+                return AdaptiveMergeJoin(
+                    self._build(n.left), self._build(n.right.child), n.var, dev,
+                    mode=n.mode, post_filter=n.post_filter, dictionary=d,
+                    post_program=n.post_program, pool=pool, spill_dir=self.cfg.spill_dir,
+                    est_build=getattr(n.right, "est_rows", 0.0) or 0.0,
+                    memory_budget=self.cfg.memory_budget,
+                )
             left, right = self._build(n.left), self._build(n.right)
             # SIP export: bloom keys off a Sort's materialization, or a code
             # range off a sorted scan; anything else stays pass-through
@@ -171,19 +198,19 @@ class Translator:
                 left, right, n.var, dev,
                 mode=n.mode, post_filter=n.post_filter, dictionary=d,
                 sizer=self._join_sizer(), allow_child_skip=self.cfg.allow_child_skip,
-                pool=pool, post_program=n.post_program,
+                pool=pool, post_program=n.post_program, spill_dir=self.cfg.spill_dir,
             )
         if isinstance(n, PL.PLookupJoin):
             return LookupJoin(
                 self._build(n.probe), self._build(n.build), n.var, dev, n.mode, pool=pool
             )
         if isinstance(n, PL.PHashJoin):
-            if n.grace:
-                raise _not_ported("the grace (partitioned) hash join", "the out-of-core slice")
             op = HashJoin(
                 self._build(n.probe), self._build(n.build), n.keys, dev,
                 mode=n.mode, post_filter=n.post_filter, dictionary=d,
                 sizer=self._join_sizer(), pool=pool, post_program=n.post_program,
+                memory_budget=self.cfg.memory_budget, spill_dir=self.cfg.spill_dir,
+                grace=True if n.grace else None, grace_parts=n.grace_parts,
             )
             # SIP export: the materialized build layout gives the bloom keys
             for ann in n.sip_exports:
@@ -213,15 +240,17 @@ class Translator:
         if isinstance(n, PL.PProject):
             return ProjectOp(self._build(n.child), n.vars, dev, pool=pool)
         if isinstance(n, PL.PDistinct):
-            if n.grace:
-                raise _not_ported("partitioned DISTINCT", "the out-of-core slice")
             child = self._build(n.child)
             if n.streaming_var is not None and child.sorted_by() == n.streaming_var:
                 return StreamingDistinct(child, n.streaming_var, dev)
+            if n.grace:
+                return PartitionedDistinct(
+                    child, dev, self.cfg.max_batch, pool=pool,
+                    memory_budget=self.cfg.memory_budget, spill_dir=self.cfg.spill_dir,
+                    n_parts=n.grace_parts or 16,
+                )
             return SortDistinct(child, dev, self.cfg.max_batch)
         if isinstance(n, PL.PGroup):
-            if n.grace:
-                raise _not_ported("partitioned GROUP BY", "the out-of-core slice")
             child = self._build(n.child)
             if n.streaming and len(n.group_vars) <= 1:
                 gv = n.group_vars[0] if n.group_vars else None
@@ -229,6 +258,12 @@ class Translator:
                     return StreamingGroupBy(
                         child, gv, n.aggs, d, dev, self.cfg.max_batch, pool=pool
                     )
+            if n.grace and n.group_vars:
+                return PartitionedGroupBy(
+                    child, n.group_vars, n.aggs, d, dev, self.cfg.max_batch, pool=pool,
+                    memory_budget=self.cfg.memory_budget, spill_dir=self.cfg.spill_dir,
+                    n_parts=n.grace_parts or 16,
+                )
             return SortGroupBy(
                 child, n.group_vars, n.aggs, d, dev, self.cfg.max_batch, pool=pool
             )

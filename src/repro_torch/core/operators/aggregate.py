@@ -23,6 +23,13 @@ then reduce through ``segment_scan`` like the others. The run spanning a
 batch boundary collects each batch's unique bound codes as device chunks
 and dedups them once, with ``torch.unique``, when the run closes; a global
 group spans every batch of its input that way.
+
+Under a memory budget the planner marks GROUP BY and DISTINCT inputs over
+it partitioned: PartitionedGroupBy and PartitionedDistinct fan the input
+out by the group key (every visible column, for DISTINCT) into a
+``PartitionedRelation`` that spills to ``spill_dir``, then aggregate or
+dedup one partition at a time. Equal keys share a partition, so the
+per-partition outputs concatenate into the answer.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from repro_torch.core.dictionary import Dictionary
 from repro_torch.core.exprs.vm import numeric_of
 from repro_torch.core.operators.base import BatchOperator
 from repro_torch.core.operators.sort import MaterializedSource, materialize
+from repro_torch.core.partition import PartitionedRelation, fan_in
 from repro_torch.kernels.frontier_dedup import frontier_dedup
 
 _F64 = torch.float64
@@ -593,5 +601,134 @@ class SortDistinct(BatchOperator):
         return self._ensure().next_batch()
 
     def reset(self) -> None:
+        self.child.reset()
+        self._src = None
+
+
+class PartitionedGroupBy(SortGroupBy):
+    """GROUP BY over a partitioned input: the needed columns fan out by
+    group key into a budget / spill-aware PartitionedRelation, then the
+    sort-based block aggregation runs one partition at a time, so the
+    whole input is never sorted or resident at once."""
+
+    def __init__(
+        self,
+        child: BatchOperator,
+        group_vars: Sequence[int],
+        aggs: Sequence[AggSpec],
+        dictionary: Dictionary,
+        device: torch.device,
+        batch_size: int = MAX_BATCH,
+        pool: Optional[BatchPool] = None,
+        memory_budget: Optional[int] = None,
+        spill_dir: Optional[str] = None,
+        n_parts: int = 16,
+    ):
+        if not group_vars:
+            raise ValueError("partitioned grouping needs group keys")
+        super().__init__(child, group_vars, aggs, dictionary, device, batch_size, pool)
+        self.memory_budget = memory_budget
+        self.spill_dir = spill_dir
+        self.n_parts = max(2, n_parts)
+        self._rel: Optional[PartitionedRelation] = None
+        self.detail = "(partitioned)"
+
+    def _ensure(self) -> BatchOperator:
+        if self._src is not None:
+            return self._src
+        need, avars = self._need_vars()
+        rel = self._rel = PartitionedRelation(
+            len(need), self.n_parts, self.device, self.spill_dir, self.memory_budget, self.pool)
+        fan_in(self.child, rel, need, self.group_vars)
+        blocks = []
+        for p in range(self.n_parts):
+            part = rel.take(p)
+            if part.shape[1]:
+                blocks.append(self._aggregate_block(part, need, avars))
+        block = (torch.cat(blocks, dim=1) if blocks else
+                 torch.zeros((len(self.var_ids()), 0), dtype=torch.int32, device=self.device))
+        self.extra["grace_partitions"] = self.n_parts
+        self.extra["spill_bytes"] = rel.spill_bytes
+        self.extra["spill_files"] = rel.spill_files
+        self._src = MaterializedSource(
+            self.var_ids(), block, None, self.batch_size, name="GroupOut", pool=self.pool,
+        )
+        return self._src
+
+    def _close(self) -> None:
+        if self._rel is not None:
+            self._rel.close()
+
+    def reset(self) -> None:
+        self._close()
+        self._rel = None
+        super().reset()
+
+
+class PartitionedDistinct(BatchOperator):
+    """General DISTINCT over a partitioned input: rows fan out by all
+    their columns (equal rows share a partition), each partition dedups on
+    its own with ``torch.unique``, and the results concatenate. The output
+    is partition-major, so it claims no order."""
+
+    def __init__(
+        self,
+        child: BatchOperator,
+        device: torch.device,
+        batch_size: int = MAX_BATCH,
+        pool: Optional[BatchPool] = None,
+        memory_budget: Optional[int] = None,
+        spill_dir: Optional[str] = None,
+        n_parts: int = 16,
+    ):
+        self.child = child
+        self.device = device
+        self.batch_size = batch_size
+        self.pool = pool
+        self.memory_budget = memory_budget
+        self.spill_dir = spill_dir
+        self.n_parts = max(2, n_parts)
+        self._rel: Optional[PartitionedRelation] = None
+        self._src: Optional[MaterializedSource] = None
+        super().__init__("Distinct", "(partitioned)")
+
+    def var_ids(self) -> Tuple[int, ...]:
+        return self.child.var_ids()
+
+    def children(self) -> List[BatchOperator]:
+        return [self.child]
+
+    def _ensure(self) -> MaterializedSource:
+        if self._src is not None:
+            return self._src
+        vs = self.var_ids()
+        rel = self._rel = PartitionedRelation(
+            len(vs), self.n_parts, self.device, self.spill_dir, self.memory_budget, self.pool)
+        fan_in(self.child, rel, vs, vs)
+        blocks = []
+        for p in range(self.n_parts):
+            part = rel.take(p)
+            if part.shape[1]:
+                blocks.append(torch.unique(part, dim=1))
+        uniq = (torch.cat(blocks, dim=1).to(torch.int32) if blocks else
+                torch.zeros((len(vs), 0), dtype=torch.int32, device=self.device))
+        self.extra["grace_partitions"] = self.n_parts
+        self.extra["spill_bytes"] = rel.spill_bytes
+        self.extra["spill_files"] = rel.spill_files
+        self._src = MaterializedSource(
+            vs, uniq, None, self.batch_size, name="DistinctBuffer", pool=self.pool,
+        )
+        return self._src
+
+    def next_batch(self) -> Optional[ColumnBatch]:
+        return self._ensure().next_batch()
+
+    def _close(self) -> None:
+        if self._rel is not None:
+            self._rel.close()
+
+    def reset(self) -> None:
+        self._close()
+        self._rel = None
         self.child.reset()
         self._src = None

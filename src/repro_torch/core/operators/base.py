@@ -3,12 +3,17 @@
 Each operator pulls *batches* from its children via ``next_batch()`` and may
 reposition sorted children via ``skip()`` — BARQ's distinguishing addition to
 the vectorized pull model. ``reset()`` restarts iteration. The reference's
-per-operator runtime statistics (EXPLAIN ANALYZE) are not ported.
+per-operator runtime statistics (EXPLAIN ANALYZE) are not ported; the
+out-of-core and adaptive operators keep the reference's ``stats.extra``
+counters under its key names in a plain ``extra`` dict (``spill_bytes``,
+``spill_files``, ``grace_partitions``, ``repartitions``,
+``hash_build_rows``, ``adaptive_switches``, ``adaptive_qerror``) and their
+decision in ``detail``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.batch import ColumnBatch
 
@@ -16,8 +21,10 @@ from repro_torch.core.batch import ColumnBatch
 class BatchOperator:
     """Base class: pull-based batch iteration with skip support."""
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, detail: str = "") -> None:
         self.name = name
+        self.detail = detail
+        self.extra: Dict[str, float] = {}
 
     def next_batch(self) -> Optional[ColumnBatch]:
         """The next output batch, or None when exhausted."""

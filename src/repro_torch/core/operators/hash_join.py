@@ -23,8 +23,17 @@ key tuple is the constant-key join: inner is the cross product,
 left_outer the NULL-extending cross, anti "drop everything iff the build
 has a row".
 
-The out-of-core (grace) build is not ported; the translator refuses plans
-that ask for it.
+Out of core (grace): under a memory budget the build side fans out into
+a ``PartitionedRelation`` (``core/partition.py``) whose largest partitions
+spill to ``spill_dir``, the probe side fans out the same way, and the
+partitions are joined one at a time, each through the resident build
+above (``radix_partition``, ``hash_probe``, ``join_expand``,
+``gather_emit``). The planner directs it (``grace``), or a build the plan
+sized as resident that materialises over the budget switches at run time
+when the probe side is unsorted. A partition whose build still exceeds
+the budget re-partitions with the next level's hash, up to three levels;
+one whose keys are all equal builds resident. Grace emission follows the
+partitions, so it claims no order.
 """
 
 from __future__ import annotations
@@ -40,6 +49,13 @@ from repro_torch.core.exprs.vm import eval_program_mask
 from repro_torch.core.operators.base import BatchOperator
 from repro_torch.core.operators.simple import resolve_program
 from repro_torch.core.operators.sort import materialize
+from repro_torch.core.partition import (
+    PartitionedRelation,
+    fan_in,
+    next_pow2,
+    partition_ids_multi,
+    split_block,
+)
 from repro_torch.kernels.gather_emit import EmitPlan, gather_emit
 from repro_torch.kernels.hash_join import hash_build, hash_probe
 from repro_torch.kernels.join_expand import join_expand
@@ -49,6 +65,16 @@ _I32 = torch.int32
 # target rows per partition: keeps the in-partition binary search shallow
 _PART_TARGET = 4096
 _MAX_PARTS = 1024
+
+
+# grace mode: the top-level fan-out when the planner gave none, the
+# sub-fan-out of a recursive re-partition, the recursion depth cap (a bucket
+# still over budget at level 3 is one hot key and builds resident), and the
+# rows of a probe partition handed to the join at a time
+_GRACE_DEFAULT_PARTS = 32
+_GRACE_SUB_PARTS = 8
+_GRACE_MAX_LEVEL = 3
+_GRACE_PROBE_CHUNK = 4096
 
 
 def _n_parts_for(n_build: int) -> int:
@@ -75,6 +101,10 @@ class HashJoin(BatchOperator):
         pool: Optional[BatchPool] = None,
         post_program=None,  # compiled ExprProgram for post_filter (planner)
         n_parts: Optional[int] = None,
+        memory_budget: Optional[int] = None,  # bytes; None = resident only
+        spill_dir: Optional[str] = None,
+        grace: Optional[bool] = None,  # True = planner-directed grace build
+        grace_parts: int = 0,  # planner-chosen top-level fan-out (0 = default)
     ) -> None:
         if mode not in ("inner", "left_outer", "semi", "anti"):
             raise ValueError(f"unknown join mode {mode!r}")
@@ -92,6 +122,10 @@ class HashJoin(BatchOperator):
         self.sizer = sizer or AdaptiveBatchSizer(initial=256)
         self.pool = pool
         self._n_parts_cfg = n_parts
+        self.memory_budget = memory_budget
+        self.spill_dir = spill_dir
+        self.grace = grace
+        self.grace_parts = grace_parts
 
         pv, bv = tuple(probe.var_ids()), tuple(build.var_ids())
         self._pv, self._bv = pv, bv
@@ -120,6 +154,19 @@ class HashJoin(BatchOperator):
         self._hash_vars: Tuple[int, ...] = self.keys  # may shrink on overflow
         self._pair_vars: Tuple[int, ...] = self._extra_shared
 
+        # grace state: both sides fanned out by partition_ids_multi, then
+        # joined one partition at a time with the resident build above
+        self._grace_active = False
+        self._build_rel: Optional[PartitionedRelation] = None
+        self._probe_rel: Optional[PartitionedRelation] = None
+        self._probe_partitioned = False
+        # (build block, probe block, level) from re-partitioned skewed
+        # buckets, consumed before the next partition is taken
+        self._grace_stack: List[Tuple[torch.Tensor, torch.Tensor, int]] = []
+        self._next_gp = 0
+        self._gp_cols: Optional[torch.Tensor] = None  # current probe block
+        self._gp_off = 0
+
         # probe-side continuation state
         self._pending: Optional[Tuple] = None
         # (cb, matched) for left_outer batches that track matches per row
@@ -140,7 +187,8 @@ class HashJoin(BatchOperator):
         # probe order is preserved: expansions walk probe rows in order and
         # plain left_outer NULL rows are emitted in place. Tracked
         # left_outer queues its NULL rows after the batch's expansions.
-        if self._needs_tracking():
+        # Grace emission follows the partitions.
+        if self._grace_active or self.grace or self._needs_tracking():
             return None
         return self.probe.sorted_by()
 
@@ -157,22 +205,43 @@ class HashJoin(BatchOperator):
     def _ensure_built(self) -> None:
         if self._built:
             return
+        if self.grace and self.keys:
+            # planner-directed grace build: the build child streams straight
+            # into the partitioned relation and is never resident whole
+            self._grace_build_stream()
+            self._built = True
+            return
         bvars, bcols = materialize(self.build, self.device)
         self._bv = bvars
         self._plans = {}
-        self._n_build = int(bcols.shape[1])
-        if self.keys:
-            self._build_resident(bcols)
-        else:
+        n = int(bcols.shape[1])
+        self.extra["hash_build_rows"] = n
+        if not self.keys:
+            self._n_build = n
             self._bcols = bcols
+        elif (
+            self.memory_budget is not None
+            and n * len(bvars) * 4 > self.memory_budget
+            and self.probe.sorted_by() is None
+        ):
+            # the plan sized this build as resident but it is over the
+            # budget: go grace, where no ancestor relies on probe order
+            self._grace_switch_from_block(bcols)
+        else:
+            self._build_resident(bcols)
         self._built = True
 
     def _build_resident(self, bcols: torch.Tensor) -> None:
-        n = self._n_build
+        """Radix-build one device block (the whole build side, or one grace
+        partition). The span / pair layout and the emit plans are reset per
+        block: a multi-key span overflow in one grace partition must not
+        leak its primary-only fallback into the next."""
+        n = self._n_build = int(bcols.shape[1])
         kcols = bcols[[self._bv.index(k) for k in self.keys]]
         self._spans = None
         self._hash_vars = self.keys
         self._pair_vars = self._extra_shared
+        self._plans = {}
         if len(self.keys) > 1:
             # one sentinel slot per column (max+3) so clamped out-of-range
             # probe values can never collide with a real build key
@@ -198,12 +267,137 @@ class HashJoin(BatchOperator):
         self._skh = None if bh is None else bh[idx].contiguous()
         self._skl = bl[idx].contiguous()
 
+    # -- grace phase -------------------------------------------------------------
+
+    def _init_rels(self, n_parts: int) -> None:
+        half = None if self.memory_budget is None else max(self.memory_budget // 2, 1)
+        self._build_rel = PartitionedRelation(
+            len(self._bv), n_parts, self.device, self.spill_dir, half, self.pool)
+        self._probe_rel = PartitionedRelation(
+            len(self._pv), n_parts, self.device, self.spill_dir, half, self.pool)
+        self._next_gp = 0
+        self._grace_stack = []
+        self._gp_cols = None
+        self._gp_off = 0
+        self._probe_partitioned = False
+        self.extra["grace_partitions"] = n_parts
+        self.extra.setdefault("repartitions", 0)
+
+    def _grace_build_stream(self) -> None:
+        self._init_rels(max(2, next_pow2(self.grace_parts or _GRACE_DEFAULT_PARTS)))
+        self.extra["hash_build_rows"] = fan_in(self.build, self._build_rel, self._bv, self.keys)
+        self._grace_active = True
+        self._refresh_grace_stats()
+
+    def _grace_switch_from_block(self, bcols: torch.Tensor) -> None:
+        # fan-out sized so that an average partition fits in half the
+        # budget (the other half is headroom for the probe partitions)
+        nbytes = int(bcols.numel()) * 4
+        self._init_rels(min(256, max(2, next_pow2(-(-nbytes // max(self.memory_budget // 2, 1))))))
+        pids = partition_ids_multi([bcols[self._bv.index(k)] for k in self.keys],
+                                   self._build_rel.n_parts)
+        self._build_rel.append(bcols, pids)
+        self._grace_active = True
+        self.extra["adaptive_switches"] = 1
+        self.detail += " grace"
+        self._refresh_grace_stats()
+
+    def _refresh_grace_stats(self) -> None:
+        rels = [r for r in (self._build_rel, self._probe_rel) if r is not None]
+        self.extra["spill_bytes"] = sum(r.spill_bytes for r in rels)
+        self.extra["spill_files"] = sum(r.spill_files for r in rels)
+
+    def _grace_next_probe(self) -> Optional[ColumnBatch]:
+        """The probe source while grace is active: chunks of the current
+        partition's probe block, moving on between partitions. None when
+        exhausted, or when leftovers were queued (the caller flushes them
+        before asking again)."""
+        if not self._probe_partitioned:
+            fan_in(self.probe, self._probe_rel, self._pv, self.keys)
+            self._probe_partitioned = True
+            self._refresh_grace_stats()
+        while True:
+            if self._gp_cols is not None:
+                n = int(self._gp_cols.shape[1])
+                if self._gp_off < n:
+                    j = min(self._gp_off + _GRACE_PROBE_CHUNK, n)
+                    chunk = self._gp_cols[:, self._gp_off: j]
+                    self._gp_off = j
+                    return ColumnBatch.from_columns(
+                        self._pv, list(chunk), self.device, pool=self.pool)
+                self._gp_cols = None
+            if self._leftovers:
+                return None
+            if not self._grace_advance():
+                return None
+
+    def _grace_advance(self) -> bool:
+        """Move to the next joinable (build, probe) partition pair. A
+        skewed bucket over the budget re-partitions with the next level's
+        hash instead of building an over-budget table."""
+        while True:
+            if self._grace_stack:
+                bblock, pblock, level = self._grace_stack.pop()
+            elif self._next_gp < self._build_rel.n_parts:
+                g = self._next_gp
+                self._next_gp += 1
+                bblock = self._build_rel.take(g)
+                pblock = self._probe_rel.take(g)
+                level = 0
+                self._refresh_grace_stats()
+            else:
+                return False
+            if pblock.shape[1] == 0:
+                continue
+            if bblock.shape[1] == 0:
+                # probe-only partition: inner and semi emit nothing; anti
+                # and left_outer NULL-extend every probe row through the
+                # leftovers (anti has no build columns, so emits them as is)
+                if self.mode in ("anti", "left_outer"):
+                    self._leftovers.append(pblock)
+                    return True
+                continue
+            if (
+                self.memory_budget is not None
+                and int(bblock.numel()) * 4 > self.memory_budget
+                and level < _GRACE_MAX_LEVEL
+                and bblock.shape[1] > 1
+                and not self._all_keys_equal(bblock)
+            ):
+                self._grace_repartition(bblock, pblock, level)
+                continue
+            self._build_resident(bblock)
+            self._gp_cols = pblock
+            self._gp_off = 0
+            return True
+
+    def _all_keys_equal(self, bblock: torch.Tensor) -> bool:
+        kcols = bblock[[self._bv.index(k) for k in self.keys]]
+        return bool((kcols == kcols[:, :1]).all())
+
+    def _grace_repartition(self, bblock: torch.Tensor, pblock: torch.Tensor,
+                           level: int) -> None:
+        g2 = _GRACE_SUB_PARTS
+        b_pids = partition_ids_multi([bblock[self._bv.index(k)] for k in self.keys], g2, level + 1)
+        p_pids = partition_ids_multi([pblock[self._pv.index(k)] for k in self.keys], g2, level + 1)
+        bsubs = dict(split_block(bblock, b_pids, g2))
+        empty_b = bblock[:, :0]
+        for p, psub in split_block(pblock, p_pids, g2):
+            self._grace_stack.append((bsubs.get(p, empty_b), psub, level + 1))
+        self.extra["repartitions"] = self.extra.get("repartitions", 0) + 1
+
     def sip_keys(self, var: int) -> torch.Tensor:
         """Build-side key column for a SipFilter export. Runs the build
         phase if needed: the first probe batch would run it anyway, so
         forcing it from a probe-side scan only moves the same work
         earlier. The bloom filter does not depend on the row order."""
         self._ensure_built()
+        if self._grace_active:
+            # every partition's key column, loaded without freeing: the
+            # grace drain still needs them
+            j = self._bv.index(var)
+            return torch.cat([self._build_rel.load(p)[j]
+                              for p in range(self._build_rel.n_parts)])
         return self._bcols[self._bv.index(var), : self._n_build]
 
     # -- probe phase -------------------------------------------------------------
@@ -254,9 +448,16 @@ class HashJoin(BatchOperator):
                 continue
             if self._leftovers:
                 return self._emit_leftovers(cap)
-            pb = self.probe.next_batch()
-            if pb is None:
-                return None
+            if self._grace_active:
+                pb = self._grace_next_probe()
+                if pb is None:
+                    if self._leftovers:
+                        continue  # the loop's top flushes them
+                    return None
+            else:
+                pb = self.probe.next_batch()
+                if pb is None:
+                    return None
             cb = pb.compact()
             if cb.n_rows == 0:
                 cb.release()
@@ -422,8 +623,11 @@ class HashJoin(BatchOperator):
 
     def _close(self) -> None:
         # early teardown mid-expansion: pending probe batches still own
-        # pooled buffers
+        # pooled buffers, and grace partitions may hold spill files
         self._drop_pending()
+        for rel in (self._build_rel, self._probe_rel):
+            if rel is not None:
+                rel.close()
 
     def reset(self) -> None:
         self._drop_pending()
@@ -438,3 +642,11 @@ class HashJoin(BatchOperator):
         self._hash_vars = self.keys
         self._pair_vars = self._extra_shared
         self._plans = {}
+        self._close()
+        self._grace_active = False
+        self._build_rel = self._probe_rel = None
+        self._probe_partitioned = False
+        self._grace_stack = []
+        self._next_gp = 0
+        self._gp_cols = None
+        self._gp_off = 0

@@ -11,8 +11,16 @@ The sort-merge join in three phases, as in the reference package:
   Skip   — gallop the side whose last key is smaller via child.skip().
 
 Windows are device ring/doubling buffers (append in place, trims are head
-bumps). Left-row match tracking is an int32 count per window row, bumped
-with ``index_add_`` so no mask has to be read back per batch. Modes:
+bumps). With ``spill_dir`` set, a right window past
+``_SPILL_THRESHOLD_ROWS`` live rows writes them to a ``.npy`` file and
+frees its device buffer, keeping only its key column on the device: it
+goes on trimming and searching groups there, and each emitted batch
+gathers the right rows it needs from the file's memory map and uploads
+them as that launch's ``gather_emit`` source (one device-to-host read of
+the batch's right indices). A later append brings the window back onto
+the device and unlinks the file. Left-row match tracking is an int32
+count per window row, bumped with ``index_add_`` so no mask has to be
+read back per batch. Modes:
 inner, left_outer (OPTIONAL, with the post-filter program), semi, anti.
 The control flow reads a few device scalars per batch (window keys, group
 totals); each is one host synchronisation.
@@ -20,8 +28,11 @@ totals); each is one host synchronisation.
 
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import vecops
@@ -33,16 +44,20 @@ from repro_torch.core.operators.simple import resolve_program
 from repro_torch.kernels.gather_emit import EmitPlan, gather_emit
 from repro_torch.kernels.join_expand import join_expand
 
+_SPILL_THRESHOLD_ROWS = 1 << 20
 _WINDOW_MIN_CAP = 256  # rows; first append sizes the buffer (pow2 doubling)
 
 
 class _Window:
     """Sorted row window for one side: payload columns keyed by the join
     variable, accumulated across child batches and trimmed as the other
-    side advances. Live rows occupy ``_buf[:, head:tail]``."""
+    side advances. Live rows occupy ``_buf[:, head:tail]``, or, once
+    spilled, ``_host[:, head:tail]`` (a memory map of the spill file) with
+    their keys in ``_keys[head:tail]`` on the device."""
 
     def __init__(self, var_ids: Tuple[int, ...], key_var: int,
-                 device: torch.device, pool: Optional[BatchPool] = None):
+                 device: torch.device, pool: Optional[BatchPool] = None,
+                 spill_dir: Optional[str] = None):
         self.var_ids = var_ids
         self.key_pos = var_ids.index(key_var)
         self.device = device
@@ -51,14 +66,27 @@ class _Window:
         self._tail = 0
         self.exhausted = False
         self.pool = pool  # copy-traffic accounting
+        self.spill_dir = spill_dir
+        self._spill_path: Optional[str] = None
+        self._host: Optional[np.ndarray] = None  # spilled rows (memory map)
+        self._keys: Optional[torch.Tensor] = None  # a spilled window's keys
+        self.spills = 0
+
+    @property
+    def spilled(self) -> bool:
+        return self._host is not None
 
     @property
     def cols(self) -> torch.Tensor:
-        """Live rows as an (n_vars, n) view."""
+        """Live rows as an (n_vars, n) device view (resident windows)."""
+        if self.spilled:
+            raise RuntimeError("a spilled window keeps its rows on the host; use source()")
         return self._buf[:, self._head: self._tail]
 
     @property
     def keys(self) -> torch.Tensor:
+        if self.spilled:
+            return self._keys[self._head: self._tail]
         return self._buf[self.key_pos, self._head: self._tail]
 
     @property
@@ -66,7 +94,8 @@ class _Window:
         return self._tail - self._head
 
     def last_key(self) -> int:
-        return int(self._buf[self.key_pos, self._tail - 1])
+        keys = self._keys if self.spilled else self._buf[self.key_pos]
+        return int(keys[self._tail - 1])
 
     def append_batch(self, b: ColumnBatch) -> int:
         n = b.n_active
@@ -83,11 +112,13 @@ class _Window:
         if self.pool is not None:
             self.pool.bytes_copied += n * len(self.var_ids) * 4
         b.release()
+        if self.spill_dir and self.n > _SPILL_THRESHOLD_ROWS:
+            self._spill()
         return n
 
     def drop_prefix(self, k: int) -> None:
         if k > 0:
-            self._head += k
+            self._head += k  # valid for spilled windows too
 
     def trim_below(self, key: int) -> int:
         """Drop rows with keys < key; returns number dropped."""
@@ -99,13 +130,29 @@ class _Window:
         return cut
 
     def gather(self, idx: torch.Tensor) -> torch.Tensor:
-        return self._buf[:, self._head + idx.long()]
+        src, idx = self.source(idx)
+        return src[:, idx.long()]
+
+    def source(self, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(rows, indices into them) standing for live rows ``idx``: the
+        device view and ``idx`` itself for a resident window; for a
+        spilled one, the rows ``idx`` names gathered from the memory map
+        and uploaded, and 0..n-1."""
+        if not self.spilled:
+            return self.cols, idx
+        rows = self._host[:, self._head + idx.cpu().numpy().astype(np.int64)]
+        n = int(idx.shape[0])
+        return (torch.from_numpy(np.ascontiguousarray(rows)).to(self.device),
+                torch.arange(n, dtype=torch.int32, device=self.device))
 
     def close(self) -> None:
+        self._drop_spill()
         self._buf = torch.empty((len(self.var_ids), 0), dtype=torch.int32, device=self.device)
         self._head = self._tail = 0
 
     def _reserve(self, n: int) -> None:
+        if self.spilled:
+            self._materialize(extra=n)
         cap = int(self._buf.shape[1])
         if self._tail + n <= cap:
             return
@@ -126,6 +173,40 @@ class _Window:
             self.pool.bytes_copied += live * len(self.var_ids) * 4
         self._buf, self._head, self._tail = nb, 0, live
 
+    def _spill(self) -> None:
+        """Write the live rows to a spill file, keep their keys on the
+        device, and free the device buffer."""
+        live = self.cols
+        fd, path = tempfile.mkstemp(suffix=".npy", dir=self.spill_dir)
+        os.close(fd)
+        self._spill_path = path
+        np.save(path, live.cpu().numpy())
+        self._keys = live[self.key_pos].clone()
+        self._host = np.load(path, mmap_mode="r")
+        self._buf = torch.empty((len(self.var_ids), 0), dtype=torch.int32, device=self.device)
+        self._head, self._tail = 0, int(live.shape[1])
+        self.spills += 1
+
+    def _materialize(self, extra: int = 0) -> None:
+        live = self.n
+        cap = _WINDOW_MIN_CAP
+        while cap < live + extra:
+            cap *= 2
+        nb = torch.empty((len(self.var_ids), cap), dtype=torch.int32, device=self.device)
+        nb[:, :live] = torch.from_numpy(
+            np.array(self._host[:, self._head: self._tail])).to(self.device)
+        if self.pool is not None:
+            self.pool.bytes_copied += live * len(self.var_ids) * 4
+        self._drop_spill()
+        self._buf, self._head, self._tail = nb, 0, live
+
+    def _drop_spill(self) -> None:
+        self._host = None
+        self._keys = None
+        if self._spill_path is not None:
+            path, self._spill_path = self._spill_path, None
+            os.unlink(path)
+
 
 class MergeJoin(BatchOperator):
     def __init__(
@@ -141,6 +222,7 @@ class MergeJoin(BatchOperator):
         allow_child_skip: bool = True,
         pool: Optional[BatchPool] = None,
         post_program=None,  # compiled ExprProgram for post_filter (planner)
+        spill_dir: Optional[str] = None,  # the right window spills here
     ) -> None:
         if mode not in ("inner", "left_outer", "semi", "anti"):
             raise ValueError(f"unknown join mode {mode!r}")
@@ -160,6 +242,7 @@ class MergeJoin(BatchOperator):
         self.sizer = sizer or AdaptiveBatchSizer(initial=256)
         self.allow_child_skip = allow_child_skip
         self.pool = pool
+        self.spill_dir = spill_dir
 
         lv, rv = tuple(left.var_ids()), tuple(right.var_ids())
         self.shared = tuple(x for x in lv if x in rv)
@@ -179,7 +262,7 @@ class MergeJoin(BatchOperator):
         self._mask_plan = EmitPlan(pairs=pairs)
 
         self._lwin = _Window(lv, join_var, device, pool)
-        self._rwin = _Window(rv, join_var, device, pool)
+        self._rwin = _Window(rv, join_var, device, pool, spill_dir)
         # per left-window row: number of surviving matches seen so far
         self._lmatched = torch.zeros(0, dtype=torch.int32, device=device)
         # pending build: (lstarts, llens, rstarts, rlens, cum, emitted, total)
@@ -244,10 +327,11 @@ class MergeJoin(BatchOperator):
         self._rwin.close()
 
     def reset(self) -> None:
+        self._close()
         self.left.reset()
         self.right.reset()
         self._lwin = _Window(self._lwin.var_ids, self.v, self.device, self.pool)
-        self._rwin = _Window(self._rwin.var_ids, self.v, self.device, self.pool)
+        self._rwin = _Window(self._rwin.var_ids, self.v, self.device, self.pool, self.spill_dir)
         self._lmatched = torch.zeros(0, dtype=torch.int32, device=self.device)
         self._pending = None
         self._finalize_l_hi = None
@@ -392,18 +476,17 @@ class MergeJoin(BatchOperator):
             None if emitted >= total else (g_ls, g_ll, g_rs, g_rl, cum, emitted, total)
         )
 
+        rcols, ri = self._rwin.source(ri)
         if self.mode in ("semi", "anti") and self.post_filter is None:
             # expansion only feeds matched-tracking: fused mask, no columns
-            _, mask = gather_emit(self._lwin.cols, self._rwin.cols, li, ri, self._mask_plan)
+            _, mask = gather_emit(self._lwin.cols, rcols, li, ri, self._mask_plan)
             self._lmatched.index_add_(0, li.long(), mask.to(torch.int32))
             return None
 
         b = ColumnBatch.alloc(
             self._out_vars, bucket_for(max(count, 1)), self.device, self.pool, self.v
         )
-        _, mask = gather_emit(
-            self._lwin.cols, self._rwin.cols, li, ri, self._plan, out=b.columns,
-        )
+        _, mask = gather_emit(self._lwin.cols, rcols, li, ri, self._plan, out=b.columns)
         b.n_rows = count
         if count < b.capacity:
             b.columns[:, count:] = NULL_ID

@@ -231,10 +231,26 @@ def test_plans_match_reference(numeric_engines, lsqb_engines):
             assert port.explain(text) == ref.explain(text)
 
 
-@pytest.mark.parametrize("cfg", sorted(CONFIGS))
+# out-of-core and adaptive configurations: their plans (grace, partitioned
+# and adaptive marks) are compared here, their rows in
+# test_torch_partition.py and test_torch_adaptive_join.py
+PLAN_CONFIGS = {
+    "budget-0": dict(memory_budget=0),
+    "budget-64k": dict(memory_budget=64 << 10),
+    "merge-adaptive": dict(join_strategy="merge", adaptive_join="on"),
+}
+
+
+@pytest.mark.parametrize("cfg", sorted(CONFIGS) + sorted(PLAN_CONFIGS))
 def test_plans_match_reference_under_config(numeric_cache, lsqb_cache, cfg):
     for cache, queries in ((numeric_cache, NUMERIC_QUERIES), (lsqb_cache, LSQB_QUERIES)):
-        ref, port = _config_engines(cache, cfg)
+        if cfg in PLAN_CONFIGS:
+            ref_store, port_store = cache["merge-off"][0].store, cache["merge-off"][1].store
+            ref = REngine(ref_store, RConfig(**PLAN_CONFIGS[cfg]))
+            port = repro_torch.Engine(port_store, repro_torch.EngineConfig(**PLAN_CONFIGS[cfg]),
+                                      device="cpu")
+        else:
+            ref, port = _config_engines(cache, cfg)
         for text in queries.values():
             assert port.explain(text) == ref.explain(text)
 

@@ -3,6 +3,7 @@ package, runs on the card unless asked for the CPU, and refuses what it
 has not ported instead of evaluating it another way."""
 
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -58,11 +59,7 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("field,value", [
     ("engine", "legacy"),
     ("engine", "mixed"),
-    ("spill_dir", "spill"),
     ("cardinality_feedback", "apply"),
-    ("memory_budget", 0),
-    ("memory_budget", 1 << 20),
-    ("adaptive_join", "on"),
     ("cardinality_feedback", "observe"),
 ])
 def test_config_outside_the_slice_raises(field, value):
@@ -71,7 +68,31 @@ def test_config_outside_the_slice_raises(field, value):
         repro_torch.Engine(_cpu_store(), cfg, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("join_strategy", "sort"), ("sip", "auto")])
+@pytest.mark.parametrize("field,value", [
+    ("spill_dir", "spill"),
+    ("memory_budget", 0),
+    ("memory_budget", 1 << 20),
+    ("adaptive_join", "on"),
+])
+def test_out_of_core_config_is_accepted_and_runs(tmp_path, field, value):
+    """The out-of-core and adaptive values run, and give the rows of the
+    default configuration; a spill directory is left empty."""
+    if field == "spill_dir":
+        value = str(tmp_path / value)
+        (tmp_path / "spill").mkdir()
+    store = _cpu_store()
+    q = ("SELECT ?p (COUNT(?t) AS ?n) { ?p :knows ?q . ?q :hasInterest ?t } GROUP BY ?p")
+    base = repro_torch.Engine(store, device="cpu").execute(q).rows
+    cfg = repro_torch.EngineConfig(**{field: value, "spill_dir": str(tmp_path)}
+                                   if field == "memory_budget" else {field: value})
+    got = repro_torch.Engine(store, cfg, device="cpu").execute(q).rows
+    assert sorted(map(tuple, got.tolist())) == sorted(map(tuple, base.tolist()))
+    assert not list(tmp_path.rglob("*.npy"))
+
+
+@pytest.mark.parametrize("field,value", [("join_strategy", "sort"), ("sip", "auto"),
+                                         ("adaptive_join", "sometimes"),
+                                         ("memory_budget", -1)])
 def test_config_the_reference_lacks_is_refused(field, value):
     cfg = repro_torch.EngineConfig(**{field: value})
     with pytest.raises(ValueError, match=field):
@@ -96,13 +117,24 @@ def _grace_join_plan():
     def scan(pred, obj):
         return PL.PScan(A.TriplePattern(A.V(0), A.K(pred), A.V(obj), A.K(":default")), None)
 
-    return PL.PHashJoin(scan(":knows", 1), scan(":hasInterest", 2), keys=(0,), grace=True)
+    return PL.PHashJoin(scan(":knows", 1), scan(":hasInterest", 2), keys=(0,), grace=True,
+                        grace_parts=8)
+
+
+def _uncompilable_filter_plan():
+    """A FILTER whose expression the VM cannot compile (an unknown
+    function): the interpreted expression walk would run it."""
+    from repro_torch.core import algebra as A
+    from repro_torch.core import planner as PL
+
+    scan = PL.PScan(A.TriplePattern(A.V(0), A.K(":knows"), A.V(1), A.K(":default")), None)
+    return PL.PFilter(A.Func("strlen", (A.VarRef(1),)), scan)
 
 
 @pytest.mark.parametrize("query,what", [
-    (_grace_join_plan, "grace"),
+    (_uncompilable_filter_plan, "expression outside the VM"),
     (_path_scan_plan, "PPathScan"),
-], ids=["grace hash join", "PPathScan"])
+], ids=["uncompilable expression", "PPathScan"])
 def test_plan_outside_the_slice_raises(query, what):
     engine = repro_torch.Engine(_cpu_store(), device="cpu")
     with pytest.raises(NotImplementedError, match=what):
@@ -110,6 +142,24 @@ def test_plan_outside_the_slice_raises(query, what):
             engine.execute(query)
         else:
             engine.execute_plan(query())
+
+
+def test_grace_join_plan_runs(tmp_path):
+    """The hand-built grace hash join runs under a budget, spills, and
+    gives the resident join's rows."""
+    from repro_torch.core.operators.hash_join import HashJoin
+
+    store = _cpu_store()
+    plan = _grace_join_plan()
+    want = repro_torch.Engine(store, device="cpu").execute_plan(
+        dataclasses.replace(plan, grace=False)).rows
+    engine = repro_torch.Engine(store, repro_torch.EngineConfig(
+        memory_budget=1 << 10, spill_dir=str(tmp_path)), device="cpu")
+    res = engine.execute_plan(plan)
+    assert sorted(map(tuple, res.rows.tolist())) == sorted(map(tuple, want.tolist()))
+    assert isinstance(res.root, HashJoin) and res.root.extra["spill_files"] > 0
+    assert res.root.extra["grace_partitions"] == 8
+    assert not list(tmp_path.glob("*.npy"))
 
 
 def test_kernels_take_no_other_device():
