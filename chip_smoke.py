@@ -48,6 +48,25 @@ script exits non-zero:
             1,000 x 1,000 and 1,000 x 2,000 rows drained from CrossJoin,
             each against nl x nr, their host syncs equal (after one
             uncounted drain of each);
+  legacy    the row engine (``engine="legacy"``: host rows over the store's
+            host index arrays) and the mixed engine (batch scans and joins
+            on the card, row grouping, sort and distinct on the host): the
+            mixed engine's q4 and q5 and the row engine's q4 on the
+            full-size store against their closed forms, with the batches
+            that cross to the host, the query's host syncs (a second run)
+            and those inside BatchToRow's copies (a third run, at most one
+            a copy); RowToBatch's uploads of the :knows rows against the
+            host index, with no host sync; the LSQB, path, distinct, BSBM
+            BI, explore and fault-probe queries at breadth scale (q8 and
+            b6 on smaller stores) under both engines, row-equal to the
+            batch engine on the card (numbers within 1e-12: a SUM adds in
+            another order); the paper's Fig. 6a (LSQB, batch engine on the
+            card against row engine on the host) beside the card's name and
+            power limit; q2's FILTER cost a row on the host; a hand-built
+            PPathScan against PathExpand; an unknown function refused alike
+            by the three engines, and a FILTER marked uncompilable through
+            the tree walk on the card against the VM's and the row
+            engine's rows. Its launch counts are those of the mixed runs;
   follow-ups  a second run of each default-path query, of the merge
             path's q1 and of p1-p5 counts its host syncs, and a third of q2
             (PROFILED_QUERY) under torch.profiler gives the device's busy time, the top
@@ -223,6 +242,23 @@ PROBE_QUERIES = {
                               + " { ?i :g ?g . ?i :x ?x } GROUP BY ?g",
 }
 
+# the legacy phase: the row engine (host rows over the store's host index
+# arrays) and the mixed engine (batch scans and joins on the card, row
+# grouping, sort and distinct on the host, adapters in between)
+LEGACY_FULL_MIXED = ("q4", "q5")  # full size, against their closed forms
+LEGACY_FULL_ROW = ("q4",)  # the row engine at full size
+# breadth queries the row engine and the mixed engine run on small stores
+# instead (their row runs take minutes at breadth scale): q8's pairs of
+# people sharing a tag, b6's pairs of products sharing a feature
+LEGACY_SMALL_LSQB_SCALE = 0.1
+LEGACY_SMALL_LSQB = ("q8",)
+LEGACY_SMALL_BSBM_SCALE = 0.02
+LEGACY_SMALL_BSBM = ("b6",)
+LEGACY_UPLOAD_BATCHES = 200  # RowToBatch batches drained for the upload check
+LEGACY_FILTER_ROWS = 20_000  # one-row FILTER evaluations timed for the per-row cost
+# a FILTER over :knows for the tree walk on the card: a term test, a code
+# comparison and a value comparison
+WALK_FILTER = "FILTER(?a != ?b && (isIRI(?b) || ?a < ?b))"
 
 T_START = time.perf_counter()
 
@@ -2105,6 +2141,306 @@ def explore_phase(dev, bstore, meta, report):
 
 
 # ---------------------------------------------------------------------------
+# the legacy phase: the row engine and the mixed engine
+# ---------------------------------------------------------------------------
+
+
+def _count(res, store):
+    (row,) = res.decoded(store.dict)
+    (count,) = row.values()
+    return int(count)
+
+
+class _KernelDelta:
+    """Kernel launches summed over the runs made through ``run``."""
+
+    def __init__(self):
+        self.launches = {name: 0 for name in KERNEL_INFO}
+
+    def run(self, engine, text):
+        from repro_torch import kernels as K
+
+        before = K.launch_counts()
+        res, wall = run_query(engine, text)
+        for k, v in K.launch_counts().items():
+            self.launches[k] += v - before[k]
+        return res, wall
+
+
+def _copy_syncs(fn):
+    """Host syncs made inside BatchToRow's copies while ``fn`` runs: one
+    count a copy."""
+    from repro_torch.core.operators import adapters
+
+    real, counts = adapters.host_rows, []
+
+    def counted(b):
+        out = {}
+        counts.append(count_syncs(lambda: out.setdefault("rows", real(b))))
+        return out["rows"]
+
+    adapters.host_rows = counted
+    try:
+        fn()
+    finally:
+        adapters.host_rows = real
+    return counts
+
+
+def _number(v):
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def rows_close(got, want, rel=1e-12):
+    """Two answers (``canonical`` rows) equal, but for numbers within
+    ``rel`` of each other: the batch engine's segment_scan adds a group's
+    values in its fixed tree order, the row engine in row order, so a SUM
+    or AVG over values float32 cannot hold may differ in its last bits.
+    Returns (equal, the largest relative difference of two numbers)."""
+    def key(r):
+        return repr([f"{float(v):.9g}" if _number(v) else v for v in r])
+
+    if len(got) != len(want):
+        return False, None
+    worst = 0.0
+    for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
+        if len(a) != len(b):
+            return False, None
+        for x, y in zip(a, b):
+            if _number(x) and _number(y):
+                diff = abs(x - y) / max(abs(x), abs(y), 1e-300) if x != y else 0.0
+                worst = max(worst, diff)
+                if diff > rel:
+                    return False, diff
+            elif x != y:
+                return False, None
+    return True, worst
+
+
+def legacy_full(dev, store, report, mixed_runs):
+    """Full size: the mixed engine's q4 and q5 and the row engine's q4
+    against their closed forms, BatchToRow's crossings and host syncs, and
+    RowToBatch's upload (no host sync) checked against the host index."""
+    import repro_torch
+    from repro_torch.core.algebra import K as Kst
+    from repro_torch.core.algebra import TriplePattern, V
+    from repro_torch.core.legacy.operators import RowScan
+    from repro_torch.core.operators.adapters import RowToBatch
+
+    forms = report["full"]["closed_forms"]
+    rep = report["legacy"]["full"] = {}
+    mixed = repro_torch.Engine(store, repro_torch.EngineConfig(engine="mixed"), device=dev)
+    for name in LEGACY_FULL_MIXED:
+        text = repro_torch.LSQB_QUERIES[name]
+        res, wall = mixed_runs.run(mixed, text)
+        got, crossed = _count(res, store), tree_extra(res.root)["host_copies"]
+        require(got == forms[name], f"legacy: mixed {name} count {got} != closed form "
+                                    f"{forms[name]}")
+        syncs = count_syncs(lambda: run_query(mixed, text))
+        copies = _copy_syncs(lambda: run_query(mixed, text))
+        require(len(copies) == crossed and crossed > 0,
+                f"legacy: mixed {name} made {len(copies)} copies for {crossed} crossings")
+        require(max(copies) <= 1, f"legacy: a BatchToRow copy made {max(copies)} host syncs")
+        rep[f"mixed {name}"] = {"count": got, "wall_s": wall, "crossed_batches": crossed,
+                                "syncs": syncs, "copy_syncs": sum(copies)}
+        log(f"  mixed {name}: count={got} (closed form) wall={wall:.3f} s, {crossed} batches "
+            f"crossed to the host, {syncs} host syncs (a second run), {sum(copies)} of them "
+            f"in the {len(copies)} BatchToRow copies (a third run)")
+    legacy = repro_torch.Engine(store, repro_torch.EngineConfig(engine="legacy"), device=dev)
+    for name in LEGACY_FULL_ROW:
+        res, wall = run_query(legacy, repro_torch.LSQB_QUERIES[name])
+        got = _count(res, store)
+        require(got == forms[name], f"legacy: legacy {name} count {got} != closed form "
+                                    f"{forms[name]}")
+        scanned = tree_extra(res.root)["rows_scanned"]
+        rep[f"legacy {name}"] = {"count": got, "wall_s": wall, "rows_scanned": scanned}
+        log(f"  legacy {name}: count={got} (closed form) wall={wall:.3f} s (host index "
+            f"arrays built on first use included), {scanned} rows scanned")
+    # RowToBatch: the :knows rows uploaded from pinned buffers, no host wait
+    pat = TriplePattern(V(0), Kst(":knows"), V(1))
+    up = RowToBatch(RowScan(store, pat, 0), dev, 4096, pool=mixed.pool)
+    up.next_batch().release()  # first use (the pinned allocator) left out
+    got = []
+
+    def drain():
+        for _ in range(LEGACY_UPLOAD_BATCHES):
+            b = up.next_batch()
+            got.append(b.columns[:, : b.n_rows].clone())
+            b.release()
+
+    t0 = time.perf_counter()
+    syncs = count_syncs(drain)
+    wall = time.perf_counter() - t0
+    rows = torch.cat(got, dim=1).cpu().numpy()
+    scan = RowScan(store, pat, 0)
+    host = store.index_array(scan.index)[scan.range.lo:][4096: 4096 + rows.shape[1]]
+    want = host[:, [scan.var_col_pos[0], scan.var_col_pos[1]]].T
+    require(np.array_equal(rows, want), "legacy: RowToBatch's uploads differ from the index")
+    require(syncs == 0, f"legacy: RowToBatch's uploads made {syncs} host syncs")
+    rep["row_to_batch"] = {"batches": LEGACY_UPLOAD_BATCHES, "rows": rows.shape[1],
+                           "syncs": syncs, "wall_s": wall}
+    log(f"  RowToBatch: {LEGACY_UPLOAD_BATCHES} batches ({rows.shape[1]} :knows rows) "
+        f"uploaded in {wall:.3f} s with {syncs} host syncs, rows equal to the index")
+
+
+def _timed_filter_rows(store):
+    """Microseconds a row of LSQB q2's FILTER (``?p1 != ?p2``) through the
+    tree walk on a one-row CPU batch, the row engine's way."""
+    from repro_torch.core import algebra as A
+    from repro_torch.core.legacy.operators import row_holds
+
+    expr = A.Cmp("!=", A.VarRef(0), A.VarRef(1))
+    rng = np.random.RandomState(SEED)
+    rows = [{0: int(a), 1: int(b)} for a, b in rng.randint(0, len(store.dict), (512, 2))]
+    t0 = time.perf_counter()
+    for i in range(LEGACY_FILTER_ROWS):
+        row_holds(expr, rows[i % 512], (0, 1), store.dict)
+    return (time.perf_counter() - t0) / LEGACY_FILTER_ROWS * 1e6
+
+
+def legacy_breadth(dev, report, mixed_runs):
+    """Breadth: the LSQB, path, distinct, BSBM BI, explore and fault-probe
+    queries under the row engine and the mixed engine, each row-equal to
+    the batch engine's on the card; the paper's Fig. 6a (LSQB, batch engine
+    on the card against the row engine on the host)."""
+    import repro_torch
+    from repro_torch.data import BSBM_BI_QUERIES, generate_ecommerce_graph
+
+    lsqb, _ = repro_torch.generate_social_graph(scale=BREADTH_SCALE, seed=SEED, device=dev)
+    small, _ = repro_torch.generate_social_graph(scale=LEGACY_SMALL_LSQB_SCALE, seed=SEED,
+                                                 device=dev)
+    bsbm, bmeta = generate_ecommerce_graph(scale=BSBM_BREADTH_SCALE, seed=BSBM_SEED, device=dev)
+    bsmall, _ = generate_ecommerce_graph(scale=LEGACY_SMALL_BSBM_SCALE, seed=BSBM_SEED,
+                                         device=dev)
+    pstore = probe_store(dev, SEED)
+    small_names = set(LEGACY_SMALL_LSQB + LEGACY_SMALL_BSBM)
+    everything = {**repro_torch.LSQB_QUERIES, **PATH_QUERIES, **DISTINCT_QUERIES,
+                  **BSBM_BI_QUERIES, **explore_queries(bmeta, SEED)}
+    lsqb_q = {**repro_torch.LSQB_QUERIES, **PATH_QUERIES, **DISTINCT_QUERIES}
+    bsbm_q = {**BSBM_BI_QUERIES, **explore_queries(bmeta, SEED)}
+    work = [("lsqb", lsqb, {k: v for k, v in lsqb_q.items() if k not in small_names}),
+            ("lsqb-small", small, {k: everything[k] for k in LEGACY_SMALL_LSQB}),
+            ("bsbm", bsbm, {k: v for k, v in bsbm_q.items() if k not in small_names}),
+            ("bsbm-small", bsmall, {k: everything[k] for k in LEGACY_SMALL_BSBM}),
+            ("probes", pstore, PROBE_QUERIES)]
+    log(f"  LSQB scale {BREADTH_SCALE}: {lsqb.n_quads} triples, {LEGACY_SMALL_LSQB_SCALE}: "
+        f"{small.n_quads}; BSBM scale {BSBM_BREADTH_SCALE}: {bsbm.n_quads}, "
+        f"{LEGACY_SMALL_BSBM_SCALE}: {bsmall.n_quads}; fault probes: {pstore.n_quads}")
+    rep = report["legacy"]["breadth"] = {}
+    for label, st, queries in work:
+        engines = {eng: repro_torch.Engine(st, repro_torch.EngineConfig(engine=eng), device=dev)
+                   for eng in ("barq", "legacy", "mixed")}
+        for name, text in queries.items():
+            res, bwall = run_query(engines["barq"], text)
+            want = canonical(res.decoded(st.dict))
+            walls, worst = {"barq": bwall}, 0.0
+            for eng in ("legacy", "mixed"):
+                res, walls[eng] = (mixed_runs.run if eng == "mixed" else run_query)(
+                    engines[eng], text)
+                same, diff = rows_close(canonical(res.decoded(st.dict)), want)
+                require(same, f"legacy: {eng} {name} ({label}) rows differ from barq's on the "
+                              f"card (largest relative difference {diff})")
+                worst = max(worst, diff)
+                if eng == "legacy" and (label, name) == ("lsqb", "q2"):
+                    q2_tested = tree_extra(res.root)["rows_tested"]
+            rep[name] = {"store": label, "result": _short(want), "max_rel_diff": worst,
+                         **{f"{k}_s": v for k, v in walls.items()}}
+            log(f"  {label} {name}: {_short(want)}; barq {walls['barq']:.3f} s (card), legacy "
+                f"{walls['legacy']:.3f} s, mixed {walls['mixed']:.3f} s, rows equal"
+                + (f" (numbers within {worst:.1e})" if worst else ""))
+    # the paper's Fig. 6a on this card: LSQB, barq (card) against legacy (host rows)
+    card = card_line()
+    names = sorted(repro_torch.LSQB_QUERIES)
+    fig = {n: (rep[n]["barq_s"], rep[n]["legacy_s"]) for n in names}
+    ratio = sum(v[1] for v in fig.values()) / sum(v[0] for v in fig.values())
+    report["legacy"]["fig6a"] = {"card": card, "queries": fig, "ratio_of_sums": ratio}
+    log(f"  Fig. 6a (LSQB scale {BREADTH_SCALE}, {', '.join(LEGACY_SMALL_LSQB)} at "
+        f"{LEGACY_SMALL_LSQB_SCALE}) on {card}:")
+    for n, (b, l) in fig.items():
+        log(f"    {n}: barq {b:.4f} s (card), legacy {l:.4f} s (host rows), {l / b:.1f}x")
+    log(f"    legacy / barq, ratio of the sums: {ratio:.2f}")
+    wall, tested = rep["q2"]["legacy_s"], q2_tested
+    per_row = _timed_filter_rows(lsqb)
+    report["legacy"]["q2_rows"] = {"wall_s": wall, "filter_rows": tested,
+                                   "us_per_filtered_row": wall / tested * 1e6,
+                                   "filter_us_per_row": per_row}
+    log(f"  legacy q2 (CPU: the card's host): {wall:.3f} s for {tested} rows into its FILTER, "
+        f"{wall / tested * 1e6:.2f} us a row in all; the FILTER alone (tree walk on a one-row "
+        f"CPU batch) {per_row:.2f} us a row over {LEGACY_FILTER_ROWS} rows")
+    return small
+
+
+def legacy_nodes(dev, small, report):
+    """The two formerly raising nodes on the card: a hand-built PPathScan
+    (the row `+` behind RowToBatch) row-equal to PathExpand's, and FILTERs
+    through the tree walk: an unknown function refused alike by every
+    engine, and a FILTER marked uncompilable (``program=False``) through the
+    batch FilterOp, row-equal to the VM's and to the row engine's."""
+    import repro_torch
+    from repro_torch.core import algebra as A
+    from repro_torch.core import planner as PL
+
+    engines = {eng: repro_torch.Engine(small, repro_torch.EngineConfig(engine=eng), device=dev)
+               for eng in ("barq", "legacy", "mixed")}
+    pat = A.TriplePattern(A.V(0), A.K(":knows"), A.V(1), A.K(":default"))
+    res = engines["barq"].execute_plan(PL.PPathScan(pat))
+    got = sorted(map(tuple, res.rows.tolist()))
+    want = sorted(map(tuple, engines["barq"].execute("SELECT ?x ?y { ?x :knows+ ?y }")
+                      .rows.tolist()))
+    require(got == want and len(got) > 0, "legacy: PPathScan's rows differ from PathExpand's")
+    rep = report["legacy"]["nodes"] = {"ppathscan_rows": len(got)}
+    log(f"  PPathScan (RowTransitivePath behind RowToBatch, card): {len(got)} rows, equal to "
+        f"PathExpand's")
+    scan = PL.PScan(pat, None)
+    refused = set()
+    for eng, engine in engines.items():
+        try:
+            engine.execute_plan(PL.PFilter(A.Func("strlen", (A.VarRef(1),)), scan))
+            refused.add("ran")
+        except ValueError as e:
+            refused.add(str(e))
+    require(refused == {"unknown term predicate 'strlen'"},
+            f"legacy: strlen was not refused alike: {refused}")
+    text = f"SELECT ?a ?b {{ ?a :knows ?b . {WALK_FILTER} }}"
+    plan = engines["barq"].plan(engines["barq"].parse(text)[0])
+    stack, marked = [plan], 0
+    while stack:
+        n = stack.pop()
+        if isinstance(n, PL.PFilter):
+            n.program, marked = False, marked + 1
+        stack.extend(getattr(n, f) for f in ("child", "left", "right", "probe", "build")
+                     if isinstance(getattr(n, f, None), PL.PhysNode))
+    require(marked > 0, "legacy: the walk plan has no FILTER")
+    walk = sorted(map(tuple, engines["barq"].execute_plan(plan).rows.tolist()))
+    for eng in ("barq", "legacy"):
+        rows = sorted(map(tuple, engines[eng].execute(text).rows.tolist()))
+        require(rows == walk and len(walk) > 0,
+                f"legacy: the tree walk's FILTER rows differ from {eng}'s")
+    rep["walk_filter_rows"] = len(walk)
+    log(f"  strlen refused alike by barq, legacy and mixed on the card; the tree walk's "
+        f"FILTER on the card ({WALK_FILTER}): {len(walk)} rows, equal to the VM's and the row "
+        f"engine's")
+
+
+def legacy_phase(dev, store, report):
+    """The row engine and the mixed engine at full size and at breadth
+    scale; returns the mixed runs' kernel launches."""
+    t0 = time.perf_counter()
+    report["legacy"] = {"small_lsqb": list(LEGACY_SMALL_LSQB),
+                        "small_bsbm": list(LEGACY_SMALL_BSBM)}
+    mixed_runs = _KernelDelta()
+    legacy_full(dev, store, report, mixed_runs)
+    log(f"  breadth {elapsed()}")
+    small = legacy_breadth(dev, report, mixed_runs)
+    legacy_nodes(dev, small, report)
+    report["legacy"]["phase_s"] = time.perf_counter() - t0
+    report["legacy"]["launches"] = mixed_runs.launches
+    log(f"  legacy phase: {report['legacy']['phase_s']:.1f} s; the mixed runs' launches: "
+        f"{ {k: v for k, v in mixed_runs.launches.items() if v} }")
+    return mixed_runs.launches
+
+
+# ---------------------------------------------------------------------------
 # the outofcore phase: budgets, spills, grace joins, partitioned grouping,
 # the merge join's spilling window and the adaptive merge join
 # ---------------------------------------------------------------------------
@@ -2671,6 +3007,8 @@ def main() -> int:
                                                              report, forms)
     log(f"explore: {elapsed()}")
     path_launches["explore"] = explore_phase(dev, bstore, bmeta, report)
+    log(f"legacy: {elapsed()}")
+    path_launches["legacy"] = legacy_phase(dev, store, report)
     with tempfile.TemporaryDirectory() as tmp:
         child_out = Path(tmp) / "cpu_breadth.json"
         child = start_cpu_breadth(child_out)

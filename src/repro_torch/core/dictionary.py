@@ -27,6 +27,9 @@ class Dictionary:
         self._term_to_id: Dict[Term, int] = {}
         self._id_to_term: List[Term] = []
         self._numeric: List[float] = []
+        # the numeric side-array, extended in place as terms are added
+        self._numeric_buf = np.empty(0, dtype=np.float64)
+        self._numeric_filled = 0
 
     def __len__(self) -> int:
         return len(self._id_to_term)
@@ -64,8 +67,22 @@ class Dictionary:
     # -- vectorized value access (side-array) --------------------------------
 
     def numeric_array(self) -> np.ndarray:
-        """float64 (n_terms,) — NaN for non-numeric terms. Rebuilt lazily."""
-        return np.asarray(self._numeric, dtype=np.float64)
+        """float64 (n_terms,) — NaN for non-numeric terms. A view (not to be
+        written) of a buffer that grows by doubling, so reading it after
+        each encode copies only the new entries."""
+        n, lo = len(self._numeric), self._numeric_filled
+        if n > len(self._numeric_buf):
+            buf = np.empty(max(n, 2 * len(self._numeric_buf), 1024), dtype=np.float64)
+            buf[:lo] = self._numeric_buf[:lo]
+            self._numeric_buf = buf
+        if lo < n:
+            self._numeric_buf[lo:n] = self._numeric[lo:n]
+            self._numeric_filled = n
+        return self._numeric_buf[:n]
+
+    def numeric_value(self, tid: int) -> float:
+        """The numeric value of one id (NaN for NULL / non-numeric)."""
+        return self._numeric[tid] if tid >= 0 else float("nan")
 
     def numeric_of(self, ids: np.ndarray) -> np.ndarray:
         arr = self.numeric_array()

@@ -1,23 +1,33 @@
-"""Translator + executor: physical plan → device operator tree → result.
+"""Translator + executor: physical plan → operator tree → result.
 
 ``Engine(store).execute(sparql)`` parses and plans on the host exactly as
-the reference package does, lowers the plan to the batch operators of this
-package, drains the root on the store's device, and copies the projected
-rows to the host once, at the end of the query.
+the reference package does, lowers the plan to an operator tree, drains
+the root, and copies the projected rows to the host once, at the end of
+the query. The translator picks, per operator, the batch implementation
+(device data) or the row implementation (host rows), inserting batch↔row
+adapters at engine boundaries, as the reference does:
 
-This package covers the reference's default configuration (cost-based
+  * engine='barq'   — all-batch tree on the store's device;
+  * engine='legacy' — all-row tree over the store's host index arrays
+    (the paper's tuple-at-a-time baseline);
+  * engine='mixed'  — batch scans, joins and filters, row implementations
+    for aggregation, sort and distinct, with adapters in between.
+
+The batch engine covers the reference's default configuration (cost-based
 join strategy, cost-gated SIP), the forced ``hash`` / ``merge`` and SIP
 ``on`` / ``off`` settings, memory budgets with ``spill_dir`` and the
 adaptive merge join: scans with seek and SIP prefilters, merge (with a
 spilling right window), lookup and radix-partitioned hash joins (inner /
 left_outer / semi / anti; grace under a budget), cross products, FILTER
-and BIND through the expression VM, streaming, sort-based and
-partitioned GROUP BY with plain and DISTINCT aggregates, DISTINCT
-(partitioned under a budget), ORDER BY, LIMIT/OFFSET, UNION, and
-property paths through the vectorized frontier engine (``PathExpand``).
-A configuration or plan node outside it raises
-``NotImplementedError`` naming the part of the port that will bring it; the
-engine never evaluates a query some other way.
+and BIND through the expression VM (the interpreted tree walk where the
+VM cannot compile the expression), streaming, sort-based and partitioned
+GROUP BY with plain and DISTINCT aggregates, DISTINCT (partitioned under a
+budget), ORDER BY, LIMIT/OFFSET, UNION, and property paths through the
+vectorized frontier engine (``PathExpand``) or, for the row node
+``PPathScan``, the row-based transitive path behind an adapter. A
+configuration outside it raises ``NotImplementedError`` naming the part of
+the port that will bring it; the engine never evaluates a query some other
+way.
 """
 
 from __future__ import annotations
@@ -35,6 +45,10 @@ from repro_torch.core.adaptive import AdaptiveBatchSizer
 from repro_torch.core.batch import NULL_ID, BatchPool, bucket_for
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dictionary import Dictionary
+from repro_torch.core.expressions import eval_expr_values
+from repro_torch.core.legacy import operators as LOP
+from repro_torch.core.legacy.property_path import RowPathScan, RowTransitivePath
+from repro_torch.core.operators.adapters import BatchToRow, RowToBatch
 from repro_torch.core.operators.adaptive_join import AdaptiveMergeJoin
 from repro_torch.core.operators.aggregate import (
     PartitionedDistinct,
@@ -66,7 +80,7 @@ from repro_torch.core.storage import QuadStore
 # the only values this package implements, and the part of the port that
 # brings each other value (None: the reference has no other value)
 _SUPPORTED = {
-    "engine": (("barq",), "the legacy row engine with the batch/row adapters"),
+    "engine": (("barq", "legacy", "mixed"), None),
     "join_strategy": ((None, "hash", "merge"), None),
     "sip": ((None, "on", "off"), None),
     "adaptive_join": ((None, "off", "on"), None),
@@ -78,7 +92,7 @@ _SUPPORTED = {
 class EngineConfig:
     """Engine settings, with the reference's field names."""
 
-    engine: str = "barq"
+    engine: str = "barq"  # barq | legacy | mixed
     adaptive_batching: bool = True
     initial_batch: int = 64
     max_batch: int = 4096
@@ -117,8 +131,7 @@ class EngineConfig:
                 )
 
 
-def _not_ported(what: str, later: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with {later}")
+AnyOp = Union[BatchOperator, LOP.RowOperator]
 
 
 class Translator:
@@ -139,7 +152,9 @@ class Translator:
             sf = self._sip_registry[ann.sid] = SipFilter(ann.var)
         return sf
 
-    def translate(self, plan: PL.Phys) -> BatchOperator:
+    def translate(self, plan: PL.Phys) -> AnyOp:
+        if self.cfg.engine == "legacy":
+            return self._row(plan)
         return self._build(plan)
 
     def _sizer(self, initial: Optional[int] = None) -> AdaptiveBatchSizer:
@@ -156,16 +171,27 @@ class Translator:
     def _join_sizer(self) -> AdaptiveBatchSizer:
         return self._sizer(self.cfg.join_initial_batch or 256)
 
-    def _build(self, n: PL.Phys) -> BatchOperator:
-        """Lower one Phys node (and its subtree) to a batch operator."""
+    # -- engine-aware build (barq / mixed) -------------------------------------
+
+    def _build(self, n: PL.Phys) -> AnyOp:
+        """Lower one Phys node (and its subtree): batch operators, and under
+        ``engine="mixed"`` row operators for sort, distinct, grouping and
+        ORDER BY (and project, slice and HAVING over a row child)."""
         dev, pool, d = self.device, self.pool, self.store.dict
+        mixed = self.cfg.engine == "mixed"
+        batch = self._batch_child
         if isinstance(n, PL.PScan):
             return IndexScan(
                 self.store, n.pattern, n.sort_var, sizer=self._sizer(), pool=pool,
                 sip_filters=[self._sip_filter(a) for a in n.sip],
             )
         if isinstance(n, PL.PSort):
-            return SortByVarOp(self._build(n.child), n.var, dev, self.cfg.max_batch, pool=pool)
+            child = self._build(n.child)
+            if mixed:
+                # row-based sort consuming batch input: an adapter in
+                # between, then back to batches at the pipeline break
+                return self._to_batch(LOP.RowSort(self._to_row(child), var=n.var))
+            return SortByVarOp(self._to_batch(child), n.var, dev, self.cfg.max_batch, pool=pool)
         if isinstance(n, PL.PMergeJoin):
             if (
                 self.cfg.adaptive_join == "on"
@@ -179,13 +205,13 @@ class Translator:
                 # ancestor consumes this join's order (adaptive_ok), and no
                 # SIP export hangs off the build window
                 return AdaptiveMergeJoin(
-                    self._build(n.left), self._build(n.right.child), n.var, dev,
+                    batch(n.left), batch(n.right.child), n.var, dev,
                     mode=n.mode, post_filter=n.post_filter, dictionary=d,
                     post_program=n.post_program, pool=pool, spill_dir=self.cfg.spill_dir,
                     est_build=getattr(n.right, "est_rows", 0.0) or 0.0,
                     memory_budget=self.cfg.memory_budget,
                 )
-            left, right = self._build(n.left), self._build(n.right)
+            left, right = batch(n.left), batch(n.right)
             # SIP export: bloom keys off a Sort's materialization, or a code
             # range off a sorted scan; anything else stays pass-through
             for ann in n.sip_exports:
@@ -201,12 +227,10 @@ class Translator:
                 pool=pool, post_program=n.post_program, spill_dir=self.cfg.spill_dir,
             )
         if isinstance(n, PL.PLookupJoin):
-            return LookupJoin(
-                self._build(n.probe), self._build(n.build), n.var, dev, n.mode, pool=pool
-            )
+            return LookupJoin(batch(n.probe), batch(n.build), n.var, dev, n.mode, pool=pool)
         if isinstance(n, PL.PHashJoin):
             op = HashJoin(
-                self._build(n.probe), self._build(n.build), n.keys, dev,
+                batch(n.probe), batch(n.build), n.keys, dev,
                 mode=n.mode, post_filter=n.post_filter, dictionary=d,
                 sizer=self._join_sizer(), pool=pool, post_program=n.post_program,
                 memory_budget=self.cfg.memory_budget, spill_dir=self.cfg.spill_dir,
@@ -217,30 +241,32 @@ class Translator:
                 self._sip_filter(ann).bind(lambda j=op, v=ann.var: ("keys", j.sip_keys(v)))
             return op
         if isinstance(n, PL.PPathExpand):
-            # the vectorized frontier engine (DESIGN.md §8): paths run on the
-            # batch pipeline like every other leaf
+            # the vectorized frontier engine: paths run on the batch
+            # pipeline like every other leaf
             return PathExpand(
                 self.store, n.pattern.expr, n.pattern.s, n.pattern.o,
                 batch_size=self.cfg.max_batch, pool=pool,
                 sip_filters=[self._sip_filter(a) for a in n.sip],
             )
         if isinstance(n, PL.PPathScan):
-            raise _not_ported(
-                "the row-based path scan (PPathScan)",
-                "the legacy row engine and the batch/row adapters",
-            )
+            # the row node for `+`, bridged by an adapter
+            return self._to_batch(self._path_op(n))
         if isinstance(n, PL.PCross):
-            return CrossJoin(self._build(n.left), self._build(n.right), dev, pool=pool)
+            return CrossJoin(batch(n.left), batch(n.right), dev, pool=pool)
         if isinstance(n, PL.PFilter):
-            return FilterOp(self._build(n.child), n.expr, d, program=n.program)
+            return FilterOp(batch(n.child), n.expr, d, program=n.program)
         if isinstance(n, PL.PExtend):
-            return ExtendOp(
-                self._build(n.child), n.var, n.expr, d, dev, pool=pool, program=n.program
-            )
+            return ExtendOp(batch(n.child), n.var, n.expr, d, dev, pool=pool, program=n.program)
         if isinstance(n, PL.PProject):
-            return ProjectOp(self._build(n.child), n.vars, dev, pool=pool)
+            child = self._build(n.child)
+            if isinstance(child, LOP.RowOperator):
+                return LOP.RowProject(child, n.vars)
+            return ProjectOp(child, n.vars, dev, pool=pool)
         if isinstance(n, PL.PDistinct):
             child = self._build(n.child)
+            if mixed:
+                return LOP.RowDistinct(self._to_row(child))
+            child = self._to_batch(child)
             if n.streaming_var is not None and child.sorted_by() == n.streaming_var:
                 return StreamingDistinct(child, n.streaming_var, dev)
             if n.grace:
@@ -252,6 +278,9 @@ class Translator:
             return SortDistinct(child, dev, self.cfg.max_batch)
         if isinstance(n, PL.PGroup):
             child = self._build(n.child)
+            if mixed:
+                return LOP.RowGroupBy(self._to_row(child), n.group_vars, n.aggs, d)
+            child = self._to_batch(child)
             if n.streaming and len(n.group_vars) <= 1:
                 gv = n.group_vars[0] if n.group_vars else None
                 if gv is None or child.sorted_by() == gv:
@@ -268,19 +297,174 @@ class Translator:
                 child, n.group_vars, n.aggs, d, dev, self.cfg.max_batch, pool=pool
             )
         if isinstance(n, PL.PHaving):
-            return FilterOp(self._build(n.child), n.expr, d, program=n.program, name="Having")
+            child = self._build(n.child)
+            if isinstance(child, LOP.RowOperator):  # mixed: row grouping
+                return LOP.RowFilter(child, n.expr, d)
+            return FilterOp(child, n.expr, d, program=n.program, name="Having")
         if isinstance(n, PL.POrderBy):
-            return OrderByOp(self._build(n.child), n.keys, d, dev, self.cfg.max_batch, pool=pool)
+            child = self._build(n.child)
+            if mixed:
+                return self._to_batch(LOP.RowSort(self._to_row(child), keys=n.keys, dictionary=d))
+            return OrderByOp(self._to_batch(child), n.keys, d, dev, self.cfg.max_batch, pool=pool)
         if isinstance(n, PL.PSlice):
-            return SliceOp(self._build(n.child), n.limit, n.offset)
+            child = self._build(n.child)
+            if isinstance(child, LOP.RowOperator):
+                return LOP.RowLimit(child, n.limit, n.offset)
+            return SliceOp(child, n.limit, n.offset)
         if isinstance(n, PL.PUnion):
-            return UnionOp(self._build(n.left), self._build(n.right), dev, pool=pool)
+            return UnionOp(batch(n.left), batch(n.right), dev, pool=pool)
         raise TypeError(type(n))
+
+    # -- adapters --------------------------------------------------------------
+
+    def _batch_child(self, n: PL.Phys) -> BatchOperator:
+        return self._to_batch(self._build(n))
+
+    def _to_batch(self, op: AnyOp) -> BatchOperator:
+        if isinstance(op, BatchOperator):
+            return op
+        return RowToBatch(op, self.device, self.cfg.max_batch, pool=self.pool)
+
+    def _to_row(self, op: AnyOp) -> LOP.RowOperator:
+        if isinstance(op, LOP.RowOperator):
+            return op
+        return BatchToRow(op)
+
+    def _path_op(self, n: PL.PPathScan) -> LOP.RowOperator:
+        pat = n.pattern
+        if not isinstance(pat.p, A.K):
+            raise ValueError(
+                "property paths require a constant predicate, got a "
+                "variable in the predicate position"
+            )
+        assert isinstance(pat.s, A.V) and isinstance(pat.o, A.V), (
+            "bound-endpoint paths are planned as filters over the closure"
+        )
+        return RowTransitivePath(self.store, pat.p.term, pat.s.id, pat.o.id)
+
+    # -- all-row build (legacy engine, the paper's baseline) ----------------------
+
+    def _row(self, n: PL.Phys) -> LOP.RowOperator:
+        d, row = self.store.dict, self._row
+        if isinstance(n, PL.PScan):
+            return LOP.RowScan(self.store, n.pattern, n.sort_var)
+        if isinstance(n, PL.PPathExpand):
+            return RowPathScan(self.store, n.pattern.expr, n.pattern.s, n.pattern.o)
+        if isinstance(n, PL.PPathScan):
+            return self._path_op(n)
+        if isinstance(n, PL.PSort):
+            return LOP.RowSort(row(n.child), var=n.var)
+        if isinstance(n, PL.PMergeJoin):
+            return LOP.RowMergeJoin(
+                row(n.left), row(n.right), n.var, mode=n.mode,
+                post_filter=n.post_filter, dictionary=d,
+            )
+        if isinstance(n, PL.PLookupJoin):
+            # legacy uses sort+merge for the same plan shape
+            probe = row(n.probe)
+            build = LOP.RowSort(row(n.build), var=n.var)
+            if probe.sorted_by() != n.var:
+                probe = LOP.RowSort(probe, var=n.var)
+            return LOP.RowMergeJoin(probe, build, n.var, mode=n.mode)
+        if isinstance(n, PL.PHashJoin):
+            return LOP.RowHashJoin(
+                row(n.probe), row(n.build), n.keys, mode=n.mode,
+                post_filter=n.post_filter, dictionary=d,
+            )
+        if isinstance(n, PL.PCross):
+            # block nested loop: the right subtree is rebuilt for each left row
+            return _RowCross(row(n.left), lambda rplan=n.right: row(rplan))
+        if isinstance(n, PL.PFilter):
+            return LOP.RowFilter(row(n.child), n.expr, d)
+        if isinstance(n, PL.PExtend):
+            return _RowExtend(row(n.child), n.var, n.expr, d)
+        if isinstance(n, PL.PProject):
+            return LOP.RowProject(row(n.child), n.vars)
+        if isinstance(n, PL.PDistinct):
+            return LOP.RowDistinct(row(n.child))
+        if isinstance(n, PL.PGroup):
+            return LOP.RowGroupBy(row(n.child), n.group_vars, n.aggs, d)
+        if isinstance(n, PL.PHaving):
+            return LOP.RowFilter(row(n.child), n.expr, d)
+        if isinstance(n, PL.POrderBy):
+            return LOP.RowSort(row(n.child), keys=n.keys, dictionary=d)
+        if isinstance(n, PL.PSlice):
+            return LOP.RowLimit(row(n.child), n.limit, n.offset)
+        if isinstance(n, PL.PUnion):
+            return LOP.RowUnion(row(n.left), row(n.right))
+        raise TypeError(type(n))
+
+
+class _RowCross(LOP.RowOperator):
+    def __init__(self, left: LOP.RowOperator, right_factory):
+        self.left = left
+        self.right_factory = right_factory
+        self._lrow: Optional[dict] = None
+        self._right: Optional[LOP.RowOperator] = None
+        probe = right_factory()
+        lv = tuple(left.var_ids())
+        self._vars = lv + tuple(v for v in probe.var_ids() if v not in lv)
+        super().__init__("Cross", "(row)")
+
+    def var_ids(self):
+        return self._vars
+
+    def children(self):
+        return [self.left]
+
+    def next_row(self):
+        while True:
+            if self._lrow is None:
+                self._lrow = self.left.next_row()
+                if self._lrow is None:
+                    return None
+                self._right = self.right_factory()
+            r = self._right.next_row()
+            if r is None:
+                self._lrow = None
+                continue
+            out = dict(self._lrow)
+            out.update(r)
+            return out
+
+    def reset(self):
+        self.left.reset()
+        self._lrow = None
+
+
+class _RowExtend(LOP.RowOperator):
+    def __init__(self, child: LOP.RowOperator, var: int, expr, dictionary: Dictionary):
+        self.child, self.var, self.expr, self.dictionary = child, var, expr, dictionary
+        super().__init__("Bind", "(row)")
+
+    def var_ids(self):
+        return self.child.var_ids() + (self.var,)
+
+    def sorted_by(self):
+        return self.child.sorted_by()
+
+    def children(self):
+        return [self.child]
+
+    def next_row(self):
+        r = self.child.next_row()
+        if r is None:
+            return None
+        b = LOP.row_to_batch(r, self.child.var_ids())
+        vals, ok = eval_expr_values(self.expr, b, self.dictionary)
+        out = dict(r)
+        if ok[0]:
+            v = float(vals[0])
+            out[self.var] = self.dictionary.encode(int(v) if v.is_integer() else v)
+        return out
+
+    def reset(self):
+        self.child.reset()
 
 
 class QueryResult:
     def __init__(self, var_table: A.VarTable, proj: Tuple[int, ...], rows: np.ndarray,
-                 root: Optional[BatchOperator] = None):
+                 root: Optional[AnyOp] = None):
         self.var_table = var_table
         self.proj = proj
         self.rows = rows  # (n, n_proj) int32 codes, on the host
@@ -320,17 +504,18 @@ class Engine:
         self.stats = GraphStats(store)
         self.planner = PL.Planner(
             self.stats,
-            barq_enabled=True,
+            barq_enabled=self.cfg.engine != "legacy",
             dictionary=store.dict,
             join_strategy=self.cfg.join_strategy,
             sip=self.cfg.sip,
             memory_budget=self.cfg.memory_budget,
             adaptive_join=self.cfg.adaptive_join,
         )
-        # Engine-owned warm arena shared across this engine's queries
+        # Engine-owned warm arena shared across this engine's queries (the
+        # row engine holds no batches)
         self.pool: Optional[BatchPool] = (
             BatchPool(self.device, self.cfg.pool_max_per_bucket)
-            if self.cfg.pool_buffers else None
+            if self.cfg.pool_buffers and self.cfg.engine != "legacy" else None
         )
 
     def parse(self, text: str) -> Tuple[A.PlanNode, A.VarTable]:
@@ -360,25 +545,39 @@ class Engine:
         op = Translator(self.store, self.cfg, self.device, pool=self.pool).translate(phys)
         proj = tuple(PL.phys_vars(phys))
         try:
-            # streaming drain: keep each batch's projection on the device,
-            # give the buffers straight back to the arena
-            blocks = []
-            while True:
-                b = op.next_batch()
-                if b is None:
-                    break
-                if not b.n_active:
-                    b.release()
-                    continue
-                cb = b.compact()
-                order = [cb.col_index(v) for v in proj]
-                blocks.append(cb.columns[order, : cb.n_rows].T)  # row gather copies
-                cb.release()
-            dev_rows = (
-                torch.cat(blocks, dim=0) if blocks
-                else torch.zeros((0, len(proj)), dtype=torch.int32, device=self.device)
-            )
-            rows = dev_rows.cpu().numpy()  # the query's one device-to-host copy
+            if isinstance(op, LOP.RowOperator):
+                rows = self._drain_rows(op, proj)
+            else:
+                rows = self._drain_batches(op, proj)
         finally:
             close_tree(op)
         return QueryResult(var_table or A.VarTable(), proj, rows, root=op)
+
+    @staticmethod
+    def _drain_rows(op: LOP.RowOperator, proj: Tuple[int, ...]) -> np.ndarray:
+        """The row engine's result: every row of the root, NULL_ID where a
+        projected variable is unbound."""
+        rows = [[r.get(v, NULL_ID) for v in proj] for r in op.drain()]
+        return np.asarray(rows, dtype=np.int32).reshape(len(rows), len(proj))
+
+    def _drain_batches(self, op: BatchOperator, proj: Tuple[int, ...]) -> np.ndarray:
+        """Streaming drain: keep each batch's projection on the device, give
+        the buffers straight back to the arena, and copy the rows to the
+        host once."""
+        blocks = []
+        while True:
+            b = op.next_batch()
+            if b is None:
+                break
+            if not b.n_active:
+                b.release()
+                continue
+            cb = b.compact()
+            order = [cb.col_index(v) for v in proj]
+            blocks.append(cb.columns[order, : cb.n_rows].T)  # row gather copies
+            cb.release()
+        dev_rows = (
+            torch.cat(blocks, dim=0) if blocks
+            else torch.zeros((0, len(proj)), dtype=torch.int32, device=self.device)
+        )
+        return dev_rows.cpu().numpy()  # the query's one device-to-host copy

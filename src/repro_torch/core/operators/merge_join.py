@@ -38,9 +38,8 @@ import torch
 from repro_torch.core import vecops
 from repro_torch.core.adaptive import AdaptiveBatchSizer
 from repro_torch.core.batch import NULL_ID, BatchPool, ColumnBatch, bucket_for
-from repro_torch.core.exprs.vm import eval_program_mask
 from repro_torch.core.operators.base import BatchOperator
-from repro_torch.core.operators.simple import resolve_program
+from repro_torch.core.operators.simple import expr_mask, resolve_program
 from repro_torch.kernels.gather_emit import EmitPlan, gather_emit
 from repro_torch.kernels.join_expand import join_expand
 
@@ -493,9 +492,9 @@ class MergeJoin(BatchOperator):
         b.mask[:count] = mask
         if self.pool is not None:
             self.pool.bytes_copied += len(self._out_vars) * count * 4
-        if self.post_program is not None:
-            # OPTIONAL {...} FILTER condition through the expression VM
-            b = b.with_mask(eval_program_mask(self.post_program, b, self.dictionary))
+        if self.post_filter is not None:
+            # OPTIONAL {...} FILTER condition (VM, or the tree walk)
+            b = b.with_mask(expr_mask(self.post_filter, self.post_program, b, self.dictionary))
 
         if self._needs_expansion_for_match:
             self._lmatched.index_add_(0, li.long(), b.mask[:count].to(torch.int32))

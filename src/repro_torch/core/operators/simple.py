@@ -2,9 +2,11 @@
 
 FILTER and BIND run their compiled expression program through the
 ``expr_eval`` kernel, one launch per batch; FILTER narrows the batch mask
-in place (no copy). An expression outside the compiler's surface needs the
-reference's interpreted tree walk, which this package does not carry: it
-raises instead of evaluating another way.
+in place (no copy). An expression outside the compiler's surface (the
+planner marks it ``program=False``, or a compile of a hand-built tree
+fails) evaluates through the interpreted tree walk
+(``core/expressions.py``) on the batch's device, exactly where the
+reference does; nothing switches to the walk because a kernel failed.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from repro_torch.core.algebra import Expr
 from repro_torch.core.batch import NULL_ID, BatchPool, ColumnBatch, concat_batches
 from repro_torch.core.dictionary import Dictionary
+from repro_torch.core.expressions import eval_expr_mask, eval_expr_values
 from repro_torch.core.exprs import ExprCompileError, compile_expr
 from repro_torch.core.exprs.vm import eval_program_mask, eval_program_values
 from repro_torch.core.operators.base import BatchOperator
@@ -23,28 +26,32 @@ from repro_torch.core.operators.base import BatchOperator
 
 def resolve_program(expr: Expr, dictionary: Optional[Dictionary], program,
                     mode: str):
-    """The planner's compiled program, or a compile for hand-built trees.
-    ``program is False`` is the planner's mark for an uncompilable
-    expression."""
-    if program is not None and program is not False:
+    """The planner's compiled program, or a compile for hand-built trees;
+    None where the tree walk evaluates the expression: ``program is
+    False`` (the planner's mark for an uncompilable expression), a failed
+    compile, or no dictionary to compile against."""
+    if program is False:
+        return None
+    if program is not None or dictionary is None:
         return program
-    if program is None and dictionary is not None:
-        try:
-            return compile_expr(expr, dictionary, mode)
-        except ExprCompileError as e:
-            raise NotImplementedError(
-                f"expression outside the VM's surface ({e}); the interpreted "
-                "expression walk is not ported"
-            ) from e
-    raise NotImplementedError(
-        "expression outside the VM's surface; the interpreted expression "
-        "walk is not ported"
-    )
+    try:
+        return compile_expr(expr, dictionary, mode)
+    except ExprCompileError:
+        return None
+
+
+def expr_mask(expr: Expr, program, batch: ColumnBatch,
+              dictionary: Optional[Dictionary]) -> torch.Tensor:
+    """FILTER semantics over ``batch``: the program's mask through the VM,
+    or the tree walk's where there is no program."""
+    if program is None:
+        return eval_expr_mask(expr, batch, dictionary)
+    return eval_program_mask(program, batch, dictionary)
 
 
 class FilterOp(BatchOperator):
-    """FILTER through the expression VM: one kernel launch per batch
-    narrows the mask in place."""
+    """FILTER through the expression VM (one kernel launch per batch) or
+    the tree walk, narrowing the mask in place."""
 
     def __init__(
         self,
@@ -58,7 +65,7 @@ class FilterOp(BatchOperator):
         self.expr = expr
         self.dictionary = dictionary
         self.program = resolve_program(expr, dictionary, program, "mask")
-        super().__init__(name)
+        super().__init__(name, "" if self.program is None else "[vm]")
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids()
@@ -74,7 +81,7 @@ class FilterOp(BatchOperator):
             b = self.child.next_batch()
             if b is None:
                 return None
-            b = b.with_mask(eval_program_mask(self.program, b, self.dictionary))
+            b = b.with_mask(expr_mask(self.expr, self.program, b, self.dictionary))
             if b.n_active:
                 return b
             b.release()  # all rows inactive: recycle batch, keep pulling
@@ -156,7 +163,7 @@ class ExtendOp(BatchOperator):
         self.device = device
         self.pool = pool
         self.program = resolve_program(expr, dictionary, program, "value")
-        super().__init__("Bind")
+        super().__init__("Bind", "" if self.program is None else "[vm]")
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids() + (self.var,)
@@ -171,7 +178,10 @@ class ExtendOp(BatchOperator):
         b = self.child.next_batch()
         if b is None:
             return None
-        vals, ok = eval_program_values(self.program, b, self.dictionary)
+        if self.program is None:
+            vals, ok = eval_expr_values(self.expr, b, self.dictionary)
+        else:
+            vals, ok = eval_program_values(self.program, b, self.dictionary)
         n = b.n_rows
         codes = torch.full((b.capacity,), NULL_ID, dtype=torch.int32, device=self.device)
         okn = ok[:n]

@@ -4,8 +4,12 @@ Each index order keeps its four quad columns as contiguous int32 tensors on
 the store's device, sorted lexicographically by the order's permutation —
 the reference's per-column index copies, moved to device memory.
 ``range_for_pattern`` and ``seek`` (the merge join's ``skip()``) are
-``torch.searchsorted`` probes with needles in the column dtype. The only
-host copy is the SPOC index array that the planner's statistics read.
+``torch.searchsorted`` probes with needles in the column dtype. The host
+copies are the index arrays (``index_array``), made lazily for each order
+something reads: SPOC for the planner's statistics, and the orders the row
+engine scans, which it searches with ``np.searchsorted``
+(``host_range_for_pattern``, ``host_seek``) so that a row scan, a skip or
+a path over the store never waits for the device.
 """
 
 from __future__ import annotations
@@ -178,6 +182,31 @@ class QuadStore:
         col = self._index_cols[rng.index][sort_col_pos][rng.lo + start: rng.hi]
         needle = torch.tensor([target], dtype=col.dtype, device=col.device)
         return start + int(torch.searchsorted(col, needle))
+
+    # -- host-side search over the index arrays (the row engine) -------------
+
+    def host_range_for_pattern(
+        self, index: str, bound: Sequence[Optional[int]]
+    ) -> ScanRange:
+        """``range_for_pattern`` over the host copy of the index."""
+        arr = self.index_array(index)
+        perm = INDEX_ORDERS[index]
+        lo, hi = 0, len(arr)
+        for col_pos in range(4):
+            v = bound[perm[col_pos]]
+            if v is None:
+                break
+            # a needle in the column dtype: a Python int would make numpy
+            # cast the whole column before searching
+            col, v = arr[lo:hi, col_pos], np.int32(v)
+            lo, hi = (lo + int(np.searchsorted(col, v, side="left")),
+                      lo + int(np.searchsorted(col, v, side="right")))
+        return ScanRange(index, lo, hi)
+
+    def host_seek(self, rng: ScanRange, start: int, sort_col_pos: int, target: int) -> int:
+        """``seek`` over the host copy of the index."""
+        col = self.index_array(rng.index)[rng.lo + start: rng.hi, sort_col_pos]
+        return start + int(np.searchsorted(col, np.int32(target), side="left"))
 
     # -- stats for the optimizer ------------------------------------------------
 

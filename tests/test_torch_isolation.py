@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, runs on the card unless asked for the CPU, and refuses what it
-has not ported instead of evaluating it another way."""
+has not ported instead of evaluating it another way; the configurations
+and plan nodes it has since ported run and give the reference's rows."""
 
 import ast
 import dataclasses
@@ -57,8 +58,6 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("engine", "legacy"),
-    ("engine", "mixed"),
     ("cardinality_feedback", "apply"),
     ("cardinality_feedback", "observe"),
 ])
@@ -66,6 +65,20 @@ def test_config_outside_the_slice_raises(field, value):
     cfg = repro_torch.EngineConfig(**{field: value})
     with pytest.raises(NotImplementedError, match=field):
         repro_torch.Engine(_cpu_store(), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["legacy", "mixed"])
+def test_engine_values_are_accepted_and_run(engine):
+    """The row engine and the mixed engine run, and give the rows of the
+    default configuration."""
+    store = _cpu_store()
+    q = ("SELECT ?p (COUNT(?t) AS ?n) { ?p :knows ?q . ?q :hasInterest ?t . "
+         "FILTER (?p != ?q) } GROUP BY ?p")
+    base = repro_torch.Engine(store, device="cpu").execute(q).rows
+    got = repro_torch.Engine(store, repro_torch.EngineConfig(engine=engine),
+                             device="cpu").execute(q).rows
+    assert len(base) > 0
+    assert sorted(map(tuple, got.tolist())) == sorted(map(tuple, base.tolist()))
 
 
 @pytest.mark.parametrize("field,value", [
@@ -99,12 +112,9 @@ def test_config_the_reference_lacks_is_refused(field, value):
         repro_torch.Engine(_cpu_store(), cfg, device="cpu")
 
 
-def _path_scan_plan():
+def _path_scan_plan(PL, A):
     """A hand-built PPathScan: the row engine's `+` node, which the planner
     no longer emits."""
-    from repro_torch.core import algebra as A
-    from repro_torch.core import planner as PL
-
     return PL.PPathScan(A.TriplePattern(A.V(0), A.K(":knows"), A.V(1), A.K(":default")))
 
 
@@ -121,27 +131,46 @@ def _grace_join_plan():
                         grace_parts=8)
 
 
-def _uncompilable_filter_plan():
+def _uncompilable_filter_plan(PL, A):
     """A FILTER whose expression the VM cannot compile (an unknown
-    function): the interpreted expression walk would run it."""
-    from repro_torch.core import algebra as A
-    from repro_torch.core import planner as PL
-
+    function): the interpreted expression walk evaluates it."""
     scan = PL.PScan(A.TriplePattern(A.V(0), A.K(":knows"), A.V(1), A.K(":default")), None)
     return PL.PFilter(A.Func("strlen", (A.VarRef(1),)), scan)
 
 
-@pytest.mark.parametrize("query,what", [
-    (_uncompilable_filter_plan, "expression outside the VM"),
-    (_path_scan_plan, "PPathScan"),
-], ids=["uncompilable expression", "PPathScan"])
-def test_plan_outside_the_slice_raises(query, what):
-    engine = repro_torch.Engine(_cpu_store(), device="cpu")
-    with pytest.raises(NotImplementedError, match=what):
-        if isinstance(query, str):
-            engine.execute(query)
-        else:
-            engine.execute_plan(query())
+def _outcome(engine, plan):
+    """A plan's sorted rows, or the type and message of what it raised."""
+    try:
+        return sorted(map(tuple, engine.execute_plan(plan).rows.tolist()))
+    except Exception as e:  # the reference's refusal is the answer to match
+        return type(e).__name__, str(e)
+
+
+@pytest.mark.parametrize("query", [_uncompilable_filter_plan, _path_scan_plan],
+                         ids=["uncompilable expression", "PPathScan"])
+def test_plan_formerly_outside_the_slice_runs(query):
+    """Both hand-built plans run under every engine and end as the
+    reference's do: the path scan with its rows, the FILTER in the tree
+    walk, which refuses an unknown function with the reference's error."""
+    from repro.core import Engine as REngine
+    from repro.core import EngineConfig as RConfig
+    from repro.core import algebra as RA
+    from repro.core import planner as RPL
+    from repro.data.lsqb import generate_social_graph as ref_social_graph
+    from repro_torch.core import algebra as A
+    from repro_torch.core import planner as PL
+
+    store = _cpu_store()
+    ref_store, _ = ref_social_graph(scale=0.02, seed=1)
+    for engine in ("barq", "legacy", "mixed"):
+        want = _outcome(REngine(ref_store, RConfig(engine=engine)), query(RPL, RA))
+        got = _outcome(repro_torch.Engine(store, repro_torch.EngineConfig(engine=engine),
+                                          device="cpu"), query(PL, A))
+        assert got == want, engine
+    if query is _path_scan_plan:
+        assert len(got) > 0
+    else:
+        assert got[0] == "ValueError"
 
 
 def test_grace_join_plan_runs(tmp_path):
