@@ -9,7 +9,9 @@ power-of-two capacities between ``MIN_BATCH`` and ``MAX_BATCH``, and a
 between single owners (release / MOVE through ``with_mask``).
 
 ``n_rows`` (the physically filled prefix) is a host integer; ``n_active``
-reads the mask and so waits for the device.
+reads the mask and so waits for the device. ``dense`` marks a batch whose
+filled prefix is all active, known on the host without reading the mask:
+the operator statistics count such a batch's rows as ``n_rows``.
 """
 
 from __future__ import annotations
@@ -88,7 +90,10 @@ class BatchPool:
             "pooled": pooled,
             "live": self.allocations - self.dropped - pooled,
             "acquires": self.allocations + self.reuses,
+            "reuses": self.reuses,
             "recycles": self.releases,
+            "bytes_allocated": self.bytes_allocated,
+            "bytes_copied": self.bytes_copied,
         }
 
 
@@ -105,6 +110,8 @@ class ColumnBatch:
       sorted_by: var id the active rows are non-decreasing in, or None.
       pool:     owning BatchPool, or None for unpooled buffers. Exactly one
                 holder owns the buffers; ``with_mask`` MOVEs ownership.
+      dense:    True only where every row of [0, n_rows) is known active
+                on the host (set by the writer; any narrowing clears it).
     """
 
     var_ids: Tuple[int, ...]
@@ -113,6 +120,7 @@ class ColumnBatch:
     n_rows: int
     sorted_by: Optional[int] = None
     pool: Optional[BatchPool] = None
+    dense: bool = False
 
     # -- constructors -----------------------------------------------------
 
@@ -140,7 +148,7 @@ class ColumnBatch:
             mask[:n] = True
         for i, c in enumerate(cols):
             data[i, :n] = c
-        return ColumnBatch(var_ids, data, mask, n, sorted_by, pool)
+        return ColumnBatch(var_ids, data, mask, n, sorted_by, pool, dense=True)
 
     @staticmethod
     def alloc(
@@ -214,6 +222,7 @@ class ColumnBatch:
         """Drop inactive rows. Buffer ownership moves to the compacted batch;
         when rows are dropped the source buffers are recycled."""
         if self.n_active == self.n_rows:
+            self.dense = True
             return self
         sel = self.selection_vector().long()
         cols = [self.columns[i, sel] for i in range(len(self.var_ids))]
@@ -230,13 +239,14 @@ class ColumnBatch:
         # the row gather copies, so the projected batch is unpooled and this
         # batch keeps ownership of its buffers
         m = self.mask if self.pool is None else self.mask.clone()
-        return ColumnBatch(keep, self.columns[idx], m, self.n_rows, sb)
+        return ColumnBatch(keep, self.columns[idx], m, self.n_rows, sb, dense=self.dense)
 
     def with_mask(self, mask: torch.Tensor) -> "ColumnBatch":
         if self.pool is not None:
             # pooled batches are single-owner: narrow the mask in place and
             # MOVE buffer ownership to the derived batch (zero-copy)
             self.mask.logical_and_(mask)
+            self.dense = False
             pool, self.pool = self.pool, None
             return ColumnBatch(
                 self.var_ids, self.columns, self.mask, self.n_rows, self.sorted_by, pool
@@ -255,6 +265,7 @@ class ColumnBatch:
 
         if self.pool is not None:
             sip_mask(self.mask, self.n_rows, filters)
+            self.dense = False
             pool, self.pool = self.pool, None
             return ColumnBatch(
                 self.var_ids, self.columns, self.mask, self.n_rows, self.sorted_by, pool
@@ -311,5 +322,6 @@ def concat_batches(
         out.columns[:, total:] = NULL_ID
     out.mask[:total] = True
     out.n_rows = total
+    out.dense = True
     return out
 

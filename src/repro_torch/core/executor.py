@@ -16,7 +16,9 @@ adapters at engine boundaries, as the reference does:
 The batch engine covers the reference's default configuration (cost-based
 join strategy, cost-gated SIP), the forced ``hash`` / ``merge`` and SIP
 ``on`` / ``off`` settings, memory budgets with ``spill_dir`` and the
-adaptive merge join: scans with seek and SIP prefilters, merge (with a
+adaptive merge join, and cardinality feedback (``"observe"`` records each
+operator's actual rows, ``"apply"`` also plans with them): scans with seek
+and SIP prefilters, merge (with a
 spilling right window), lookup and radix-partitioned hash joins (inner /
 left_outer / semi / anti; grace under a budget), cross products, FILTER
 and BIND through the expression VM (the interpreted tree walk where the
@@ -28,12 +30,23 @@ vectorized frontier engine (``PathExpand``) or, for the row node
 configuration outside it raises ``NotImplementedError`` naming the part of
 the port that will bring it; the engine never evaluates a query some other
 way.
+
+Every query runs under a ``telemetry.QueryTrace`` (``EngineConfig.
+telemetry``, on by default): spans for parse, plan, translate and execute,
+the ported kernels' dispatches for this query alone, and the operator tree.
+After the drain the operators' row counts, part of which the batches leave
+on the device, become host integers in one device-to-host copy, issued
+before the copy of the result rows so that it adds no host sync of its own
+(``pending_counts``; under a row root, the mixed engine's, it is one sync
+of its own); the trace, EXPLAIN ANALYZE and the feedback store read host
+integers, and the statistics add no host sync to any batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -41,6 +54,7 @@ import torch
 
 from repro_torch.core import algebra as A
 from repro_torch.core import planner as PL
+from repro_torch.core import telemetry
 from repro_torch.core.adaptive import AdaptiveBatchSizer
 from repro_torch.core.batch import NULL_ID, BatchPool, bucket_for
 from repro_torch.core.device import resolve_device
@@ -58,7 +72,12 @@ from repro_torch.core.operators.aggregate import (
     StreamingDistinct,
     StreamingGroupBy,
 )
-from repro_torch.core.operators.base import BatchOperator, close_tree
+from repro_torch.core.operators.base import (
+    BatchOperator,
+    close_tree,
+    pending_counts,
+    settle_counts,
+)
 from repro_torch.core.operators.cross import CrossJoin
 from repro_torch.core.operators.hash_join import HashJoin
 from repro_torch.core.operators.lookup_join import LookupJoin
@@ -73,6 +92,7 @@ from repro_torch.core.operators.simple import (
     UnionOp,
 )
 from repro_torch.core.operators.sort import OrderByOp, SortByVarOp
+from repro_torch.core.profiler import _pool_delta, profile_tree
 from repro_torch.core.sip import SipFilter
 from repro_torch.core.stats import GraphStats
 from repro_torch.core.storage import QuadStore
@@ -84,7 +104,7 @@ _SUPPORTED = {
     "join_strategy": ((None, "hash", "merge"), None),
     "sip": ((None, "on", "off"), None),
     "adaptive_join": ((None, "off", "on"), None),
-    "cardinality_feedback": (("off",), "the telemetry slice"),
+    "cardinality_feedback": (("off", "observe", "apply"), None),
 }
 
 
@@ -107,6 +127,13 @@ class EngineConfig:
     # buffer pooling: recycle batch buffers through an Engine-owned arena
     pool_buffers: bool = True
     pool_max_per_bucket: int = 32
+    # query telemetry: record a QueryTrace per execution (spans, the
+    # query's kernel ledger, the operator lane) and settle the operators'
+    # row counts after the drain; False skips both
+    telemetry: bool = True
+    # cardinality feedback: "off" = no history, "observe" = record each
+    # operator's actual rows into the feedback store without touching
+    # plans, "apply" = the planner also overrides its estimates with them
     cardinality_feedback: str = "off"
     memory_budget: Optional[int] = None
     adaptive_join: str = "off"
@@ -174,6 +201,12 @@ class Translator:
     # -- engine-aware build (barq / mixed) -------------------------------------
 
     def _build(self, n: PL.Phys) -> AnyOp:
+        """Lower one Phys node, stamping the planner's cardinality estimate
+        (and its source) and node fingerprint on the produced operator's
+        stats (EXPLAIN ANALYZE and feedback input)."""
+        return _stamp(self._build_node(n), n)
+
+    def _build_node(self, n: PL.Phys) -> AnyOp:
         """Lower one Phys node (and its subtree): batch operators, and under
         ``engine="mixed"`` row operators for sort, distinct, grouping and
         ORDER BY (and project, slice and HAVING over a row child)."""
@@ -345,6 +378,9 @@ class Translator:
     # -- all-row build (legacy engine, the paper's baseline) ----------------------
 
     def _row(self, n: PL.Phys) -> LOP.RowOperator:
+        return _stamp(self._row_node(n), n)
+
+    def _row_node(self, n: PL.Phys) -> LOP.RowOperator:
         d, row = self.store.dict, self._row
         if isinstance(n, PL.PScan):
             return LOP.RowScan(self.store, n.pattern, n.sort_var)
@@ -395,6 +431,16 @@ class Translator:
         raise TypeError(type(n))
 
 
+def _stamp(op: AnyOp, n: PL.Phys) -> AnyOp:
+    est = getattr(n, "est_rows", 0.0)
+    if est and op.stats.est_rows is None:
+        op.stats.est_rows = float(est)
+        op.stats.est_source = getattr(n, "est_source", "stats")
+    if op.stats.node_fp is None:
+        op.stats.node_fp = getattr(n, "fp", "") or None
+    return op
+
+
 class _RowCross(LOP.RowOperator):
     def __init__(self, left: LOP.RowOperator, right_factory):
         self.left = left
@@ -412,7 +458,7 @@ class _RowCross(LOP.RowOperator):
     def children(self):
         return [self.left]
 
-    def next_row(self):
+    def _next(self):
         while True:
             if self._lrow is None:
                 self._lrow = self.left.next_row()
@@ -427,7 +473,7 @@ class _RowCross(LOP.RowOperator):
             out.update(r)
             return out
 
-    def reset(self):
+    def _reset(self):
         self.left.reset()
         self._lrow = None
 
@@ -446,7 +492,7 @@ class _RowExtend(LOP.RowOperator):
     def children(self):
         return [self.child]
 
-    def next_row(self):
+    def _next(self):
         r = self.child.next_row()
         if r is None:
             return None
@@ -458,17 +504,28 @@ class _RowExtend(LOP.RowOperator):
             out[self.var] = self.dictionary.encode(int(v) if v.is_integer() else v)
         return out
 
-    def reset(self):
+    def _reset(self):
         self.child.reset()
 
 
 class QueryResult:
     def __init__(self, var_table: A.VarTable, proj: Tuple[int, ...], rows: np.ndarray,
-                 root: Optional[AnyOp] = None):
+                 root: Optional[AnyOp] = None, pool: Optional[BatchPool] = None,
+                 pool_base: Optional[Dict[str, int]] = None,
+                 trace: Optional[telemetry.QueryTrace] = None):
         self.var_table = var_table
         self.proj = proj
         self.rows = rows  # (n, n_proj) int32 codes, on the host
-        self.root = root  # the closed operator tree (its counters stay readable)
+        self.root = root  # the closed operator tree (its stats stay readable)
+        self.pool = pool  # the buffer arena (Engine-shared and warm)
+        # pool counters bracketing this execution: profile() and
+        # pool_delta() report this query's share, and the end snapshot is
+        # frozen here so later queries on the same arena can't leak in
+        self.pool_base = pool_base
+        self.pool_final: Optional[Dict[str, int]] = (
+            dict(pool.counters()) if pool is not None else None
+        )
+        self.trace = trace  # QueryTrace, or None with telemetry off
 
     @property
     def n_rows(self) -> int:
@@ -484,15 +541,35 @@ class QueryResult:
             for row in self.rows.tolist()
         ]
 
+    def pool_delta(self) -> Dict[str, int]:
+        """This query's pool counters (end-of-execution snapshot minus the
+        pre-execution one)."""
+        if self.pool_final is None:
+            return {}
+        return _pool_delta(self.pool_final, self.pool_base)
+
+    def profile(self, analyze: bool = False) -> str:
+        return profile_tree(self.root, self.var_table, pool=self.pool_final,
+                            pool_base=self.pool_base, analyze=analyze)
+
+    def explain_analyze(self) -> str:
+        """EXPLAIN ANALYZE report: per-operator actual vs planner-estimated
+        rows with MISEST flags at q-error >= profiler.QERROR_FLAG."""
+        return self.profile(analyze=True)
+
 
 class Engine:
-    """Public API: ``Engine(store, cfg, device).execute(sparql_text | plan)``.
+    """Public API: ``Engine(store, cfg, device, feedback).execute(sparql_text
+    | plan)``.
 
     ``device=None`` is the CUDA card; it raises where there is none. Pass
-    ``device="cpu"`` to run the kernels' plain PyTorch versions."""
+    ``device="cpu"`` to run the kernels' plain PyTorch versions. Under
+    ``cardinality_feedback`` "observe" or "apply" the engine records into
+    ``feedback`` (a caller-shared ``CardinalityFeedback``) or into one of
+    its own."""
 
     def __init__(self, store: QuadStore, cfg: Optional[EngineConfig] = None,
-                 device=None):
+                 device=None, feedback: Optional[telemetry.CardinalityFeedback] = None):
         self.device = resolve_device(device)
         self.cfg = cfg or EngineConfig()
         self.cfg.check()
@@ -502,21 +579,39 @@ class Engine:
             )
         self.store = store
         self.stats = GraphStats(store)
+        mode = self.cfg.cardinality_feedback
+        self.feedback: Optional[telemetry.CardinalityFeedback] = None
+        if mode != "off":
+            self.feedback = feedback if feedback is not None else telemetry.CardinalityFeedback()
         self.planner = PL.Planner(
             self.stats,
             barq_enabled=self.cfg.engine != "legacy",
             dictionary=store.dict,
             join_strategy=self.cfg.join_strategy,
             sip=self.cfg.sip,
+            feedback=self.feedback if mode == "apply" else None,
             memory_budget=self.cfg.memory_budget,
             adaptive_join=self.cfg.adaptive_join,
         )
         # Engine-owned warm arena shared across this engine's queries (the
-        # row engine holds no batches)
+        # row engine holds no batches); per-query attribution comes from
+        # counter snapshots, not resets
         self.pool: Optional[BatchPool] = (
             BatchPool(self.device, self.cfg.pool_max_per_bucket)
             if self.cfg.pool_buffers and self.cfg.engine != "legacy" else None
         )
+
+    def plan_fingerprint(self) -> str:
+        """Identity of every config knob that changes plan shape. Under
+        ``cardinality_feedback="apply"`` the feedback store's version is
+        folded in too: new observations must invalidate cached plans."""
+        base = (
+            f"{self.cfg.engine}|{self.cfg.join_strategy}|{self.cfg.sip}"
+            f"|mb{self.cfg.memory_budget}|aj{self.cfg.adaptive_join}"
+        )
+        if self.cfg.cardinality_feedback == "apply" and self.feedback is not None:
+            base += f"|fb{self.feedback.version}"
+        return base
 
     def parse(self, text: str) -> Tuple[A.PlanNode, A.VarTable]:
         from repro_torch.core.parser import parse_query
@@ -528,30 +623,97 @@ class Engine:
 
     def explain(self, node_or_text: Union[str, A.PlanNode],
                 var_table: Optional[A.VarTable] = None) -> str:
+        """The chosen physical plan (no execution)."""
         if isinstance(node_or_text, str):
             node_or_text, var_table = self.parse(node_or_text)
         return PL.explain(self.plan(node_or_text), var_table)
 
-    def execute(self, node_or_text: Union[str, A.PlanNode],
-                var_table: Optional[A.VarTable] = None) -> QueryResult:
-        if isinstance(node_or_text, str):
-            node, var_table = self.parse(node_or_text)
-        else:
-            node = node_or_text
-        return self.execute_plan(self.plan(node), var_table)
+    def explain_analyze(self, node_or_text: Union[str, A.PlanNode],
+                        var_table: Optional[A.VarTable] = None) -> str:
+        """Execute and render per-operator estimated vs actual rows with
+        misestimate flags."""
+        return self.execute(node_or_text, var_table).explain_analyze()
 
-    def execute_plan(self, phys: PL.Phys,
-                     var_table: Optional[A.VarTable] = None) -> QueryResult:
-        op = Translator(self.store, self.cfg, self.device, pool=self.pool).translate(phys)
+    def execute(self, node_or_text: Union[str, A.PlanNode],
+                var_table: Optional[A.VarTable] = None,
+                trace: Optional[telemetry.QueryTrace] = None) -> QueryResult:
+        if trace is None and self.cfg.telemetry:
+            label = (
+                " ".join(node_or_text.split())[:120]
+                if isinstance(node_or_text, str) else "query"
+            )
+            trace = telemetry.QueryTrace(label)
+        if trace is None:
+            if isinstance(node_or_text, str):
+                node, var_table = self.parse(node_or_text)
+            else:
+                node = node_or_text
+            return self._run_plan(self.plan(node), var_table, None)
+        with telemetry.trace_query(trace=trace):
+            if isinstance(node_or_text, str):
+                with trace.span("parse"):
+                    node, var_table = self.parse(node_or_text)
+            else:
+                node = node_or_text
+            with trace.span("plan"):
+                phys = self.plan(node)
+            return self._run_plan(phys, var_table, trace)
+
+    def execute_plan(self, phys: PL.Phys, var_table: Optional[A.VarTable] = None,
+                     trace: Optional[telemetry.QueryTrace] = None) -> QueryResult:
+        if trace is None and self.cfg.telemetry:
+            trace = telemetry.QueryTrace()
+        if trace is None:
+            return self._run_plan(phys, var_table, None)
+        with telemetry.trace_query(trace=trace):
+            return self._run_plan(phys, var_table, trace)
+
+    def _run_plan(self, phys: PL.Phys, var_table: Optional[A.VarTable],
+                  trace: Optional[telemetry.QueryTrace]) -> QueryResult:
+        pool = self.pool
+        pool_base = dict(pool.counters()) if pool is not None else None
+        t0 = time.perf_counter()
+        op = Translator(self.store, self.cfg, self.device, pool=pool).translate(phys)
+        if trace is not None:
+            trace.add_span("translate", "query", t0, time.perf_counter() - t0)
         proj = tuple(PL.phys_vars(phys))
+        settle = trace is not None or self.feedback is not None
+        t0 = time.perf_counter()
         try:
             if isinstance(op, LOP.RowOperator):
                 rows = self._drain_rows(op, proj)
+                if settle:
+                    settle_counts(op)  # mixed trees: batch operators under rows
             else:
-                rows = self._drain_batches(op, proj)
+                rows = self._drain_batches(op, proj, settle)
         finally:
+            # operator teardown even when the drain raised; stats survive
             close_tree(op)
-        return QueryResult(var_table or A.VarTable(), proj, rows, root=op)
+        if trace is not None:
+            trace.add_span("execute", "query", t0, time.perf_counter() - t0,
+                           rows=int(rows.shape[0]))
+            trace.add_operator_tree(op)
+        if self.feedback is not None:
+            self._record_actuals(op)
+        return QueryResult(var_table or A.VarTable(), proj, rows, root=op, pool=pool,
+                           pool_base=pool_base, trace=trace)
+
+    def _record_actuals(self, root: AnyOp) -> None:
+        """Feed the drained tree's actual output rows into the feedback
+        store, keyed by node fingerprint. Pass-through chains (Sort over
+        Scan, ...) share one fingerprint: record it once, from the topmost
+        operator (identical counts by construction)."""
+        seen = set()
+
+        def walk(op) -> None:
+            fp = op.stats.node_fp
+            if fp and fp not in seen:
+                seen.add(fp)
+                self.feedback.record(fp, op.stats.results)
+            for c in op.children():
+                walk(c)
+
+        walk(root)
 
     @staticmethod
     def _drain_rows(op: LOP.RowOperator, proj: Tuple[int, ...]) -> np.ndarray:
@@ -560,10 +722,13 @@ class Engine:
         rows = [[r.get(v, NULL_ID) for v in proj] for r in op.drain()]
         return np.asarray(rows, dtype=np.int32).reshape(len(rows), len(proj))
 
-    def _drain_batches(self, op: BatchOperator, proj: Tuple[int, ...]) -> np.ndarray:
+    def _drain_batches(self, op: BatchOperator, proj: Tuple[int, ...],
+                       settle: bool) -> np.ndarray:
         """Streaming drain: keep each batch's projection on the device, give
         the buffers straight back to the arena, and copy the rows to the
-        host once."""
+        host once. With ``settle`` the operators' device row counts come
+        to the host in one copy queued ahead of the rows', into pinned
+        memory, so the rows' copy is the only wait."""
         blocks = []
         while True:
             b = op.next_batch()
@@ -576,8 +741,17 @@ class Engine:
             order = [cb.col_index(v) for v in proj]
             blocks.append(cb.columns[order, : cb.n_rows].T)  # row gather copies
             cb.release()
+        stats, counts = pending_counts(op) if settle else ([], None)
+        if counts is not None:
+            host_counts = torch.empty(counts.shape, dtype=counts.dtype,
+                                      pin_memory=counts.is_cuda)
+            host_counts.copy_(counts, non_blocking=True)
         dev_rows = (
             torch.cat(blocks, dim=0) if blocks
             else torch.zeros((0, len(proj)), dtype=torch.int32, device=self.device)
         )
-        return dev_rows.cpu().numpy()  # the query's one device-to-host copy
+        rows = dev_rows.cpu().numpy()  # waits for the stream, counts' copy included
+        if counts is not None:
+            for s, v in zip(stats, host_counts.tolist()):
+                s.settle(v)
+        return rows

@@ -8,13 +8,14 @@ paper measures against is, here, per-tuple Python dispatch.
 The row engine is host Python by nature: scans read the store's host index
 arrays (``QuadStore.index_array``) and search them with numpy, never the
 device columns, and an expression over a row evaluates through the
-interpreted tree walk on a one-row CPU batch. Each operator keeps its
-counters in the plain ``extra`` dict (``rows_scanned`` for scans) and its
-shape in ``detail``, as the batch operators do.
+interpreted tree walk on a one-row CPU batch. Each operator keeps the
+batch operators' ``OpStats`` (``stats.results`` counts rows on the host,
+``stats.rows_scanned`` the index rows a scan read).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,6 +25,7 @@ from repro_torch.core.algebra import AggSpec, Expr, K, SortKey, TriplePattern, V
 from repro_torch.core.batch import NULL_ID, ColumnBatch
 from repro_torch.core.dictionary import Dictionary
 from repro_torch.core.expressions import eval_expr_mask, eval_expr_values
+from repro_torch.core.operators.base import OpStats
 from repro_torch.core.storage import INDEX_ORDERS, QuadStore, ScanRange
 
 Row = Dict[int, int]
@@ -47,9 +49,34 @@ def row_holds(expr: Expr, row: Row, vars_: Sequence[int], d: Optional[Dictionary
 
 class RowOperator:
     def __init__(self, name: str, detail: str = "") -> None:
-        self.name = name
-        self.detail = detail
-        self.extra: Dict[str, float] = {}
+        self.stats = OpStats(name, detail)
+
+    # -- public API (wrapped for stats; rows are host rows, so every count
+    # is a host int) ------------------------------------------------------------
+
+    def next_row(self) -> Optional[Row]:
+        """The next solution, or None when exhausted."""
+        st = self.stats
+        st.next_calls += 1
+        t0 = time.perf_counter()
+        try:
+            r = self._next()
+        finally:
+            st.wall_time += time.perf_counter() - t0
+        if r is not None:
+            st._results += 1
+        return r
+
+    def skip(self, var: int, target: int) -> None:
+        """Reposition so later rows have ``var`` >= ``target``. Only valid
+        if ``sorted_by() == var``."""
+        self.stats.skip_calls += 1
+        self._skip(var, target)
+
+    def reset(self) -> None:
+        """Restart iteration from the beginning."""
+        self.stats.reset_calls += 1
+        self._reset()
 
     def var_ids(self) -> Tuple[int, ...]:
         raise NotImplementedError
@@ -63,17 +90,15 @@ class RowOperator:
     def children(self) -> List["RowOperator"]:
         return []
 
-    def next_row(self) -> Optional[Row]:
-        """The next solution, or None when exhausted."""
+    # -- implementation hooks ---------------------------------------------------
+
+    def _next(self) -> Optional[Row]:
         raise NotImplementedError
 
-    def skip(self, var: int, target: int) -> None:
-        """Reposition so later rows have ``var`` >= ``target``. Only valid
-        if ``sorted_by() == var``."""
-        raise NotImplementedError(f"{self.name} does not support skip()")
+    def _skip(self, var: int, target: int) -> None:
+        raise NotImplementedError(f"{self.stats.name} does not support skip()")
 
-    def reset(self) -> None:
-        """Restart iteration from the beginning."""
+    def _reset(self) -> None:
         raise NotImplementedError
 
     def drain(self) -> List[Row]:
@@ -135,7 +160,6 @@ class RowScan(RowOperator):
                                for a, b in self.residual_pairs)
         self.offset = 0
         super().__init__("Scan", "(row)")
-        self.extra["rows_scanned"] = 0
 
     def var_ids(self) -> Tuple[int, ...]:
         return self._vars
@@ -143,7 +167,7 @@ class RowScan(RowOperator):
     def sorted_by(self) -> Optional[int]:
         return self._sorted_var
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         n = len(self.range)
         if self.offset >= n:
             return None
@@ -151,16 +175,16 @@ class RowScan(RowOperator):
         while self.offset < n:
             row = rows[self.range.lo + self.offset].tolist()
             self.offset += 1
-            self.extra["rows_scanned"] += 1
+            self.stats.rows_scanned += 1
             if all(row[a] == row[b] for a, b in self._residual):
                 return {v: row[p] for v, p in self._take}
         return None
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         assert var == self._sorted_var
         self.offset = self.store.host_seek(self.range, self.offset, self._sort_col_pos, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.offset = 0
 
     def estimated_rows(self) -> int:
@@ -237,7 +261,7 @@ class RowMergeJoin(RowOperator):
             if self._rnext is None:
                 self._right_done = True
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         while True:
             if self._lrow is None:
                 self._advance_left()
@@ -291,14 +315,14 @@ class RowMergeJoin(RowOperator):
             all(lrow.get(s) == r.get(s) for s in self.shared) for r in self._rgroup
         )
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         assert var == self.v
         if self.left.supports_skip():
             self.left.skip(var, target)
         self._lrow = None
         self._gi = 0
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.left.reset()
         self.right.reset()
         self._lrow = None
@@ -360,7 +384,7 @@ class RowHashJoin(RowOperator):
             key = tuple(r.get(k) for k in self.keys)
             self._table.setdefault(key, []).append(r)
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         self._ensure_table()
         while True:
             if self._ei < len(self._emit):
@@ -399,7 +423,7 @@ class RowHashJoin(RowOperator):
             self._emit = out_rows
             self._ei = 0
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         # buffered rows at or above the target must survive the gallop
         self._emit = [
             r for r in self._emit[self._ei:] if r.get(var, -1) >= target
@@ -407,7 +431,7 @@ class RowHashJoin(RowOperator):
         self._ei = 0
         self.probe.skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.probe.reset()
         self.build.reset()
         self._table = None
@@ -419,7 +443,7 @@ class RowFilter(RowOperator):
     def __init__(self, child: RowOperator, expr: Expr, dictionary: Dictionary):
         self.child, self.expr, self.dictionary = child, expr, dictionary
         super().__init__("Filter", "(row)")
-        self.extra["rows_tested"] = 0
+        self.stats.extra["rows_tested"] = 0
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids()
@@ -430,20 +454,20 @@ class RowFilter(RowOperator):
     def children(self) -> List[RowOperator]:
         return [self.child]
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         vars_ = self.child.var_ids()
         while True:
             r = self.child.next_row()
             if r is None:
                 return None
-            self.extra["rows_tested"] += 1
+            self.stats.extra["rows_tested"] += 1
             if row_holds(self.expr, r, vars_, self.dictionary):
                 return r
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         self.child.skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
 
 
@@ -462,16 +486,16 @@ class RowProject(RowOperator):
     def children(self) -> List[RowOperator]:
         return [self.child]
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         r = self.child.next_row()
         if r is None:
             return None
         return {v: r[v] for v in self.keep if v in r}
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         self.child.skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
 
 
@@ -487,7 +511,7 @@ class RowDistinct(RowOperator):
     def children(self) -> List[RowOperator]:
         return [self.child]
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         while True:
             r = self.child.next_row()
             if r is None:
@@ -497,7 +521,7 @@ class RowDistinct(RowOperator):
                 self._seen.add(key)
                 return r
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._seen.clear()
 
@@ -598,12 +622,12 @@ class RowGroupBy(RowOperator):
                 row[a.out] = d.encode(enc)
             yield row
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         if self._out is None:
             self._out = self._build()
         return next(self._out, None)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._out = None
 
@@ -651,7 +675,7 @@ class RowSort(RowOperator):
             rows.sort(key=key)
         self._rows = rows
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         self._ensure()
         if self._i >= len(self._rows):
             return None
@@ -659,13 +683,13 @@ class RowSort(RowOperator):
         self._i += 1
         return r
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         assert var == self.var
         self._ensure()
         while self._i < len(self._rows) and self._rows[self._i].get(var, -1) < target:
             self._i += 1
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._rows = None
         self._i = 0
@@ -688,7 +712,7 @@ class RowLimit(RowOperator):
     def children(self) -> List[RowOperator]:
         return [self.child]
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         while True:
             if self.limit is not None and self._emitted >= self.limit:
                 return None
@@ -701,7 +725,7 @@ class RowLimit(RowOperator):
             self._emitted += 1
             return r
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._seen = self._emitted = 0
 
@@ -720,7 +744,7 @@ class RowUnion(RowOperator):
     def children(self) -> List[RowOperator]:
         return [self.left, self.right]
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         if not self._on_right:
             r = self.left.next_row()
             if r is not None:
@@ -728,7 +752,7 @@ class RowUnion(RowOperator):
             self._on_right = True
         return self.right.next_row()
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.left.reset()
         self.right.reset()
         self._on_right = False
@@ -761,7 +785,7 @@ class RowBindJoin(RowOperator):
     def children(self) -> List[RowOperator]:
         return [self.left]
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         while True:
             if self._right is not None:
                 r = self._right.next_row()
@@ -791,7 +815,7 @@ class RowBindJoin(RowOperator):
             if not self._block and self._left_done:
                 return None
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.left.reset()
         self._block, self._bi, self._right = [], 0, None
         self._left_done = False

@@ -49,7 +49,6 @@ class RowTransitivePath(RowOperator):
         self._targets: List[int] = []
         self._t_idx = 0
         super().__init__("PathScan", f"(?v{var_s}, +, ?v{var_o}) row-based")
-        self.extra["rows_scanned"] = 0
 
     def var_ids(self) -> Tuple[int, ...]:
         return (self.var_s, self.var_o)
@@ -77,7 +76,7 @@ class RowTransitivePath(RowOperator):
             frontier = nxt
         return sorted(order)  # deterministic object order within a subject
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         while True:
             if self._t_idx < len(self._targets):
                 src = int(self.subjects[self._src_idx - 1])
@@ -90,9 +89,9 @@ class RowTransitivePath(RowOperator):
             self._src_idx += 1
             self._targets = self._bfs(src)
             self._t_idx = 0
-            self.extra["rows_scanned"] += len(self._targets)
+            self.stats.rows_scanned += len(self._targets)
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         assert var == self.var_s
         # gallop the source cursor; discard the in-flight target list if the
         # current source falls below the target
@@ -103,7 +102,7 @@ class RowTransitivePath(RowOperator):
         elif self._src_idx >= 1 and int(self.subjects[self._src_idx - 1]) < target:
             self._targets, self._t_idx = [], 0
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self._src_idx = 0
         self._targets, self._t_idx = [], 0
 
@@ -218,7 +217,7 @@ class RowPathScan(RowOperator):
             return self.s_slot.id
         return self.o_slot.id if isinstance(self.o_slot, V) else None
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         if self._i >= len(self.pairs):
             return None
         s, o = self.pairs[self._i]
@@ -230,12 +229,12 @@ class RowPathScan(RowOperator):
             row[self.o_slot.id] = o
         return row
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         if var != self.sorted_by():
             return
         col = 0 if isinstance(self.s_slot, V) else 1
         while self._i < len(self.pairs) and self.pairs[self._i][col] < target:
             self._i += 1
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self._i = 0

@@ -39,7 +39,7 @@ class BatchToRow(RowOperator):
         self._rows: List[list] = []
         self._i = 0
         super().__init__("BatchToRow")
-        self.extra["host_copies"] = 0  # batches copied to the host, one copy each
+        self.stats.extra["host_copies"] = 0  # batches copied to the host, one copy each
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids()
@@ -61,10 +61,10 @@ class BatchToRow(RowOperator):
         self._host = host_rows(b)
         b.release()  # the rows live on the host now
         self._rows = self._host.T.tolist()
-        self.extra["host_copies"] += 1
+        self.stats.extra["host_copies"] += 1
         return True
 
-    def next_row(self) -> Optional[Row]:
+    def _next(self) -> Optional[Row]:
         while self._i >= len(self._rows):
             if not self._pull():
                 return None
@@ -72,14 +72,14 @@ class BatchToRow(RowOperator):
         self._i += 1
         return {v: c for v, c in zip(self._vars, r) if c != NULL_ID}
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         # drop buffered rows below target, then skip the child
         if self._i < len(self._rows):
             col = self._host[self._vars.index(var), self._i:]
             self._i += int(np.searchsorted(col, np.int32(target), side="left"))
         self.child.skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._close()
 
@@ -101,7 +101,7 @@ class RowToBatch(BatchOperator):
         self.batch_size = batch_size
         self.pool = pool
         super().__init__("RowToBatch")
-        self.extra["uploads"] = 0  # batches uploaded from the host, one copy each
+        self.stats.extra["uploads"] = 0  # batches uploaded from the host, one copy each
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids()
@@ -112,7 +112,7 @@ class RowToBatch(BatchOperator):
     def children(self) -> List[BatchOperator]:
         return [self.child]  # type: ignore[list-item]
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         vars_ = tuple(self.child.var_ids())
         rows = []
         while len(rows) < self.batch_size:
@@ -135,11 +135,12 @@ class RowToBatch(BatchOperator):
         b.columns.copy_(host, non_blocking=True)
         b.mask[:n] = True
         b.n_rows = n
-        self.extra["uploads"] += 1
+        b.dense = True
+        self.stats.extra["uploads"] += 1
         return b
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         self.child.skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()

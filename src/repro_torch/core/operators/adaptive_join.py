@@ -19,8 +19,8 @@ the real join made:
 
 The planner marks a merge join ``adaptive_ok`` only where no ancestor
 depends on its output order, so the switch never breaks a streaming
-group-by or merge-join parent. The decision is kept in ``extra``
-(``adaptive_switches``, ``adaptive_qerror``) and ``detail``.
+group-by or merge-join parent. The decision is kept in ``stats.extra``
+(``adaptive_switches``, ``adaptive_qerror``) and ``stats.detail``.
 """
 
 from __future__ import annotations
@@ -104,7 +104,7 @@ class AdaptiveMergeJoin(BatchOperator):
         rvars, rcols = materialize(self.right, self.device)
         actual = int(rcols.shape[1])
         q = q_error(self.est_build, float(actual))
-        self.extra["adaptive_qerror"] = round(q, 2)
+        self.stats.extra["adaptive_qerror"] = round(q, 2)
         # only an under-estimate makes the planned sort dearer than
         # budgeted; after an over-estimate the merge stays the right call
         sort_cost = actual * max(math.log2(actual), 1.0) if actual else 0.0
@@ -113,8 +113,8 @@ class AdaptiveMergeJoin(BatchOperator):
             and actual > self.est_build
             and _HASH_BUILD_FACTOR * actual < sort_cost
         )
-        self.extra["adaptive_switches"] = int(switch)
-        self.detail = f"(?v{self.v}) mode={self.mode} -> {'hash' if switch else 'merge'} q={q:.1f}"
+        self.stats.extra["adaptive_switches"] = int(switch)
+        self.stats.detail = f"(?v{self.v}) mode={self.mode} -> {'hash' if switch else 'merge'} q={q:.1f}"
         if switch:
             build = MaterializedSource(rvars, rcols, None, name="AdaptiveBuild", pool=self.pool)
             return HashJoin(
@@ -131,16 +131,16 @@ class AdaptiveMergeJoin(BatchOperator):
             post_program=self.post_program, spill_dir=self.spill_dir,
         )
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         if self._inner is None:
             self._inner = self._decide()
         return self._inner.next_batch()
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         if self._inner is not None:
             close_tree(self._inner)
             self._inner = None
         self.left.reset()
         self.right.reset()
-        self.extra.clear()
-        self.detail = f"(?v{self.v}) mode={self.mode}"
+        self.stats.extra.clear()
+        self.stats.detail = f"(?v{self.v}) mode={self.mode}"

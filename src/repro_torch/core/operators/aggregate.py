@@ -127,7 +127,10 @@ class StreamingGroupBy(BatchOperator):
         self._enc_cols: List[torch.Tensor] = []
         self._emitted = 0
         self._drained = False
-        super().__init__("Group")
+        super().__init__(
+            "Group",
+            f"by=?v{group_var} " + ",".join(f"{a.func}->?v{a.out}" for a in aggs),
+        )
 
     def var_ids(self) -> Tuple[int, ...]:
         base = (self.g,) if self.g is not None else ()
@@ -363,7 +366,7 @@ class StreamingGroupBy(BatchOperator):
             codes[ok] = ids[inv]
         return codes
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         if not self._drained:
             self._consume_all()
         if self._enc_keys is None:
@@ -389,7 +392,7 @@ class StreamingGroupBy(BatchOperator):
             self.var_ids(), cols, self.device, self.g, pool=self.pool
         )
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._out_keys = []
         self._out_vals = [[] for _ in self.aggs]
@@ -429,7 +432,7 @@ class SortGroupBy(BatchOperator):
         self.pool = pool
         self._src: Optional[BatchOperator] = None
         self._stream: Optional[StreamingGroupBy] = None
-        super().__init__("Group")
+        super().__init__("Group", f"by={self.group_vars} (sort-based)")
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.group_vars + tuple(a.out for a in self.aggs)
@@ -508,10 +511,10 @@ class SortGroupBy(BatchOperator):
         )
         return self._src
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         return self._ensure().next_batch()
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._src = None
         self._stream = None
@@ -530,7 +533,7 @@ class StreamingDistinct(BatchOperator):
         self.device = device
         self.use_skip = use_skip and child.supports_skip()
         self._last: Optional[int] = None
-        super().__init__("Distinct")
+        super().__init__("Distinct", f"(?v{var}) streaming")
 
     def var_ids(self) -> Tuple[int, ...]:
         return (self.var,)
@@ -541,7 +544,7 @@ class StreamingDistinct(BatchOperator):
     def children(self) -> List[BatchOperator]:
         return [self.child]
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         while True:
             b = self.child.next_batch()
             if b is None:
@@ -562,10 +565,10 @@ class StreamingDistinct(BatchOperator):
                 self.child.skip(self.var, self._last + 1)
             return ColumnBatch.from_columns((self.var,), [run_keys], self.device, self.var)
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         self.child.skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._last = None
 
@@ -579,7 +582,7 @@ class SortDistinct(BatchOperator):
         self.device = device
         self.batch_size = batch_size
         self._src: Optional[MaterializedSource] = None
-        super().__init__("Distinct")
+        super().__init__("Distinct", "(sort-based)")
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids()
@@ -597,10 +600,10 @@ class SortDistinct(BatchOperator):
             )
         return self._src
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         return self._ensure().next_batch()
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._src = None
 
@@ -631,7 +634,7 @@ class PartitionedGroupBy(SortGroupBy):
         self.spill_dir = spill_dir
         self.n_parts = max(2, n_parts)
         self._rel: Optional[PartitionedRelation] = None
-        self.detail = "(partitioned)"
+        self.stats.detail = f"by={self.group_vars} (partitioned)"
 
     def _ensure(self) -> BatchOperator:
         if self._src is not None:
@@ -647,9 +650,9 @@ class PartitionedGroupBy(SortGroupBy):
                 blocks.append(self._aggregate_block(part, need, avars))
         block = (torch.cat(blocks, dim=1) if blocks else
                  torch.zeros((len(self.var_ids()), 0), dtype=torch.int32, device=self.device))
-        self.extra["grace_partitions"] = self.n_parts
-        self.extra["spill_bytes"] = rel.spill_bytes
-        self.extra["spill_files"] = rel.spill_files
+        self.stats.extra["grace_partitions"] = self.n_parts
+        self.stats.extra["spill_bytes"] = rel.spill_bytes
+        self.stats.extra["spill_files"] = rel.spill_files
         self._src = MaterializedSource(
             self.var_ids(), block, None, self.batch_size, name="GroupOut", pool=self.pool,
         )
@@ -659,10 +662,10 @@ class PartitionedGroupBy(SortGroupBy):
         if self._rel is not None:
             self._rel.close()
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self._close()
         self._rel = None
-        super().reset()
+        super()._reset()
 
 
 class PartitionedDistinct(BatchOperator):
@@ -712,22 +715,22 @@ class PartitionedDistinct(BatchOperator):
                 blocks.append(torch.unique(part, dim=1))
         uniq = (torch.cat(blocks, dim=1).to(torch.int32) if blocks else
                 torch.zeros((len(vs), 0), dtype=torch.int32, device=self.device))
-        self.extra["grace_partitions"] = self.n_parts
-        self.extra["spill_bytes"] = rel.spill_bytes
-        self.extra["spill_files"] = rel.spill_files
+        self.stats.extra["grace_partitions"] = self.n_parts
+        self.stats.extra["spill_bytes"] = rel.spill_bytes
+        self.stats.extra["spill_files"] = rel.spill_files
         self._src = MaterializedSource(
             vs, uniq, None, self.batch_size, name="DistinctBuffer", pool=self.pool,
         )
         return self._src
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         return self._ensure().next_batch()
 
     def _close(self) -> None:
         if self._rel is not None:
             self._rel.close()
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self._close()
         self._rel = None
         self.child.reset()

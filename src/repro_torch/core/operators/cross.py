@@ -62,7 +62,7 @@ class CrossJoin(BatchOperator):
             self._group = (zero, torch.tensor([nl], **i32), zero, torch.tensor([nr], **i32),
                            torch.tensor([0, self._total], dtype=torch.int64, device=self.device))
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         self._ensure()
         if self._emitted >= self._total:
             return None
@@ -75,11 +75,12 @@ class CrossJoin(BatchOperator):
         if count < b.capacity:
             b.columns[:, count:] = NULL_ID
         b.mask[:count] = mask
+        b.dense = not self._plan.pairs  # no pair to test: every row is active
         if self.pool is not None:
             self.pool.bytes_copied += len(self._vars) * count * 4
         return b
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.left.reset()
         self.right.reset()
         self._lcols = None

@@ -175,7 +175,7 @@ class HashJoin(BatchOperator):
         # expansions still hold rows >= target — those must survive, so the
         # floor masks emitted rows below it instead of dropping the batch
         self._skip_floor: Optional[Tuple[int, int]] = None
-        super().__init__("HashJoin")
+        super().__init__("HashJoin", f"({','.join(f'?v{k}' for k in keys)}) mode={mode}")
 
     # -- metadata ---------------------------------------------------------------
 
@@ -214,7 +214,7 @@ class HashJoin(BatchOperator):
         self._bv = bvars
         self._plans = {}
         n = int(bcols.shape[1])
-        self.extra["hash_build_rows"] = n
+        self.stats.extra["hash_build_rows"] = n
         if not self.keys:
             self._n_build = n
             self._bcols = bcols
@@ -279,12 +279,12 @@ class HashJoin(BatchOperator):
         self._gp_cols = None
         self._gp_off = 0
         self._probe_partitioned = False
-        self.extra["grace_partitions"] = n_parts
-        self.extra.setdefault("repartitions", 0)
+        self.stats.extra["grace_partitions"] = n_parts
+        self.stats.extra.setdefault("repartitions", 0)
 
     def _grace_build_stream(self) -> None:
         self._init_rels(max(2, next_pow2(self.grace_parts or _GRACE_DEFAULT_PARTS)))
-        self.extra["hash_build_rows"] = fan_in(self.build, self._build_rel, self._bv, self.keys)
+        self.stats.extra["hash_build_rows"] = fan_in(self.build, self._build_rel, self._bv, self.keys)
         self._grace_active = True
         self._refresh_grace_stats()
 
@@ -297,14 +297,14 @@ class HashJoin(BatchOperator):
                                    self._build_rel.n_parts)
         self._build_rel.append(bcols, pids)
         self._grace_active = True
-        self.extra["adaptive_switches"] = 1
-        self.detail += " grace"
+        self.stats.extra["adaptive_switches"] = 1
+        self.stats.detail += " grace"
         self._refresh_grace_stats()
 
     def _refresh_grace_stats(self) -> None:
         rels = [r for r in (self._build_rel, self._probe_rel) if r is not None]
-        self.extra["spill_bytes"] = sum(r.spill_bytes for r in rels)
-        self.extra["spill_files"] = sum(r.spill_files for r in rels)
+        self.stats.extra["spill_bytes"] = sum(r.spill_bytes for r in rels)
+        self.stats.extra["spill_files"] = sum(r.spill_files for r in rels)
 
     def _grace_next_probe(self) -> Optional[ColumnBatch]:
         """The probe source while grace is active: chunks of the current
@@ -383,7 +383,7 @@ class HashJoin(BatchOperator):
         empty_b = bblock[:, :0]
         for p, psub in split_block(pblock, p_pids, g2):
             self._grace_stack.append((bsubs.get(p, empty_b), psub, level + 1))
-        self.extra["repartitions"] = self.extra.get("repartitions", 0) + 1
+        self.stats.extra["repartitions"] = self.stats.extra.get("repartitions", 0) + 1
 
     def sip_keys(self, var: int) -> torch.Tensor:
         """Build-side key column for a SipFilter export. Runs the build
@@ -433,7 +433,7 @@ class HashJoin(BatchOperator):
             )
         return plans
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         self._ensure_built()
         cap = bucket_for(self.sizer.on_next())
         while True:
@@ -559,6 +559,7 @@ class HashJoin(BatchOperator):
         if count < b.capacity:
             b.columns[:, count:] = NULL_ID
         b.mask[:count] = mask
+        b.dense = not plan.pairs  # no pair to test: every row is active
         if self.pool is not None:
             self.pool.bytes_copied += len(self._out_vars) * count * 4
         if self.post_filter is not None:
@@ -613,7 +614,7 @@ class HashJoin(BatchOperator):
             self._track = None
         self._leftovers.clear()
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         # pending expansions and leftovers may still hold rows >= target:
         # narrow them with a floor mask at emission instead of dropping
         if self._skip_floor is not None and self._skip_floor[0] == var:
@@ -629,7 +630,7 @@ class HashJoin(BatchOperator):
             if rel is not None:
                 rel.close()
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self._drop_pending()
         self._skip_floor = None
         self.probe.reset()

@@ -64,7 +64,7 @@ class LookupJoin(BatchOperator):
         self._mask_plan = EmitPlan(pairs=pairs)
         # continuation of an oversized expansion
         self._pending: Optional[Tuple] = None
-        super().__init__("LookupJoin")
+        super().__init__("LookupJoin", f"(?v{join_var}) mode={mode}")
 
     def var_ids(self) -> Tuple[int, ...]:
         return self._out_vars
@@ -85,7 +85,7 @@ class LookupJoin(BatchOperator):
         self._bkeys = key[order].contiguous()
         self._built = True
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         self._ensure_built()
         cap = bucket_for(4096)
         while True:
@@ -182,19 +182,20 @@ class LookupJoin(BatchOperator):
         if count < b.capacity:
             b.columns[:, count:] = NULL_ID
         b.mask[:count] = mask
+        b.dense = not self._plan.pairs  # no pair to test: every row is active
         if self.pool is not None:
             self.pool.bytes_copied += len(self._out_vars) * count * 4
         if done:
             cb.release()
         return b
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         if self._pending is not None:
             self._pending[0].release()
         self._pending = None
         self.probe.skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.probe.reset()
         self.build.reset()
         if self._pending is not None:

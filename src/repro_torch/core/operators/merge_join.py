@@ -270,7 +270,7 @@ class MergeJoin(BatchOperator):
         self._leftover_queue: List[torch.Tensor] = []  # (n_lvars, n) row blocks
         self._done = False
         self._needs_expansion_for_match = bool(self.secondary) or post_filter is not None
-        super().__init__("MergeJoin")
+        super().__init__("MergeJoin", f"(?v{join_var}) mode={mode}")
 
     # -- metadata ---------------------------------------------------------------
 
@@ -287,7 +287,7 @@ class MergeJoin(BatchOperator):
 
     # -- iteration ----------------------------------------------------------------
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         cap = bucket_for(self.sizer.on_next())
         while True:
             if self._pending is not None:
@@ -307,7 +307,7 @@ class MergeJoin(BatchOperator):
             if not self._advance():
                 self._done = True
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         if var != self.v:
             raise ValueError("skip on non-join var")
         self._pending = None
@@ -325,7 +325,7 @@ class MergeJoin(BatchOperator):
         self._lwin.close()
         self._rwin.close()
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self._close()
         self.left.reset()
         self.right.reset()
@@ -490,6 +490,7 @@ class MergeJoin(BatchOperator):
         if count < b.capacity:
             b.columns[:, count:] = NULL_ID
         b.mask[:count] = mask
+        b.dense = not self._plan.pairs  # no pair to test: every row is active
         if self.pool is not None:
             self.pool.bytes_copied += len(self._out_vars) * count * 4
         if self.post_filter is not None:

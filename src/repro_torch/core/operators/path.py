@@ -11,8 +11,8 @@ from that single node; a bound object seeds BFS over the flipped relation
 bound the pattern is an existence check (one row or none); ``?x path ?x``
 keeps the cyclic pairs only; with both endpoints free the engine
 enumerates every source. The frontier counters (rounds, peak frontier,
-dedup in/out) stay on ``self.engine.counters``; the port keeps no
-per-operator statistics.
+dedup in/out) land in ``stats.extra`` when the closure is evaluated, under
+the reference's names, with the pairs as ``stats.rows_scanned``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from repro_torch.core.algebra import K, Slot, V
 from repro_torch.core.batch import BatchPool, ColumnBatch
 from repro_torch.core.operators.base import BatchOperator
 from repro_torch.core.paths.engine import PathEngine, PathResult
-from repro_torch.core.paths.expr import PathExpr
+from repro_torch.core.paths.expr import PathExpr, path_repr
 from repro_torch.core.sip import SipFilter
 from repro_torch.core.storage import QuadStore
 
@@ -57,6 +57,7 @@ class PathExpand(BatchOperator):
 
         self._var_ids: Tuple[int, ...]
         self._sorted_var: Optional[int]
+        self.seed_side = "subject"
         if isinstance(s_slot, V) and isinstance(o_slot, V):
             self._var_ids = (s_slot.id,) if s_slot.id == o_slot.id else (s_slot.id, o_slot.id)
             self._sorted_var = s_slot.id
@@ -64,9 +65,19 @@ class PathExpand(BatchOperator):
             self._var_ids, self._sorted_var = (o_slot.id,), o_slot.id
         elif isinstance(s_slot, V):  # bound object: reverse BFS
             self._var_ids, self._sorted_var = (s_slot.id,), s_slot.id
+            self.seed_side = "object"
         else:  # both bound: forward from the subject, an existence check
             self._var_ids, self._sorted_var = (), None
-        super().__init__("PathExpand")
+        super().__init__("PathExpand", self._describe())
+
+    def _describe(self) -> str:
+        def slot(sl: Slot) -> str:
+            return f"?v{sl.id}" if isinstance(sl, V) else str(sl.term)
+
+        return (
+            f"({slot(self.s_slot)}, {path_repr(self.expr)}, "
+            f"{slot(self.o_slot)}) [seed={self.seed_side}]"
+        )
 
     # -- operator API -------------------------------------------------------
 
@@ -114,6 +125,9 @@ class PathExpand(BatchOperator):
             # ?x path ?x — keep only cyclic pairs
             keep = res.src == res.dst
             res = PathResult(res.src[keep], res.dst[keep])
+        self.stats.rows_scanned += len(res)
+        self.stats.extra.update(self.engine.counters.as_dict())
+        self.stats.extra["dedup_ratio"] = round(self.engine.counters.dedup_ratio, 3)
         return res
 
     def _primary(self) -> torch.Tensor:
@@ -123,7 +137,7 @@ class PathExpand(BatchOperator):
             return self._result.src
         return self._result.dst
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         if self._result is None:
             self._result = self._evaluate()
         res = self._result
@@ -134,6 +148,7 @@ class PathExpand(BatchOperator):
             b = ColumnBatch.alloc((), 32, self.device, self.pool)
             b.mask[0] = True
             b.n_rows = 1
+            b.dense = True
             return b
         if self._offset >= len(res):
             return None
@@ -157,7 +172,7 @@ class PathExpand(BatchOperator):
     def can_skip(self, var: Optional[int]) -> bool:
         return var is not None and var == self._sorted_var
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         if not self.can_skip(var):
             raise ValueError("skip on unsorted variable")
         if self._result is None:
@@ -168,7 +183,7 @@ class PathExpand(BatchOperator):
         if pos > self._offset:
             self._offset = pos
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self._offset = 0
 
     def _close(self) -> None:

@@ -98,7 +98,14 @@ class IndexScan(BatchOperator):
         # code range stops the scan
         self._end = len(self.range)
         self.sizer = sizer or AdaptiveBatchSizer()
-        super().__init__("Scan")
+        super().__init__("Scan", self._describe())
+
+    def _describe(self) -> str:
+        parts = []
+        slots = (self.pattern.s, self.pattern.p, self.pattern.o)
+        for sl in slots:
+            parts.append(f"?v{sl.id}" if isinstance(sl, V) else str(sl.term))
+        return f"({', '.join(parts)}) [{self.index}]"
 
     # -- operator API -----------------------------------------------------------
 
@@ -108,7 +115,7 @@ class IndexScan(BatchOperator):
     def sorted_by(self) -> Optional[int]:
         return self._sorted_var
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         if self._sip_pending:
             self._apply_sip_ranges()
         while True:
@@ -118,6 +125,7 @@ class IndexScan(BatchOperator):
             rows = self.store.read(self.range, self.offset, count)
             n = int(rows[0].shape[0])
             self.offset += n
+            self.stats.rows_scanned += n
             cols = [rows[self.var_col_pos[v]] for v in self._var_ids]
             b = ColumnBatch.from_columns(
                 self._var_ids, cols, self.store.device, self._sorted_var, pool=self.pool
@@ -155,6 +163,7 @@ class IndexScan(BatchOperator):
                 self.offset = self._end
                 return
             self.offset = self.store.seek(self.range, self.offset, self._sort_col_pos, lo)
+            self.stats.extra["sip_range_seeks"] = self.stats.extra.get("sip_range_seeks", 0) + 1
             if hi < _INT32_MAX:
                 end = self.store.seek(self.range, self.offset, self._sort_col_pos, hi + 1)
                 self._end = min(self._end, end)
@@ -184,7 +193,7 @@ class IndexScan(BatchOperator):
         first, last = col[[self.range.lo, self.range.hi - 1]].tolist()
         return int(first), int(last)
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         if not self.can_skip(var):
             raise ValueError("skip on unsorted variable")
         self.sizer.on_skip()
@@ -192,7 +201,7 @@ class IndexScan(BatchOperator):
             self.range, self.offset, self._sort_col_pos, target
         )
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.offset = 0
         self._end = len(self.range)
         self._sip_pending = bool(self.sip_filters)

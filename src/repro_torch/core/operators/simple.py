@@ -76,7 +76,7 @@ class FilterOp(BatchOperator):
     def children(self) -> List[BatchOperator]:
         return [self.child]
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         while True:
             b = self.child.next_batch()
             if b is None:
@@ -86,10 +86,10 @@ class FilterOp(BatchOperator):
                 return b
             b.release()  # all rows inactive: recycle batch, keep pulling
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         self.child.skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
 
 
@@ -105,7 +105,7 @@ class ProjectOp(BatchOperator):
         self.keep = tuple(keep)
         self.device = device
         self.pool = pool
-        super().__init__("Project")
+        super().__init__("Project", f"{len(keep)} vars")
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.keep
@@ -117,7 +117,7 @@ class ProjectOp(BatchOperator):
     def children(self) -> List[BatchOperator]:
         return [self.child]
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         b = self.child.next_batch()
         if b is None:
             return None
@@ -131,14 +131,15 @@ class ProjectOp(BatchOperator):
         out.columns.copy_(b.columns[idx])
         out.mask.copy_(b.mask)
         out.n_rows = b.n_rows
+        out.dense = b.dense
         self.pool.bytes_copied += out.columns.numel() * 4
         b.release()
         return out
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         self.child.skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
 
 
@@ -163,7 +164,7 @@ class ExtendOp(BatchOperator):
         self.device = device
         self.pool = pool
         self.program = resolve_program(expr, dictionary, program, "value")
-        super().__init__("Bind", "" if self.program is None else "[vm]")
+        super().__init__("Bind", f"?v{var}" + ("" if self.program is None else " [vm]"))
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids() + (self.var,)
@@ -174,7 +175,7 @@ class ExtendOp(BatchOperator):
     def children(self) -> List[BatchOperator]:
         return [self.child]
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         b = self.child.next_batch()
         if b is None:
             return None
@@ -200,12 +201,13 @@ class ExtendOp(BatchOperator):
         out.columns[-1] = codes
         out.mask.copy_(b.mask)
         out.n_rows = b.n_rows
+        out.dense = b.dense
         if self.pool is not None:
             self.pool.bytes_copied += out.columns.numel() * 4
         b.release()
         return out
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
 
 
@@ -218,7 +220,7 @@ class SliceOp(BatchOperator):
         self.offset = offset
         self._seen = 0
         self._emitted = 0
-        super().__init__("Slice")
+        super().__init__("Slice", f"limit={limit} offset={offset}")
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids()
@@ -229,7 +231,7 @@ class SliceOp(BatchOperator):
     def children(self) -> List[BatchOperator]:
         return [self.child]
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         while True:
             if self.limit is not None and self._emitted >= self.limit:
                 return None
@@ -253,7 +255,7 @@ class SliceOp(BatchOperator):
             # replacing it (and moves pooled-buffer ownership along)
             return b.with_mask(m)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._seen = 0
         self._emitted = 0
@@ -282,7 +284,7 @@ class UnionOp(BatchOperator):
     def children(self) -> List[BatchOperator]:
         return [self.left, self.right]
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         while True:
             src = self.right if self._on_right else self.left
             b = src.next_batch()
@@ -295,14 +297,15 @@ class UnionOp(BatchOperator):
                 # cheap path: same schema, reorder columns only
                 order = [b.col_index(v) for v in self._vars]
                 m = b.mask if b.pool is None else b.mask.clone()
-                out = ColumnBatch(self._vars, b.columns[order], m, b.n_rows, None)
+                out = ColumnBatch(self._vars, b.columns[order], m, b.n_rows, None,
+                                  dense=b.dense)
                 b.release()  # the row gather copied the columns
                 return out
             return concat_batches(
                 [b], self.device, self._vars, pool=self.pool, release_inputs=True
             )
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.left.reset()
         self.right.reset()
         self._on_right = False

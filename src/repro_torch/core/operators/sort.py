@@ -43,7 +43,7 @@ class MaterializedSource(BatchOperator):
         self.batch_size = batch_size
         self.pool = pool
         self.offset = 0
-        super().__init__(name)
+        super().__init__(name, f"{cols.shape[1]} rows")
 
     def var_ids(self) -> Tuple[int, ...]:
         return self._vars
@@ -51,7 +51,7 @@ class MaterializedSource(BatchOperator):
     def sorted_by(self) -> Optional[int]:
         return self._sorted_var
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         n = int(self.cols.shape[1])
         if self.offset >= n:
             return None
@@ -66,14 +66,14 @@ class MaterializedSource(BatchOperator):
             pool=self.pool,
         )
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         if var != self._sorted_var:
             raise ValueError("skip on unsorted var")
         key_col = self.cols[self._vars.index(var), self.offset:]
         needle = torch.tensor([target], dtype=key_col.dtype, device=key_col.device)
         self.offset += int(torch.searchsorted(key_col.contiguous(), needle))
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.offset = 0
 
 
@@ -115,7 +115,7 @@ class SortByVarOp(BatchOperator):
         self.batch_size = batch_size
         self.pool = pool
         self._src: Optional[MaterializedSource] = None
-        super().__init__("Sort")
+        super().__init__("Sort", f"(?v{var})")
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids()
@@ -137,7 +137,7 @@ class SortByVarOp(BatchOperator):
             )
         return self._src
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         return self._ensure().next_batch()
 
     def sip_keys(self, var: int) -> torch.Tensor:
@@ -147,10 +147,10 @@ class SortByVarOp(BatchOperator):
         src = self._ensure()
         return src.cols[src.var_ids().index(var)]
 
-    def skip(self, var: int, target: int) -> None:
+    def _skip(self, var: int, target: int) -> None:
         self._ensure().skip(var, target)
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._src = None
 
@@ -174,7 +174,7 @@ class OrderByOp(BatchOperator):
         self.batch_size = batch_size
         self.pool = pool
         self._src: Optional[MaterializedSource] = None
-        super().__init__("OrderBy")
+        super().__init__("OrderBy", ",".join(f"?v{k.var}" for k in keys))
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids()
@@ -207,9 +207,9 @@ class OrderByOp(BatchOperator):
             )
         return self._src
 
-    def next_batch(self) -> Optional[ColumnBatch]:
+    def _next(self) -> Optional[ColumnBatch]:
         return self._ensure().next_batch()
 
-    def reset(self) -> None:
+    def _reset(self) -> None:
         self.child.reset()
         self._src = None

@@ -27,174 +27,8 @@ import math
 from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple, Union as TUnion
 
 from repro_torch.core import algebra as A
+from repro_torch.core import telemetry
 from repro_torch.core.stats import GraphStats
-
-# ---------------------------------------------------------------------------
-# canonical variable order (node fingerprint input)
-# ---------------------------------------------------------------------------
-
-
-def _term_class(term) -> str:
-    if isinstance(term, bool) or isinstance(term, (int, float)):
-        return "<num>"
-    if isinstance(term, str) and term.startswith('"'):
-        return "<str>"
-    return "<iri>"
-
-
-def canonical_var_map(node) -> Dict[int, int]:
-    """Variable id -> canonical index by first appearance in a pre-order
-    walk of the logical algebra. Two spellings of the same template get
-    identical maps, so fingerprints (template and node) are independent
-    of parser-assigned variable ids."""
-    order: Dict[int, int] = {}
-
-    def visit(vid: int) -> None:
-        if vid not in order:
-            order[vid] = len(order)
-
-    for tok in _algebra_tokens(node, canon=None, on_var=visit):
-        pass
-    return order
-
-
-def _algebra_tokens(node, canon: Optional[Dict[int, int]], on_var=None):
-    """Token stream over the logical algebra: structure tags, canonical
-    variables, kept IRI constants in predicate position, and typed
-    placeholders for instantiated constants. ``canon=None`` emits raw var
-    ids (used while *building* the canonical map); ``on_var`` observes
-    every variable in pre-order."""
-    def var_tok(vid: int) -> str:
-        if on_var is not None:
-            on_var(vid)
-        return f"?{vid if canon is None else canon.get(vid, vid)}"
-
-    def slot_tok(sl, keep: bool) -> str:
-        if isinstance(sl, A.V):
-            return var_tok(sl.id)
-        return f"K:{sl.term}" if keep else _term_class(sl.term)
-
-    def expr_toks(e):
-        if e is None:
-            return
-        if isinstance(e, A.VarRef):
-            yield var_tok(e.var)
-        elif isinstance(e, A.Lit):
-            yield _term_class(e.value)
-        elif isinstance(e, A.Cmp):
-            yield f"cmp:{e.op}("
-            yield from expr_toks(e.lhs)
-            yield from expr_toks(e.rhs)
-            yield ")"
-        elif isinstance(e, A.Arith):
-            yield f"arith:{e.op}("
-            yield from expr_toks(e.lhs)
-            yield from expr_toks(e.rhs)
-            yield ")"
-        elif isinstance(e, (A.And, A.Or)):
-            yield ("and(" if isinstance(e, A.And) else "or(")
-            for t in e.terms:
-                yield from expr_toks(t)
-            yield ")"
-        elif isinstance(e, A.Not):
-            yield "not("
-            yield from expr_toks(e.term)
-            yield ")"
-        elif isinstance(e, A.Bound):
-            yield f"bound({var_tok(e.var)})"
-        elif isinstance(e, A.Func):
-            yield f"func:{e.name}("
-            for a in e.args:
-                yield from expr_toks(a)
-            yield ")"
-        else:
-            yield f"expr:{type(e).__name__}"
-
-    def pattern_toks(p):
-        if isinstance(p, A.PathPattern):
-            from repro_torch.core.paths.expr import path_repr
-
-            yield "PATH("
-            yield slot_tok(p.s, keep=False)
-            yield path_repr(p.expr)
-            yield slot_tok(p.o, keep=False)
-            yield ")"
-            return
-        yield "TP("
-        yield slot_tok(p.s, keep=False)
-        # the predicate defines the template's structure; subjects and
-        # objects are the instantiated entities that vary per instance
-        yield slot_tok(p.p, keep=True)
-        yield slot_tok(p.o, keep=False)
-        if p.g is not None:
-            yield slot_tok(p.g, keep=True)
-        if p.path:
-            yield f"path:{p.path}"
-        yield ")"
-
-    def walk(n):
-        if isinstance(n, A.BGP):
-            yield "BGP("
-            for p in n.patterns:
-                yield from pattern_toks(p)
-            yield ")"
-        elif isinstance(n, A.Filter):
-            yield "FILTER("
-            yield from expr_toks(n.expr)
-            yield from walk(n.child)
-            yield ")"
-        elif isinstance(n, (A.Join, A.Minus, A.NotExists, A.Union)):
-            yield f"{type(n).__name__.upper()}("
-            yield from walk(n.left)
-            yield from walk(n.right)
-            yield ")"
-        elif isinstance(n, A.LeftJoin):
-            yield "LEFTJOIN("
-            yield from walk(n.left)
-            yield from walk(n.right)
-            yield from expr_toks(n.expr)
-            yield ")"
-        elif isinstance(n, A.Extend):
-            yield f"BIND({var_tok(n.var)}"
-            yield from expr_toks(n.expr)
-            yield from walk(n.child)
-            yield ")"
-        elif isinstance(n, A.Project):
-            yield "PROJECT("
-            for v in n.vars:
-                yield var_tok(v)
-            yield from walk(n.child)
-            yield ")"
-        elif isinstance(n, A.Distinct):
-            yield "DISTINCT("
-            yield from walk(n.child)
-            yield ")"
-        elif isinstance(n, A.GroupAgg):
-            yield "GROUP("
-            for v in n.group_vars:
-                yield var_tok(v)
-            for a in n.aggs:
-                mod = "distinct " if a.distinct else ""
-                av = var_tok(a.var) if a.var is not None else "*"
-                yield f"agg:{mod}{a.func}({av})->{var_tok(a.out)}"
-            yield from walk(n.child)
-            yield from expr_toks(n.having)
-            yield ")"
-        elif isinstance(n, A.OrderBy):
-            yield "ORDERBY("
-            for k in n.keys:
-                yield f"{var_tok(k.var)}:{'asc' if k.ascending else 'desc'}"
-            yield from walk(n.child)
-            yield ")"
-        elif isinstance(n, A.Slice):
-            yield f"SLICE({n.limit}:{n.offset}"
-            yield from walk(n.child)
-            yield ")"
-        else:
-            yield f"NODE:{type(n).__name__}"
-
-    yield from walk(node)
-
 
 # ---------------------------------------------------------------------------
 # physical plan nodes
@@ -675,6 +509,7 @@ class Planner:
         dictionary=None,
         join_strategy: Optional[str] = None,
         sip: Optional[str] = None,
+        feedback: Optional[telemetry.CardinalityFeedback] = None,
         memory_budget: Optional[int] = None,
         adaptive_join: Optional[str] = None,
     ):
@@ -689,6 +524,11 @@ class Planner:
         # "on" marks order-insensitive merge joins adaptive_ok so the
         # executor can re-strategize merge->hash on observed misestimates
         self.adaptive_join = adaptive_join
+        # observed-cardinality feedback store (DESIGN.md §14): when set,
+        # estimates at every choke point — leaf cards, join ordering, the
+        # generic binary-join estimate — prefer recorded actuals over the
+        # cost model, and a final pass stamps est_source="feedback"
+        self.feedback = feedback
         # canonical var map of the query being planned (fingerprint input)
         self._canon: Dict[int, int] = {}
         # sideways information passing (DESIGN.md §12): None = cost-gated
@@ -714,12 +554,16 @@ class Planner:
     # -- public -------------------------------------------------------------------
 
     def plan(self, node: A.PlanNode) -> Phys:
-        self._canon = canonical_var_map(node)
+        self._canon = telemetry.canonical_var_map(node)
         phys = self._plan(node)
         if self.sip != "off":
             self._sip_walk(phys)
         annotate_fingerprints(phys, self._canon)
+        if self.feedback is not None:
+            self._apply_feedback(phys)
         if self.memory_budget is not None:
+            # after feedback: budget decisions should see history-corrected
+            # cardinalities, not just the cost model's
             self._budget_walk(phys)
         if self.adaptive_join == "on":
             self._mark_adaptive(phys, order_needed=False)
@@ -815,6 +659,26 @@ class Planner:
             c = getattr(n, fld, None)
             if isinstance(c, PhysNode):
                 self._mark_adaptive(c, True)  # unknown parent: be safe
+
+    def _apply_feedback(self, n: Phys) -> None:
+        """Final pass: override every node's estimate with its observed
+        cardinality where history exists, tagging the source so EXPLAIN
+        renders ``est=N(source=feedback)`` and EXPLAIN ANALYZE q-errors
+        reflect the history-corrected numbers."""
+        for fld in ("child", "left", "right", "probe", "build"):
+            c = getattr(n, fld, None)
+            if isinstance(c, PhysNode):
+                self._apply_feedback(c)
+        obs = self.feedback.lookup(n.fp)
+        if obs is not None:
+            n.est_rows = obs
+            n.est_source = "feedback"
+
+    def _feedback_est(self, fp: str, default: float) -> float:
+        if self.feedback is None:
+            return default
+        obs = self.feedback.lookup(fp)
+        return default if obs is None else obs
 
     def compile_expr(self, expr: A.Expr, mode: str):
         """ExprProgram for ``expr``; ``False`` (cached) when the expression
@@ -1043,10 +907,17 @@ class Planner:
     def _pattern_card(self, p) -> float:
         """Cardinality for a BGP leaf: triple patterns from the index
         ranges, paths from the stats-based closure estimate (replacing the
-        old hard-coded 3-hop multiplier)."""
+        old hard-coded 3-hop multiplier). With a feedback store attached,
+        an observed actual for the same leaf fingerprint wins."""
         if isinstance(p, A.PathPattern):
-            return max(self.stats.path_cardinality(p), 0)
-        return max(self.stats.pattern_cardinality(p), 0)
+            est = max(self.stats.path_cardinality(p), 0)
+        else:
+            est = max(self.stats.pattern_cardinality(p), 0)
+        if self.feedback is None:
+            return est
+        return self._feedback_est(
+            _fp_hash(_leaf_label(self._normalize_pattern(p), self._canon)), est
+        )
 
     def _pattern_distinct(self, p, var: int) -> int:
         if isinstance(p, A.PathPattern):
@@ -1134,6 +1005,15 @@ class Planner:
         amplifying = est > 4 * max(left.est_rows, right.est_rows)
         if self.barq_enabled and amplifying:
             est *= 0.5  # §4.2: amplifying merge joins are cheap under BARQ
+        if self.feedback is not None:
+            # observed cardinality for this join's source set (order- and
+            # strategy-insensitive) beats the containment estimate — and
+            # flows into the DP cost, so ordering re-plans under history
+            annotate_fingerprints(left, self._canon)
+            annotate_fingerprints(right, self._canon)
+            est = self._feedback_est(
+                _join_fp("inner", None, left, right, self._canon)[0], est
+            )
         ln = max(left.est_rows, 1.0)
         rn = max(right.est_rows, 1.0)
         l_sorted = phys_sorted_by(left) == jv
@@ -1238,6 +1118,15 @@ class Planner:
                 if self.barq_enabled and est > 4 * max(current.est_rows, cards[id(p)]):
                     # §4.2: amplifying merge joins are cheaper under BARQ
                     est *= 0.5
+                if self.feedback is not None:
+                    # history for (current ⋈ p)'s source set steers the
+                    # greedy pick just like it steers the DP
+                    annotate_fingerprints(current, self._canon)
+                    leaf_fp = _fp_hash(_leaf_label(p, self._canon))
+                    srcs = current.srcs | frozenset((leaf_fp,))
+                    est = self._feedback_est(
+                        _fp_hash("join{" + ",".join(sorted(srcs)) + "}"), est
+                    )
                 if best_est is None or est < best_est:
                     best, best_est, best_var = p, est, jv
             if best is None:
@@ -1431,6 +1320,12 @@ class Planner:
                 break
         est = self._binary_join_estimate(left, right, jv, mode)
         join_mode = "anti" if mode == "not_exists" else mode
+        if self.feedback is not None:
+            annotate_fingerprints(left, self._canon)
+            annotate_fingerprints(right, self._canon)
+            est = self._feedback_est(
+                _join_fp(join_mode, expr, left, right, self._canon)[0], est
+            )
         if self._choose_join_strategy(left, right, jv, est) == "hash":
             out = PHashJoin(
                 left, right, tuple(shared), mode=join_mode, post_filter=expr,

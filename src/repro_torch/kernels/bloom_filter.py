@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -144,6 +145,7 @@ def bloom_build(keys: torch.Tensor,
                 n_words: Optional[int] = None) -> Tuple[torch.Tensor, int, int]:
     """(words, lo, hi) — see module docstring."""
     global build_launches
+    t0 = time.perf_counter()
     _check_1d("bloom_build", "keys", keys)
     n = int(keys.shape[0])
     if n_words is None:
@@ -152,7 +154,9 @@ def bloom_build(keys: torch.Tensor,
         raise ValueError(f"bloom_build: n_words={n_words} is not a power of two up to 2^30")
     dev = keys.device
     if dev.type == "cpu":
-        return (bloom_build_plain(keys, n_words), *_key_range(keys))
+        out = (bloom_build_plain(keys, n_words), *_key_range(keys))
+        build.ledger("bloom_build", "plain", t0)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"bloom_build: unsupported device {dev}")
     stream = build.stream_handle(keys)
@@ -164,6 +168,7 @@ def bloom_build(keys: torch.Tensor,
         keys.data_ptr(), n, n_words, words.data_ptr(), state.data_ptr(), launch_shape(n),
         stream), "bloom_build")
     build_launches += 1
+    build.ledger("bloom_build", "cuda", t0)
     if n == 0:
         return words, 0, -1
     return (words, *_decode_range(*state[:2].tolist()))  # one device-to-host read
@@ -172,6 +177,7 @@ def bloom_build(keys: torch.Tensor,
 def bloom_probe(words: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """(C,) bool membership mask over ``queries`` — see module docstring."""
     global probe_launches
+    t0 = time.perf_counter()
     _check_1d("bloom_probe", "words", words)
     _check_1d("bloom_probe", "queries", queries)
     n_words = int(words.shape[0])
@@ -181,7 +187,9 @@ def bloom_probe(words: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     if words.device != dev:
         raise ValueError(f"bloom_probe: words are on {words.device}, not {dev}")
     if dev.type == "cpu":
-        return bloom_probe_plain(words, queries)
+        out = bloom_probe_plain(words, queries)
+        build.ledger("bloom_probe", "plain", t0)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"bloom_probe: unsupported device {dev}")
     c = int(queries.shape[0])
@@ -193,6 +201,7 @@ def bloom_probe(words: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
             build.stream_handle(queries),
         ), "bloom_probe")
         probe_launches += 1
+        build.ledger("bloom_probe", "cuda", t0)
     return out
 
 
@@ -201,6 +210,7 @@ def sip_mask(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTer
     """The SIP mask of a batch's first ``n_rows`` rows (see module
     docstring); returns ``out``."""
     global probe_launches, wordless_launches
+    t0 = time.perf_counter()
     out = _sip_out(mask, n_rows, filters, out)
     dev = out.device
     for x in ((out,) if mask is None else (mask, out)):
@@ -220,7 +230,9 @@ def sip_mask(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTer
             if w < 1 or w & (w - 1) or words.device != dev:
                 raise ValueError(f"sip_mask: words must be a power of two on {dev}")
     if dev.type == "cpu":
-        return sip_mask_plain(mask, n_rows, filters, out)
+        out = sip_mask_plain(mask, n_rows, filters, out)
+        build.ledger("bloom_probe", "plain", t0)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"sip_mask: unsupported device {dev}")
     lib = build.library()
@@ -234,6 +246,7 @@ def sip_mask(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTer
             ctypes.addressof(desc), None if src is None else src.data_ptr(),
             out.data_ptr(), n_rows, int(out.shape[0]), stream), "sip_mask")
         probe_launches += 1
+        t0 = build.ledger("bloom_probe", "cuda", t0)
         wordless_launches += all(t[1] is None for t in chunk)
         src = out
     return out

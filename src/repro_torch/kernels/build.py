@@ -18,8 +18,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
+
+from repro_torch.core import telemetry
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -176,3 +179,14 @@ def zeroed(device, n: int, stream: int):
     piece = slab[0][slab[1]: slab[1] + n]
     slab[1] += n
     return piece
+
+
+def ledger(name: str, backend: str, t0: float) -> float:
+    """Record one dispatch of kernel ``name`` that began at host time ``t0``
+    (``time.perf_counter``) in the telemetry ledgers: backend ``"cuda"``
+    for a launch, ``"plain"`` for a call of the plain version. Returns the
+    time it ended, the start of a next launch in the same call. Reads no
+    device value."""
+    t1 = time.perf_counter()
+    telemetry.record_dispatch(name, backend, t0, t1 - t0)
+    return t1

@@ -31,7 +31,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+import time
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -254,6 +255,7 @@ def _check_limits(lib) -> None:
 def expr_eval(prog: B.ExprProgram, icols: torch.Tensor,
               fcols: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(value float64 (n,), error bool (n,)) of ``prog`` over the block."""
+    t0 = time.perf_counter()
     if icols.dtype != torch.int32 or icols.dim() != 2 or not icols.is_contiguous():
         raise ValueError("expr_eval: icols must be a contiguous (KI, n) int32 tensor")
     if fcols.dtype != _F64 or fcols.dim() != 2 or not fcols.is_contiguous():
@@ -265,18 +267,22 @@ def expr_eval(prog: B.ExprProgram, icols: torch.Tensor,
         raise ValueError("expr_eval: icols and fcols lie on different devices")
     dev = icols.device
     if dev.type == "cpu":
-        return expr_eval_plain(prog, icols, fcols)
+        out = expr_eval_plain(prog, icols, fcols)
+        build.ledger("expr_eval", "plain", t0)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"expr_eval: unsupported device {dev}")
-    return _launch(prog, icols, fcols, *launch_shape(prog))
+    return _launch(prog, icols, fcols, *launch_shape(prog), t0=t0)
 
 
 def _launch(prog: B.ExprProgram, icols: torch.Tensor, fcols: torch.Tensor, threads: int,
-            instance: str) -> Tuple[torch.Tensor, torch.Tensor]:
+            instance: str, t0: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel's ``instance`` at ``threads`` on CUDA inputs that
     ``expr_eval`` has checked; ``kernel_sweep.py`` times the shapes that
     ``launch_shape`` does not pick through it."""
     global launches
+    if t0 is None:
+        t0 = time.perf_counter()
     check_program(prog)
     if not fits(prog, threads, instance):
         raise ValueError(f"expr_eval: the {instance} instance at {threads} threads does not "
@@ -302,4 +308,5 @@ def _launch(prog: B.ExprProgram, icols: torch.Tensor, fcols: torch.Tensor, threa
         None if ge is None else ge.data_ptr(), build.stream_handle(val),
     ), "expr_eval")
     launches += 1
+    build.ledger("expr_eval", "cuda", t0)
     return val, err

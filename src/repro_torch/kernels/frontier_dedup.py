@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from typing import Tuple
 
 import torch
@@ -128,6 +129,7 @@ def frontier_dedup(cand_hi: torch.Tensor, cand_lo: torch.Tensor,
                    vis_hi: torch.Tensor, vis_lo: torch.Tensor) -> torch.Tensor:
     """(C,) bool mask over the sorted candidates (see module docstring)."""
     global launches, candidates, max_candidates, max_visited
+    t0 = time.perf_counter()
     dev = cand_hi.device
     for name, x in (("cand_hi", cand_hi), ("cand_lo", cand_lo),
                     ("vis_hi", vis_hi), ("vis_lo", vis_lo)):
@@ -138,7 +140,9 @@ def frontier_dedup(cand_hi: torch.Tensor, cand_lo: torch.Tensor,
     if cand_lo.shape != cand_hi.shape or vis_lo.shape != vis_hi.shape:
         raise ValueError("frontier_dedup: a pair's two columns differ in length")
     if dev.type == "cpu":
-        return frontier_dedup_plain(cand_hi, cand_lo, vis_hi, vis_lo)
+        out = frontier_dedup_plain(cand_hi, cand_lo, vis_hi, vis_lo)
+        build.ledger("frontier_dedup", "plain", t0)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"frontier_dedup: unsupported device {dev}")
     c = int(cand_hi.shape[0])
@@ -155,6 +159,7 @@ def frontier_dedup(cand_hi: torch.Tensor, cand_lo: torch.Tensor,
         v, mask.data_ptr(), *launch_shape(c, v), build.stream_handle(mask),
     ), "frontier_dedup")
     launches += 1
+    build.ledger("frontier_dedup", "cuda", t0)
     candidates += c
     max_candidates = max(max_candidates, c)
     max_visited = max(max_visited, v)

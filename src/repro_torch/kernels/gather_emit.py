@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from typing import Iterable, Optional, Tuple
 
 import torch
@@ -162,6 +163,7 @@ def gather_emit(lcols, rcols, li, ri, plan: EmitPlan,
                 out: Optional[torch.Tensor] = None, out_offset: int = 0):
     """Fused gather + NULL-extension + pair mask (see module docstring)."""
     global launches
+    t0 = time.perf_counter()
     dev = li.device
     _check_2d("lcols", lcols)
     _check_1d("li", li)
@@ -184,7 +186,9 @@ def gather_emit(lcols, rcols, li, ri, plan: EmitPlan,
         if x is not None and x.device != dev:
             raise ValueError(f"gather_emit: {name} is on {x.device}, not {dev}")
     if li.is_cpu:
-        return gather_emit_plain(lcols, rcols, li, ri, plan, out, out_offset)
+        res = gather_emit_plain(lcols, rcols, li, ri, plan, out, out_offset)
+        build.ledger("gather_emit", "plain", t0)
+        return res
     if not li.is_cuda:
         raise ValueError(f"gather_emit: unsupported device {dev}")
     lib = build.library()
@@ -207,4 +211,5 @@ def gather_emit(lcols, rcols, li, ri, plan: EmitPlan,
             int(r0 > 0), build.stream_handle(li),
         ), "gather_emit")
         launches += 1
+        t0 = build.ledger("gather_emit", "cuda", t0)
     return block, mask

@@ -30,6 +30,7 @@ it for CPU tensors only.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -100,6 +101,7 @@ def hash_probe(part_starts: torch.Tensor, skey_hi: Optional[torch.Tensor],
     """(lo, hi) int32 match-run boundaries per probe key (see module
     docstring). An empty build or probe gives zeros."""
     global launches
+    t0 = time.perf_counter()
     _check_keys("hash_probe", skey_hi, skey_lo)
     _check_keys("hash_probe", qkey_hi, qkey_lo)
     if (skey_hi is None) != (qkey_hi is None):
@@ -119,7 +121,9 @@ def hash_probe(part_starts: torch.Tensor, skey_hi: Optional[torch.Tensor],
         z = torch.zeros(c, dtype=_I32, device=dev)
         return z, z.clone()
     if dev.type == "cpu":
-        return hash_probe_plain(part_starts, skey_hi, skey_lo, qkey_hi, qkey_lo)
+        out = hash_probe_plain(part_starts, skey_hi, skey_lo, qkey_hi, qkey_lo)
+        build.ledger("hash_probe", "plain", t0)
+        return out
     lo = torch.empty(c, dtype=_I32, device=dev)
     hi = torch.empty(c, dtype=_I32, device=dev)
     lib = build.library()
@@ -130,6 +134,7 @@ def hash_probe(part_starts: torch.Tensor, skey_hi: Optional[torch.Tensor],
         lo.data_ptr(), hi.data_ptr(), build.stream_handle(lo),
     ), "hash_probe")
     launches += 1
+    build.ledger("hash_probe", "cuda", t0)
     return lo, hi
 
 

@@ -16,6 +16,7 @@ for CPU tensors only.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -105,6 +106,7 @@ def join_expand(lstarts, llens, rstarts, rlens, cum, base: int, count: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(li, ri) int32 tensors of length ``count`` (see module docstring)."""
     global launches
+    t0 = time.perf_counter()
     shape, dev = lstarts.shape, lstarts.device
     g = shape[0] if len(shape) == 1 else -1
     for name, x in (("lstarts", lstarts), ("llens", llens),
@@ -119,7 +121,9 @@ def join_expand(lstarts, llens, rstarts, rlens, cum, base: int, count: int
     if count < 0:
         raise ValueError("join_expand: negative count")
     if lstarts.is_cpu:
-        return join_expand_plain(lstarts, llens, rstarts, rlens, cum, base, count)
+        out = join_expand_plain(lstarts, llens, rstarts, rlens, cum, base, count)
+        build.ledger("join_expand", "plain", t0)
+        return out
     if not lstarts.is_cuda:
         raise ValueError(f"join_expand: unsupported device {dev}")
     li = torch.empty(count, dtype=_I32, device=dev)
@@ -130,4 +134,5 @@ def join_expand(lstarts, llens, rstarts, rlens, cum, base: int, count: int
         build.stream_handle(li),
     ), "join_expand")
     launches += 1
+    build.ledger("join_expand", "cuda", t0)
     return li, ri

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from typing import Tuple
 
 import torch
@@ -108,6 +109,7 @@ def _check_limits(lib) -> None:
 def radix_partition(keys: torch.Tensor, n_parts: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pid (n,) int32, histogram (n_parts,) int32) — see module docstring."""
     global launches
+    t0 = time.perf_counter()
     if n_parts < 1 or n_parts & (n_parts - 1):
         raise ValueError(f"radix_partition: n_parts={n_parts} is not a power of two")
     if n_parts > MAX_PARTS:
@@ -115,7 +117,9 @@ def radix_partition(keys: torch.Tensor, n_parts: int) -> Tuple[torch.Tensor, tor
     if keys.dtype != torch.int32 or keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError("radix_partition: keys must be a contiguous 1-D int32 tensor")
     if keys.device.type == "cpu":
-        return radix_partition_plain(keys, n_parts)
+        out = radix_partition_plain(keys, n_parts)
+        build.ledger("radix_partition", "plain", t0)
+        return out
     if keys.device.type != "cuda":
         raise ValueError(f"radix_partition: unsupported device {keys.device}")
     n = int(keys.shape[0])
@@ -131,4 +135,5 @@ def radix_partition(keys: torch.Tensor, n_parts: int) -> Tuple[torch.Tensor, tor
         hist.data_ptr(), stream,
     ), "radix_partition")
     launches += 1
+    build.ledger("radix_partition", "cuda", t0)
     return pid, hist

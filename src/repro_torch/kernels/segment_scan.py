@@ -19,6 +19,7 @@ order, so its float sums equal the plain version's bit for bit.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
@@ -145,6 +146,7 @@ def segment_scan_plain(keys: torch.Tensor, values: Optional[torch.Tensor], op: s
 def segment_scan(keys: torch.Tensor, values: Optional[torch.Tensor], op: str) -> torch.Tensor:
     """float64 (n,) segmented inclusive scan (see module docstring)."""
     global launches
+    t0 = time.perf_counter()
     if op not in _OPS:
         raise ValueError(f"segment_scan: unknown op {op!r}")
     n = int(keys.shape[0])
@@ -159,7 +161,9 @@ def segment_scan(keys: torch.Tensor, values: Optional[torch.Tensor], op: str) ->
         if values.device != keys.device:
             raise ValueError("segment_scan: keys and values lie on different devices")
     if keys.device.type == "cpu":
-        return segment_scan_plain(keys, values, op)
+        out = segment_scan_plain(keys, values, op)
+        build.ledger("segment_scan", "plain", t0)
+        return out
     if keys.device.type != "cuda":
         raise ValueError(f"segment_scan: unsupported device {keys.device}")
     out = torch.empty(n, dtype=torch.float64, device=keys.device)
@@ -175,4 +179,5 @@ def segment_scan(keys: torch.Tensor, values: Optional[torch.Tensor], op: str) ->
         _OPS[op], None if scratch is None else scratch.data_ptr(), build.stream_handle(out),
     ), "segment_scan")
     launches += 1
+    build.ledger("segment_scan", "cuda", t0)
     return out

@@ -22,6 +22,7 @@ points count under one launch counter.
 
 from __future__ import annotations
 
+import time
 from typing import Tuple
 
 import torch
@@ -89,7 +90,7 @@ def _check(keys: torch.Tensor, queries: torch.Tensor, fn: str) -> None:
 
 
 def _launch(keys: torch.Tensor, queries: torch.Tensor, mode: int, out0: torch.Tensor,
-            out1: torch.Tensor, fn: str) -> None:
+            out1: torch.Tensor, fn: str, t0: float) -> None:
     global launches
     m, n = int(queries.shape[0]), int(keys.shape[0])
     if m == 0:
@@ -101,28 +102,35 @@ def _launch(keys: torch.Tensor, queries: torch.Tensor, mode: int, out0: torch.Te
         out0.data_ptr(), out1.data_ptr(), build.stream_handle(out0),
     ), fn)
     launches += 1
+    build.ledger("sorted_search", "cuda", t0)
 
 
 def sorted_search(keys: torch.Tensor, queries: torch.Tensor,
                   side: str = "left") -> torch.Tensor:
     """(m,) int32 positions of ``queries`` in ``keys`` (see module docstring)."""
+    t0 = time.perf_counter()
     if side not in _MODES:
         raise ValueError(f"sorted_search: side must be 'left' or 'right', not {side!r}")
     _check(keys, queries, "sorted_search")
     if keys.device.type == "cpu":
-        return sorted_search_plain(keys, queries, side)
+        out = sorted_search_plain(keys, queries, side)
+        build.ledger("sorted_search", "plain", t0)
+        return out
     out = torch.empty(int(queries.shape[0]), dtype=torch.int32, device=keys.device)
-    _launch(keys, queries, _MODES[side], out, out, "sorted_search")
+    _launch(keys, queries, _MODES[side], out, out, "sorted_search", t0)
     return out
 
 
 def sorted_search_range(keys: torch.Tensor,
                         queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, hi): both sides of ``sorted_search`` from one launch."""
+    t0 = time.perf_counter()
     _check(keys, queries, "sorted_search_range")
     if keys.device.type == "cpu":
-        return sorted_search_range_plain(keys, queries)
+        out = sorted_search_range_plain(keys, queries)
+        build.ledger("sorted_search", "plain", t0)
+        return out
     lo = torch.empty(int(queries.shape[0]), dtype=torch.int32, device=keys.device)
     hi = torch.empty_like(lo)
-    _launch(keys, queries, 2, lo, hi, "sorted_search_range")
+    _launch(keys, queries, 2, lo, hi, "sorted_search_range", t0)
     return lo, hi

@@ -113,12 +113,12 @@ def test_adaptive_join_both_branches_match_reference(mode, branch):
     assert port.sorted_by() is None
     got = _port_rows(port)
     assert got == _ref_rows(ref) == base
-    assert port.extra == {k: ref.stats.extra[k] for k in ("adaptive_switches", "adaptive_qerror")}
-    assert f"-> {branch}" in port.detail and port.detail == ref.stats.detail
+    assert port.stats.extra == {k: ref.stats.extra[k] for k in ("adaptive_switches", "adaptive_qerror")}
+    assert f"-> {branch}" in port.stats.detail and port.stats.detail == ref.stats.detail
     inner = port.children()[0]
     assert isinstance(inner, HashJoin if branch == "hash" else MergeJoin)
     if branch == "hash":
-        assert port.extra["adaptive_switches"] == 1 and port.extra["adaptive_qerror"] >= 4.0
+        assert port.stats.extra["adaptive_switches"] == 1 and port.stats.extra["adaptive_qerror"] >= 4.0
     c = pool.counters()
     assert c["live"] == 0 and c["allocs"] == c["releases"] + c["pooled"], c
 
@@ -129,7 +129,7 @@ def test_adaptive_join_overestimate_keeps_merge():
     l, r = _inputs(seed=1, n=4000)
     ref, port, _ = _pair(l, r, "inner", 1e9)
     assert _port_rows(port) == _ref_rows(ref)
-    assert port.extra["adaptive_switches"] == ref.stats.extra["adaptive_switches"] == 0
+    assert port.stats.extra["adaptive_switches"] == ref.stats.extra["adaptive_switches"] == 0
 
 
 def test_adaptive_join_small_build_keeps_merge():
@@ -138,7 +138,7 @@ def test_adaptive_join_small_build_keeps_merge():
     l, r = _inputs(seed=2, n=24)
     ref, port, _ = _pair(l, r, "inner", 1.0)
     assert _port_rows(port) == _ref_rows(ref)
-    assert port.extra["adaptive_switches"] == ref.stats.extra["adaptive_switches"] == 0
+    assert port.stats.extra["adaptive_switches"] == ref.stats.extra["adaptive_switches"] == 0
 
 
 def test_adaptive_join_reset_decides_again():
@@ -147,7 +147,7 @@ def test_adaptive_join_reset_decides_again():
     first = _port_rows(port)
     port.reset()
     assert port.children()[0] is port.left
-    assert _port_rows(port) == first and port.extra["adaptive_switches"] == 1
+    assert _port_rows(port) == first and port.stats.extra["adaptive_switches"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -227,8 +227,8 @@ def test_engine_adaptive_join_matches_merge_path(stores, forced):
     res = port.execute_plan(phys, vt)
     assert Counter(map(tuple, res.rows.tolist())) == want
     aj = _find(res.root, AdaptiveMergeJoin)
-    assert aj is not None and aj.extra["adaptive_switches"] == int(forced)
-    assert ("-> hash" in aj.detail) == forced
+    assert aj is not None and aj.stats.extra["adaptive_switches"] == int(forced)
+    assert ("-> hash" in aj.stats.detail) == forced
     off = repro_torch.Engine(port_store, repro_torch.EngineConfig(join_strategy="merge"),
                              device="cpu")
     assert _find(off.execute(Q3).root, AdaptiveMergeJoin) is None

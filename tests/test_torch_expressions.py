@@ -296,7 +296,7 @@ def test_filter_op_marks_the_walk(social_stores):
     expr = A.Or((A.Cmp("<", A.VarRef(0), A.VarRef(1)), A.Func("isiri", (A.VarRef(1),))))
     walk = FilterOp(IndexScan(port, pat), expr, port.dict, program=False)
     vm = FilterOp(IndexScan(port, pat), expr, port.dict)
-    assert (walk.program, walk.detail, vm.detail) == (None, "", "[vm]")
+    assert (walk.program, walk.stats.detail, vm.stats.detail) == (None, "", "[vm]")
 
     def rows(op):
         out = []
@@ -339,7 +339,7 @@ def test_batch_to_row_copies_each_batch_once(monkeypatch):
     src, keys, vals = _sorted_source(1000, 64, null_every=7)
     op = BatchToRow(src)
     rows = op.drain()
-    assert len(calls) == op.extra["host_copies"] == 16 and sum(calls) == 1000
+    assert len(calls) == op.stats.extra["host_copies"] == 16 and sum(calls) == 1000
     want = [{0: int(k)} if v == NULL_ID else {0: int(k), 1: int(v)} for k, v in zip(keys, vals)]
     assert rows == want  # NULL cells are left out of the row, as unbound
 
@@ -378,17 +378,17 @@ class _Rows(LOP.RowOperator):
     def sorted_by(self):
         return self._sv
 
-    def next_row(self):
+    def _next(self):
         if self.i >= len(self.rows):
             return None
         self.i += 1
         return self.rows[self.i - 1]
 
-    def skip(self, var, target):
+    def _skip(self, var, target):
         while self.i < len(self.rows) and self.rows[self.i][var] < target:
             self.i += 1
 
-    def reset(self):
+    def _reset(self):
         self.i = 0
 
 
@@ -406,7 +406,7 @@ def test_row_to_batch_shapes(batch_size, pooled):
         got.extend(b.columns[:, : b.n_rows].T.tolist())
         b.release()
     assert got == [[r[0], r.get(1, NULL_ID)] for r in rows]
-    assert op.extra["uploads"] == -(-150 // batch_size)
+    assert op.stats.extra["uploads"] == -(-150 // batch_size)
     if pooled:
         c = pool.counters()
         assert c["live"] == 0 and c["allocs"] == c["releases"] + c["pooled"]

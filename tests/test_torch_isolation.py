@@ -62,9 +62,17 @@ def test_entry_points_default_to_the_card():
     ("cardinality_feedback", "observe"),
 ])
 def test_config_outside_the_slice_raises(field, value):
+    """Cardinality feedback is ported: both values run a query, and a value
+    the reference does not accept either raises ValueError naming the
+    field."""
+    store = _cpu_store()
     cfg = repro_torch.EngineConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        repro_torch.Engine(_cpu_store(), cfg, device="cpu")
+    res = repro_torch.Engine(store, cfg, device="cpu").execute(
+        "SELECT ?a ?b { ?a :knows ?b }")
+    assert res.n_rows > 0
+    with pytest.raises(ValueError, match=field):
+        repro_torch.Engine(store, repro_torch.EngineConfig(**{field: value + "ly"}),
+                           device="cpu")
 
 
 @pytest.mark.parametrize("engine", ["legacy", "mixed"])
@@ -186,8 +194,8 @@ def test_grace_join_plan_runs(tmp_path):
         memory_budget=1 << 10, spill_dir=str(tmp_path)), device="cpu")
     res = engine.execute_plan(plan)
     assert sorted(map(tuple, res.rows.tolist())) == sorted(map(tuple, want.tolist()))
-    assert isinstance(res.root, HashJoin) and res.root.extra["spill_files"] > 0
-    assert res.root.extra["grace_partitions"] == 8
+    assert isinstance(res.root, HashJoin) and res.root.stats.extra["spill_files"] > 0
+    assert res.root.stats.extra["grace_partitions"] == 8
     assert not list(tmp_path.glob("*.npy"))
 
 

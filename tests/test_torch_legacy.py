@@ -304,7 +304,7 @@ def test_translators_pick_row_and_batch_operators(lsqb_stores):
     root = mixed.execute(q).root
     while not isinstance(root, LOP.RowGroupBy):
         root = root.children()[0]
-    assert isinstance(root.child, BatchToRow) and root.child.extra["host_copies"] > 0
+    assert isinstance(root.child, BatchToRow) and root.child.stats.extra["host_copies"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +384,7 @@ def test_row_merge_join_skip_reduces_rows_scanned(lsqb_stores):
     brute = sorted(r for r in _rows_of(LOP.RowScan(store, TriplePattern(
         V(0), K(":hasInterest"), V(1)), 0), (0, 1)) if r[0] in people)
     assert got == brute and len(got) > 0
-    assert interests.extra["rows_scanned"] < interests.estimated_rows() / 2
+    assert interests.stats.rows_scanned < interests.estimated_rows() / 2
 
 
 def test_adapters_roundtrip(lsqb_stores):
@@ -423,7 +423,7 @@ def test_grace_join_200k_parity_vs_row_hash_join(tmp_path):
     got = []
     while (b := grace.next_batch()) is not None:
         got.extend(map(tuple, b.columns[:, b.mask[: b.capacity]].T.tolist()))
-    assert grace.extra["spill_files"] > 0 and grace.extra["spill_bytes"] > 0
+    assert grace.stats.extra["spill_files"] > 0 and grace.stats.extra["spill_bytes"] > 0
     close_tree(grace)
     assert not list(tmp_path.glob("*.npy"))
     rows = LOP.RowHashJoin(BatchToRow(src((0, 1), left)), BatchToRow(src((0, 2), right)),

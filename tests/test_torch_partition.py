@@ -250,7 +250,7 @@ def _check_join(tmp_path, l, r, lv, rv, keys, mode, **kw):
     want, got = _ref_rows(ref), _port_rows(port)
     assert got == want
     ref_extra = {k: v for k, v in ref.stats.extra.items() if k in COUNTERS}
-    assert {k: v for k, v in port.extra.items() if k in COUNTERS} == ref_extra
+    assert {k: v for k, v in port.stats.extra.items() if k in COUNTERS} == ref_extra
     ref.close()
     close_tree(port)
     assert not _leaks(port_dir)
@@ -342,7 +342,7 @@ def test_grace_join_left_outer_condition(tmp_path):
                      memory_budget=4_000, spill_dir=str(port_dir), grace=True)
     assert port._needs_tracking()
     assert _port_rows(port) == _ref_rows(ref)
-    assert port.extra["spill_files"] == ref.stats.extra["spill_files"] > 0
+    assert port.stats.extra["spill_files"] == ref.stats.extra["spill_files"] > 0
     close_tree(port)
     ref.close()
     assert not _leaks(port_dir)
@@ -375,7 +375,7 @@ def test_runtime_switch_to_grace_matches_reference(tmp_path, mode):
     r = [rng.randint(0, n, n), rng.randint(0, 5, n)]
     port, extra = _check_join(tmp_path, l, r, (0, 1), (0, 2), (0,), mode,
                               memory_budget=n * 8 // 4)
-    assert extra["adaptive_switches"] == 1 and "grace" in port.detail
+    assert extra["adaptive_switches"] == 1 and "grace" in port.stats.detail
     assert port.sorted_by() is None
 
 
@@ -445,9 +445,9 @@ def test_partitioned_group_by_matches_reference(tmp_path, distinct):
     want, got = _ref_rows(ref), _port_rows(port)
     assert sum(got.values()) == sum(want.values()) == 40 * 25
     assert decoded(got, td) == decoded(want, rd)
-    assert {k: port.extra[k] for k in ("spill_files", "spill_bytes", "grace_partitions")} == {
+    assert {k: port.stats.extra[k] for k in ("spill_files", "spill_bytes", "grace_partitions")} == {
         k: ref.stats.extra[k] for k in ("spill_files", "spill_bytes", "grace_partitions")}
-    assert port.extra["spill_files"] > 0
+    assert port.stats.extra["spill_files"] > 0
     close_tree(port)
     ref.close()
     assert not _leaks(tmp_path / "port")
@@ -464,7 +464,7 @@ def test_partitioned_distinct_matches_reference(tmp_path, n_vars):
                                   memory_budget=8_000, spill_dir=str(tmp_path / "port"),
                                   n_parts=8)
     assert _port_rows(port) == _ref_rows(ref)
-    assert (port.extra["spill_files"], port.extra["spill_bytes"]) == (
+    assert (port.stats.extra["spill_files"], port.stats.extra["spill_bytes"]) == (
         ref.stats.extra["spill_files"], ref.stats.extra["spill_bytes"])
     assert port.sorted_by() is None
     close_tree(port)
