@@ -51,6 +51,36 @@ script exits non-zero:
             1,000 x 1,000 and 1,000 x 2,000 rows drained from CrossJoin,
             each against nl x nr, their host syncs equal (after one
             uncounted drain of each);
+  serve     (SERVE_BUDGET_S, 60 s, reported against the phase's time) a
+            stream of 100 requests from
+            ``repro_torch.launch.serve.build_requests`` (seeded): 80 BSBM
+            explore instances on the scale-36 store and 20 counts on the
+            full-size LSQB store cycling p1, q4 and p3 (SERVE_LSQB: q4 and
+            two path counts with closed forms, in place of q1 and q5, which
+            take over 2 s each), through two QueryServers under
+            EngineConfig(), 5 of them warm-up; the launch counters set to 0
+            before the stream and read after it. Every count against its
+            closed form, every explore result against a bare Engine's
+            rows, plan-cache hits against the requests less the distinct
+            texts, the registries' kernel dispatches against the requests'
+            ledgers and the launch counts kernel by kernel, both OpenMetrics
+            expositions validated (kernel series all ``/cuda``), and a
+            served q4's host syncs against the same plan's through
+            ``Engine.execute_plan``; qps, mean, p50 and p99 latency, the hit
+            rate and the dispatches per kernel are printed. Then q4 twice
+            through a QueryServer under ``cardinality_feedback="apply"``
+            with a FlightRecorder (q-error threshold 4): both counts the
+            closed form, the second plan marked ``(source=feedback)``, the
+            first run's bundle parsed back when its q-error fires. Then
+            every query the script runs (LSQB q1-q9, p1-p5, d1, d2; BSBM
+            b1-b8 and the explore instances) planned under
+            ``verify_plans=True`` in the default, ``("merge", "off")`` and
+            8 MiB-budget configurations: each plan verifies clean, or the
+            verifier flags a plan the translator refuses today too. Then q4
+            under ``sanitize=True`` against its closed form with no leak
+            and conserved counters, its wall beside an unsanitized run's,
+            and a released card batch read back as POISON and refused with
+            the allocating operator's name;
   legacy    the row engine (``engine="legacy"``: host rows over the store's
             host index arrays) and the mixed engine (batch scans and joins
             on the card, row grouping, sort and distinct on the host): the
@@ -70,20 +100,20 @@ script exits non-zero:
             by the three engines, and a FILTER marked uncompilable through
             the tree walk on the card against the VM's and the row
             engine's rows. Its launch counts are those of the mixed runs;
-  follow-ups  a second run of each default-path query, of the merge
-            path's q1 and of p1-p5 counts its host syncs, and a third of q4
+  follow-ups  a second run of each default-path query but q6, of the
+            merge path's q1 and of p1-p5 counts its host syncs, and a third of q4
             (PROFILED_QUERY) under torch.profiler gives the device's busy
             time, the top device and host ops and the cudaLaunchKernel and
             cudaMemsetAsync calls;
-  telemetry q4 and q6 on the default engine with telemetry off beside
-            the full phase's runs with it on: host syncs (sync-counted runs
-            after the first), the row counting's launches and walls, q4's
-            cudaLaunchKernel calls under torch.profiler; the syncs telemetry
-            adds must be the same small number for both. q6's EXPLAIN
-            ANALYZE from the full phase's run (the rows into its COUNT(*)
-            equal to the closed form), its Chrome trace written and parsed
-            back, and q6 under ``cardinality_feedback="apply"`` after that
-            run's actuals (an empty history plans it as the default engine
+  telemetry q4 on the default engine with telemetry off beside the full
+            phase's run with it on: host syncs (sync-counted runs after the
+            first), the row counting's launches and walls, cudaLaunchKernel
+            calls under torch.profiler; telemetry may add at most 2 syncs.
+            q6's EXPLAIN ANALYZE from the full phase's run (the rows into
+            its COUNT(*) equal to the closed form), its Chrome trace
+            written and parsed back, and q4 under
+            ``cardinality_feedback="apply"`` after the full phase's run's
+            actuals (an empty history plans it as the default engine
             does), its plan marked ``(source=feedback)`` and its count the
             closed form;
   outofcore out-of-core and adaptive execution (its launch counts are
@@ -113,7 +143,8 @@ script exits non-zero:
             the CPU (the kernels' plain versions) under the default
             configuration, ``("hash", "off")``, ``("merge", "on")``,
             ``("merge", "off")`` and the default under a 64 KiB budget with
-            a spill directory, with equal rows required (a plan the
+            a spill directory (q8 under all but ``("merge", "on")``), with
+            equal rows required (a plan the
             budget makes unrunnable must be refused alike). The CPU side
             runs in a child process (``--cpu-breadth``), started after the
             timed runs and joined at the end.
@@ -190,6 +221,10 @@ PATHS = {
     "default": ((None, None), ("q1", "q2", "q4", "q5", "q6", "q7")),
 }
 MERGE_SYNC_QUERIES = ("q1",)  # the merge path's sync-counting reruns
+# the default path's sync-counting reruns: q6's (203,992 syncs in every run
+# so far, about 50 s in sync debug mode on an H100 host) is cut to keep the
+# script in its time limit with the serve phase
+DEFAULT_SYNC_QUERIES = ("q1", "q2", "q4", "q5", "q7")
 SIP_QUERIES = ("q4", "q5", "q6")  # default-path queries that must run SIP
 # the profiled run of the default path: q2 (q6's profiled run and its event
 # analysis took 169 s of the script's time limit)
@@ -239,9 +274,20 @@ ADAPTIVE_QUERY = "q4"
 # the telemetry phase: queries run with telemetry off beside the full
 # phase's runs (on); the profiled one's cudaLaunchKernel calls are compared
 # too (on: the follow-ups' profiled run)
-TELEMETRY_QUERIES = ("q4", "q6")
+# (q6's off run and its "apply" run, about 100 s together, are cut to keep
+# the script in its time limit with the serve phase: the apply run is q4's,
+# and q6's EXPLAIN ANALYZE and Chrome trace still come from the full phase)
+TELEMETRY_QUERIES = ("q4",)
 SMALL_TELEMETRY_QUERY = PROFILED_QUERY
+APPLY_QUERY = "q4"
+# the full phase's default-path results the telemetry phase reads
+KEPT_QUERIES = ("q4", "q6")
 BREADTH_BUDGET = 64 << 10
+# LSQB q8 (9.4M rows at breadth scale) runs in these breadth configurations
+# only: under ("merge", "on") it took 11.5 s on an H100 and 42.9 s in the
+# CPU child, cut to keep the script in its time limit with the serve phase
+# (("merge", "off") runs the same merge joins)
+Q8_BREADTH_CONFIGS = ("default", "hash-off", "merge-off", "budget-64k")
 # the fault probes, on probe_store in the breadth phase: plans past one
 # gather_emit launch (19 and 20 emitted rows, one key and five pairs) and
 # the float64 value plane (2^24 + 1, 0.1 * 3, 210 instructions, sums)
@@ -263,6 +309,29 @@ PROBE_QUERIES = {
     "f3 distinct aggregates": "SELECT ?g " + _AGGS.format(d="DISTINCT ")
                               + " { ?i :g ?g . ?i :x ?x } GROUP BY ?g",
 }
+
+# the serve phase: a stream of SERVE_REQUESTS requests from
+# repro_torch.launch.serve.build_requests (SERVE_LSQB_SHARE of them LSQB
+# counts on the full-size store cycling SERVE_LSQB, the rest BSBM explore
+# instances on the scale-36 store) through two QueryServers under
+# EngineConfig(), the first SERVE_WARMUP left out of the latencies. Then
+# q4's feedback loop through a flight recorder, the plan verifier over
+# every query the script runs, and q4 sanitized; the phase reports its time
+# against SERVE_BUDGET_S.
+SERVE_REQUESTS = 100
+SERVE_LSQB_SHARE = 0.2
+# the LSQB cycle is fixed, so every run serves the same stream: q1, q4 and
+# q5 with q1 and q5 replaced by the path counts p1 and p3 (closed forms),
+# because their full-size runs took over 2 s on an H100 (q1 3.1-5.0 s, q5
+# 1.6-2.7 s), which a 60 s phase cannot hold 13 times
+SERVE_LSQB = ("p1", "q4", "p3")
+SERVE_WARMUP = 5
+SERVE_BUDGET_S = 60.0
+SERVE_FEEDBACK_QUERY = "q4"
+SERVE_QERROR = 4.0
+SANITIZE_QUERY = "q4"
+VERIFY_CONFIGS = {"default": (None, None), "merge-off": ("merge", "off"),
+                  "budget-8m": {"memory_budget": OOC_BUDGET}}
 
 # the legacy phase: the row engine (host rows over the store's host index
 # arrays) and the mixed engine (batch scans and joins on the card, row
@@ -317,6 +386,27 @@ def call_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def event_ms(prepare, fn, iters: int) -> float:
+    """Mean milliseconds of ``fn`` alone, each of ``iters`` calls after a
+    ``prepare()`` that is not timed, between two CUDA events recorded
+    around the call: the device time of its launches and the gaps between
+    them."""
+    prepare()
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        prepare()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
 def _kernel_event(name: str, key: str, main_only: bool = False) -> bool:
     """Whether a profiler event is one of kernel ``name``'s CUDA kernels:
     ``{name}_kernel``, or with ``main_only`` false also a helper kernel of
@@ -326,33 +416,37 @@ def _kernel_event(name: str, key: str, main_only: bool = False) -> bool:
     return re.search(rf"\b{name}{part}_kernel\b", key) is not None
 
 
-def device_ms(fn, iters: int, kernel=None):
+def device_ms(fn, iters: int, kernel=None, windows: int = 5):
     """Device milliseconds from torch.profiler over ``iters`` calls: per
     call, the self device time of ``kernel``'s CUDA kernels (one wrapper
     call is one counted launch) when it is named, else summed over every
-    device op. None when the profiler recorded no such device time."""
+    device op. The profiler can come back from a window with no device
+    event at all, so a window that recorded none is profiled again, up to
+    ``windows`` times; None when none of them recorded such device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     cpu = torch.autograd.DeviceType.CPU
-    evs = [e for e in prof.key_averages()
-           if e.device_type != cpu and e.self_device_time_total > 0]
-    if kernel is not None:
-        evs = [e for e in evs if _kernel_event(kernel, e.key)]
-    if not evs:
-        return None
-    return sum(e.self_device_time_total for e in evs) / iters / 1e3
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type != cpu and e.self_device_time_total > 0]
+        if kernel is not None:
+            evs = [e for e in evs if _kernel_event(kernel, e.key)]
+        if evs:
+            return sum(e.self_device_time_total for e in evs) / iters / 1e3
+    return None
 
 
 def timings(name, kernel_fn, plain_fn, plain_iters: int, library_fn=None) -> dict:
     """The kernel's, its plain version's and (where there is one) the
     library call's device and per-call times. Where the profiler records no
-    device time, the per-call time stands in and the log says so."""
+    device time, the per-call time stands in, and ``{key}_source`` and the
+    log say so (``"profiler"`` otherwise)."""
     t = {"call_ms": call_ms(kernel_fn, 200), "plain_call_ms": call_ms(plain_fn, plain_iters)}
     t["ms"] = device_ms(kernel_fn, 200, kernel=name)
     t["plain_ms"] = device_ms(plain_fn, plain_iters)
@@ -363,9 +457,10 @@ def timings(name, kernel_fn, plain_fn, plain_iters: int, library_fn=None) -> dic
         t["library_ms"] = device_ms(library_fn, 200)
         keys.append(("library_ms", "library_call_ms"))
     for key, fallback in keys:
+        t[f"{key}_source"] = "profiler"
         if t[key] is None:
             log(f"  {name}: the profiler recorded no device time; {key} is {fallback}")
-            t[key] = t[fallback]
+            t[key], t[f"{key}_source"] = t[fallback], fallback
     return t
 
 
@@ -915,10 +1010,18 @@ def check_radix_partition(rng, dev):
     # where the DRAM bound does not hold: ms is taken with a 64 MB write
     # between launches (not counted), the warm time beside it
     flush = torch.empty(1 << 24, dtype=torch.int32, device=dev)
-    t["keys in L2"] = {"ms": t["ms"]}
+    t["keys in L2"] = {"ms": t["ms"], "ms_source": t["ms_source"]}
     t["ms"] = device_ms(lambda: (flush.zero_(), RP.radix_partition(keys, 1024)), 200,
                         kernel="radix_partition")
-    log(f"  radix_partition keys out of L2: {t['ms']:.6f} ms, in L2 {t['keys in L2']['ms']:.6f}")
+    t["ms_source"] = "profiler"
+    if t["ms"] is None:
+        # the same quantity from CUDA events around each launch alone
+        t["ms"] = event_ms(flush.zero_, lambda: RP.radix_partition(keys, 1024), 200)
+        t["ms_source"] = "cuda_events"
+        log("  radix_partition keys out of L2: the profiler recorded no device time; ms is "
+            "from CUDA events around each launch")
+    log(f"  radix_partition keys out of L2: {t['ms']:.6f} ms ({t['ms_source']}), in L2 "
+        f"{t['keys in L2']['ms']:.6f} ({t['keys in L2']['ms_source']})")
     # the launch-bound size: 4,096 keys, one call's device time and its
     # time per call (the wrapper no longer zero-fills the histogram)
     small = keys[:4096].clone()
@@ -1623,6 +1726,10 @@ def kernel_phase(dev, seed, knows_src):
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": None, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library_ms"],
+            # where each time comes from: "profiler" (device time), else the
+            # stand-in the log names
+            **{f"{k}_source": t[f"{k}_source"] for k in ("ms", "plain_ms", "library_ms")
+               if f"{k}_source" in t},
             "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
             "library_call_ms": t["library_call_ms"],
         }
@@ -1727,6 +1834,31 @@ def check_trace_ledger(label, res, delta):
     return len(tr._kernels)
 
 
+# the planner's statistics over each full-size store, built once and shared
+# by every engine over it (building them reads every quad on the host); per
+# store: the build's seconds and the engines that took them
+_GRAPH_STATS: dict = {}
+GRAPH_STATS_REPORT: dict = {}
+
+
+def stats_for(store):
+    """The planner's GraphStats over ``store``, built on first use (its
+    seconds logged: the host time each later engine over the store saves)
+    and shared after."""
+    from repro_torch.core.stats import GraphStats
+
+    key = id(store)
+    if key not in _GRAPH_STATS:
+        t0 = time.perf_counter()
+        _GRAPH_STATS[key] = GraphStats(store)
+        build_s = time.perf_counter() - t0
+        GRAPH_STATS_REPORT[f"{store.n_quads} triples"] = {"build_s": build_s, "engines": 0}
+        log(f"  the planner's statistics over {store.n_quads} triples built in {build_s:.3f} s "
+            f"on the host; every engine over the store shares them")
+    GRAPH_STATS_REPORT[f"{store.n_quads} triples"]["engines"] += 1
+    return _GRAPH_STATS[key]
+
+
 def run_query(engine, text):
     """(result, wall seconds) of one query, ending in a device sync."""
     t0 = time.perf_counter()
@@ -1818,7 +1950,7 @@ def knows_subjects(store):
 def full_phase(dev, store, report):
     """The timed runs of both full-size paths, each query's trace ledger
     held against its launch deltas; returns the engines, each path's launch
-    counts and the default path's results of TELEMETRY_QUERIES."""
+    counts and the default path's results of KEPT_QUERIES."""
     import repro_torch
     from repro_torch import kernels as K
     from repro_torch.core.operators import base as OB
@@ -1829,7 +1961,8 @@ def full_phase(dev, store, report):
     log(f"  closed forms from the quads in {time.perf_counter() - t0:.1f} s: {want}")
     engines, path_launches, kept = {}, {}, {}
     for path, (cfg, queries) in PATHS.items():
-        engine = engines[path] = repro_torch.Engine(store, _config(cfg), device=dev)
+        engine = engines[path] = repro_torch.Engine(store, _config(cfg), device=dev,
+                                                    stats=stats_for(store))
         log(f"  path {path}: join_strategy={cfg[0]!r} sip={cfg[1]!r} {elapsed()}")
         rep = report["full"]["paths"][path] = {"config": list(cfg), "queries": {}}
         K.reset_launch_counts()
@@ -1863,7 +1996,7 @@ def full_phase(dev, store, report):
                                     "sip_batches_by_filters": masked,
                                     "trace_kernel_events": events,
                                     "count_launches": counting, "operator_batches": batches}
-            if path == "default" and name in TELEMETRY_QUERIES:
+            if path == "default" and name in KEPT_QUERIES:
                 kept[name] = res
             del res
             if path == "default":
@@ -2018,7 +2151,7 @@ def paths_phase(engine, store, report):
     t0 = time.perf_counter()
     want = path_closed_forms(store)
     log(f"  closed forms from the quads in {time.perf_counter() - t0:.1f} s: {want}")
-    rep = report["paths"] = {"queries": {}}
+    rep = report["paths"] = {"queries": {}, "closed_forms": want}
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     for name, text in PATH_QUERIES.items():
@@ -2106,7 +2239,8 @@ def distinct_phase(engine, store, dev, report, forms):
     rep["bsbm"]["b6_rows"] = bwant["b6_rows"]
     log(f"  b6 (breadth only) would emit {bwant['b6_rows']} self-join rows at this scale")
     forms.update(d2=want["d2"], b4=bwant["b4"], b8=bwant["b8"], bsbm_rows={})
-    bengine = repro_torch.Engine(bstore, repro_torch.EngineConfig(), device=dev)
+    bengine = repro_torch.Engine(bstore, repro_torch.EngineConfig(), device=dev,
+                                 stats=stats_for(bstore))
     for name in BSBM_FULL_QUERIES:
         rows = _distinct_run(bengine, name, BSBM_BI_QUERIES[name], rep)
         forms["bsbm_rows"][name] = canonical(rows)
@@ -2176,7 +2310,8 @@ def explore_phase(dev, bstore, meta, report):
     from repro_torch import kernels as K
 
     rep = report["explore"] = {"scale": BSBM_SCALE, "queries": {}}
-    engine = repro_torch.Engine(bstore, repro_torch.EngineConfig(), device=dev)
+    engine = repro_torch.Engine(bstore, repro_torch.EngineConfig(), device=dev,
+                                stats=stats_for(bstore))
     K.reset_launch_counts()
     for name, text in explore_queries(meta, SEED).items():
         before = K.launch_counts()
@@ -2209,6 +2344,322 @@ def explore_phase(dev, bstore, meta, report):
             f"cross product: host syncs depend on the batches ({a['syncs']} for "
             f"{a['batches']}, {b['syncs']} for {b['batches']})")
     return K.launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# the serve phase: a request stream through the QueryServer
+# ---------------------------------------------------------------------------
+
+
+def _rows_key(rows):
+    return sorted(map(tuple, rows.tolist()))
+
+
+def _om_labels(text, label):
+    return {m.group(1) for m in re.finditer(label + r'="([^"]*)"', text)}
+
+
+def serve_stream_part(dev, store, bstore, bmeta, report, closed):
+    """The request stream through two QueryServers under EngineConfig() and
+    its checks: the LSQB counts against their closed forms, the explore
+    rows against a bare Engine's, the plan-cache hits, the dispatches
+    against the launch counts, the OpenMetrics expositions, and a served
+    request's host syncs against execute_plan's. Returns the stream's
+    launch counts and its requests."""
+    import repro_torch
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import build_requests, serve_stream
+    from repro_torch.serve.metrics import validate_openmetrics
+    from repro_torch.serve.query_server import QueryServer
+
+    rep = report["serve"]
+    texts = {**repro_torch.LSQB_QUERIES, **PATH_QUERIES, **DISTINCT_QUERIES}
+    stream = build_requests(bmeta, SERVE_REQUESTS, SEED, SERVE_LSQB_SHARE, SERVE_LSQB,
+                            texts)
+    n_lsqb = sum(s == "lsqb" for _, _, s in stream)
+    rep.update(cycle=list(SERVE_LSQB), requests=len(stream), lsqb_requests=n_lsqb,
+               warmup=SERVE_WARMUP)
+    log(f"  stream: {len(stream)} requests, {n_lsqb} on the LSQB store cycling {SERVE_LSQB}, "
+        f"{len(stream) - n_lsqb} BSBM explore instances, {SERVE_WARMUP} warm-up")
+    servers = {"bsbm": QueryServer(bstore, repro_torch.EngineConfig(), device=dev,
+                                   stats=stats_for(bstore)),
+               "lsqb": QueryServer(store, repro_torch.EngineConfig(), device=dev,
+                                   stats=stats_for(store))}
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats, results = serve_stream(servers, stream, warmup=SERVE_WARMUP)
+    rep["stream_s"] = time.perf_counter() - t0
+    launches = K.launch_counts()
+    rep["stats"] = stats
+    # where a request's time goes, by template (after the warm-up): the
+    # trace's execute span (the drain, its last copy waiting for the card)
+    # and the rest (plan-cache lookup, parse and plan on a miss, translate,
+    # the server's bookkeeping)
+    by_key = {}
+    for (key, _, _), r in zip(stream[SERVE_WARMUP:], results[SERVE_WARMUP:]):
+        _, execute = r.trace.span_bounds("execute")
+        acc = by_key.setdefault(key, [0, 0.0, 0.0, 0])
+        acc[0] += 1
+        acc[1] += r.latency_s
+        acc[2] += execute
+        acc[3] += 0 if r.plan_cache_hit else 1
+    rep["by_template"] = {k: {"requests": n, "mean_ms": lat / n * 1e3,
+                              "execute_ms": ex / n * 1e3, "misses": m}
+                          for k, (n, lat, ex, m) in sorted(by_key.items())}
+    log(f"  served in {rep['stream_s']:.3f} s ({card_line()}): qps={stats['qps']:.3f} "
+        f"mean={stats['mean_ms']:.3f} ms p50={stats['p50_ms']:.3f} ms "
+        f"p99={stats['p99_ms']:.3f} ms plan-cache hit rate={stats['plan_cache_hit_rate']:.4f} "
+        f"(after {SERVE_WARMUP} warm-up requests)")
+    for k, v in rep["by_template"].items():
+        log(f"    {k}: {v['requests']} requests ({v['misses']} plan-cache misses), mean "
+            f"{v['mean_ms']:.3f} ms, of it the execute span {v['execute_ms']:.3f} ms")
+    # every LSQB count against its closed form
+    bad = []
+    for (key, _, s), r in zip(stream, results):
+        if s == "lsqb":
+            name = key.split("_", 1)[1]
+            got = int(store.dict.decode(int(r.rows[0, 0])))
+            if r.n_rows != 1 or got != closed[name]:
+                bad.append((key, r.n_rows, got, closed[name]))
+    require(not bad, f"serve: LSQB counts differ from their closed forms "
+                     f"(key, rows, count, closed form): {bad}")
+    # every explore request's rows against a bare Engine's
+    t0 = time.perf_counter()
+    bare = repro_torch.Engine(bstore, repro_torch.EngineConfig(), device=dev,
+                              stats=stats_for(bstore))
+    want, bad = {}, []
+    for (key, text, s), r in zip(stream, results):
+        if s == "bsbm":
+            if text not in want:
+                want[text] = _rows_key(bare.execute(text).rows)
+            if _rows_key(r.rows) != want[text]:
+                bad.append((key, r.n_rows, len(want[text])))
+    require(not bad, f"serve: explore rows differ from a bare Engine's (key, served rows, "
+                     f"bare rows): {bad}")
+    rep["bare_reruns_s"] = time.perf_counter() - t0
+    log(f"  {n_lsqb} LSQB counts equal their closed forms; "
+        f"{len(stream) - n_lsqb} explore results ({len(want)} distinct texts) equal a bare "
+        f"Engine's rows {elapsed()}")
+    # plan-cache hits = requests - distinct texts
+    hits = sum(srv.metrics.plan_cache_hits for srv in servers.values())
+    distinct = len({text for _, text, _ in stream})
+    require(hits == len(stream) - distinct,
+            f"serve: {hits} plan-cache hits != {len(stream)} requests - {distinct} "
+            f"distinct texts")
+    # the registries' dispatches = the requests' = the launch counts
+    reg, per_req = {}, {}
+    for srv in servers.values():
+        for k, v in srv.metrics.kernels.counts.items():
+            reg[k] = reg.get(k, 0) + v
+    for r in results:
+        for k, v in r.trace.ledger.counts.items():
+            per_req[k] = per_req.get(k, 0) + v
+    nonzero = {k: v for k, v in launches.items() if v}
+    backends = {b for srv in servers.values() for _, b in srv.metrics.kernels.backend_counts}
+    require(reg == per_req == nonzero and backends <= {"cuda"},
+            f"serve: the registries' dispatches {reg}, the requests' {per_req} and the "
+            f"launch counts {nonzero} differ, or a backend other than cuda ({backends})")
+    require(sum(reg.values()) == sum(r.kernel_dispatches for r in results),
+            "serve: the requests' kernel_dispatches do not sum to the registries'")
+    rep["dispatches"] = reg
+    log(f"  {hits} plan-cache hits = {len(stream)} - {distinct} distinct texts; "
+        f"dispatches per kernel = launch counts = the requests' ledgers: {reg}")
+    # the OpenMetrics expositions
+    for name, srv in servers.items():
+        om = srv.openmetrics()
+        fams = validate_openmetrics(om)
+        kernels = srv.metrics_snapshot()["kernels"]["by_backend"]
+        require("barq_fingerprint_requests" in fams,
+                f"serve: {name}'s exposition has no barq_fingerprint_requests: {fams}")
+        require(_om_labels(om, "backend") == {"cuda"}
+                and all(k.endswith("/cuda") for k in kernels),
+                f"serve: {name}'s kernel series are not all /cuda: "
+                f"{_om_labels(om, 'backend')}, {sorted(kernels)}")
+        rep[f"openmetrics_{name}"] = {"families": len(fams), "bytes": len(om),
+                                      "kernel_series": sorted(kernels)}
+    log(f"  both expositions validate, with barq_fingerprint_requests and kernel series "
+        f"{sorted(set(rep['openmetrics_lsqb']['kernel_series']) | set(rep['openmetrics_bsbm']['kernel_series']))}")
+    # a served LSQB request makes the host syncs of the same plan
+    # through Engine.execute_plan (both warm: the plan is cached)
+    srv = servers["lsqb"]
+    text = texts[SERVE_FEEDBACK_QUERY]
+    phys, vt, _ = srv._plan_for(text)
+    served = count_syncs(lambda: srv.execute("sync", text))
+    plain = count_syncs(lambda: srv.engine.execute_plan(phys, vt))
+    require(served == plain, f"serve: a served {SERVE_FEEDBACK_QUERY} made {served} host "
+                             f"syncs, the same plan through execute_plan {plain}")
+    rep["syncs"] = {"served": served, "execute_plan": plain}
+    log(f"  {SERVE_FEEDBACK_QUERY} served {served} host syncs, through "
+        f"Engine.execute_plan {plain}")
+    return launches, stream
+
+
+def serve_feedback_part(dev, store, report, closed):
+    """q4 twice through a QueryServer under cardinality_feedback="apply"
+    with a flight recorder: both counts the closed form, the second plan
+    from feedback, the first run's bundle when its q-error fires."""
+    import repro_torch
+    from repro_torch.core import planner as PL
+    from repro_torch.serve.flight_recorder import FlightRecorder
+    from repro_torch.serve.query_server import QueryServer
+
+    name = SERVE_FEEDBACK_QUERY
+    text = repro_torch.LSQB_QUERIES[name]
+    rep = report["serve"]["feedback"] = {"query": name}
+    with tempfile.TemporaryDirectory() as tmp:
+        fr = FlightRecorder(out_dir=tmp, q_error_threshold=SERVE_QERROR)
+        srv = QueryServer(store, repro_torch.EngineConfig(cardinality_feedback="apply"),
+                          flight=fr, device=dev, stats=stats_for(store))
+        r1 = srv.execute(name, text)
+        r2 = srv.execute(name, text)
+        counts = [int(store.dict.decode(int(r.rows[0, 0]))) for r in (r1, r2)]
+        require(counts == [closed[name]] * 2,
+                f"serve feedback: {name} counted {counts}, closed form {closed[name]}")
+        require(len(srv._plan_cache) == 2, "serve feedback: the second run was not re-planned")
+        phys2, vt2, _ = list(srv._plan_cache.values())[-1]
+        plan2 = PL.explain(phys2, vt2)
+        require("(source=feedback)" in plan2,
+                f"serve feedback: the second plan shows no (source=feedback):\n{plan2}")
+        rep.update(counts=counts, max_q_error=[r1.max_q_error, r2.max_q_error],
+                   latency_s=[r1.latency_s, r2.latency_s], bundle=r1.flight_bundle is not None)
+        if r1.max_q_error >= SERVE_QERROR:
+            b = r1.flight_bundle
+            require(b is not None, f"serve feedback: q-error {r1.max_q_error} captured no bundle")
+            trace = json.loads(Path(b, "trace.json").read_text())
+            meta = json.loads(Path(b, "meta.json").read_text())
+            explain = Path(b, "explain.txt").read_text()
+            require("est:" in explain and meta["reasons"] and trace.get("traceEvents"),
+                    f"serve feedback: the bundle is incomplete: "
+                    f"{sorted(p.name for p in Path(b).iterdir())}")
+            rep["bundle_trace_bytes"] = Path(b, "trace.json").stat().st_size
+    log(f"  feedback: {name} counted {counts} (closed form {closed[name]}), max q-error "
+        f"{r1.max_q_error} then {r2.max_q_error}, walls {r1.latency_s:.3f} / "
+        f"{r2.latency_s:.3f} s; the second plan shows (source=feedback); first run's bundle: "
+        f"{rep.get('bundle_trace_bytes', 'none (q-error under the threshold)')} trace bytes")
+
+
+def verify_part(dev, store, bstore, texts, report):
+    """Every query the script runs planned (not executed) under
+    verify_plans=True in three configurations: each plan verifies clean,
+    or the verifier flags one the engine refuses today too."""
+    import repro_torch
+    from repro_torch.analysis.plan_verify import PlanInvariantError
+    from repro_torch.core.executor import Translator
+
+    rep = report["serve"]["verify"] = {}
+    for cname, cfg in VERIFY_CONFIGS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            c = _config(cfg, spill_dir=tmp if isinstance(cfg, dict) else None)
+            c.verify_plans = True
+            clean, refused = 0, {}
+            t0 = time.perf_counter()
+            for sname, st, queries in (("lsqb", store, texts["lsqb"]),
+                                       ("bsbm", bstore, texts["bsbm"])):
+                eng = repro_torch.Engine(st, c, device=dev, stats=stats_for(st))
+                for qname, text in queries.items():
+                    node, _ = eng.parse(text)
+                    try:
+                        eng.plan(node)
+                        clean += 1
+                    except PlanInvariantError as e:
+                        phys = eng.planner.plan(node)
+                        try:
+                            Translator(st, eng.cfg, dev).translate(phys)
+                            taken = None
+                        except ValueError as t:
+                            taken = str(t)
+                        require(taken is not None and REFUSED_UNORDERED in taken,
+                                f"verify {cname} {qname}: the verifier flags a plan the engine "
+                                f"runs: {e}")
+                        refused[qname] = str(e).splitlines()[0][:160]
+            rep[cname] = {"clean": clean, "refused": refused,
+                          "seconds": time.perf_counter() - t0}
+        log(f"  verify_plans {cname}: {clean} plans verify clean, refused alike by the "
+            f"verifier and the translator: {refused or 'none'} "
+            f"({rep[cname]['seconds']:.2f} s)")
+
+
+def sanitize_part(dev, store, lsqb_engine, report, closed):
+    """q4 on a sanitizing engine against its closed form, no leak and
+    conserved counters, its wall beside an unsanitized run; then a small
+    card batch poisoned at release and refused after it."""
+    import repro_torch
+    from repro_torch.analysis.sanitize import POISON, PoolSanitizer, SanitizeError, SanitizingBatchPool
+    from repro_torch.core import batch as PB
+    from repro_torch.core.batch import ColumnBatch
+
+    name = SANITIZE_QUERY
+    text = repro_torch.LSQB_QUERIES[name]
+    rep = report["serve"]["sanitize"] = {"query": name}
+    eng = repro_torch.Engine(store, repro_torch.EngineConfig(sanitize=True), device=dev,
+                             stats=stats_for(store))
+    try:
+        res, wall = run_query(eng, text)
+        got = int(store.dict.decode(int(res.rows[0, 0])))
+        require(got == closed[name], f"sanitize {name}: {got} != closed form {closed[name]}")
+        del res
+        leaks, c = eng.pool.leaks(), eng.pool.counters()
+        require(not leaks and c["live"] == 0 and c["allocs"] == c["releases"] + c["pooled"],
+                f"sanitize {name}: leaks {eng.pool.sanitizer.leak_report(eng.pool)[:5]}, "
+                f"counters {c}")
+        _, plain_wall = run_query(lsqb_engine, text)
+        rep.update(count=got, wall_s=wall, unsanitized_wall_s=plain_wall, counters=c,
+                   pool=eng.pool.stats())
+        log(f"  sanitize: {name} counted {got} (closed form), no leak, counters {c}; wall "
+            f"{wall:.3f} s sanitized, {plain_wall:.3f} s not")
+        pool = SanitizingBatchPool(dev, sanitizer=PoolSanitizer())
+        pool.sanitizer.push_op("ServeSmokeBatch")
+        b = ColumnBatch.from_columns((0, 1), [torch.arange(1000, dtype=torch.int32, device=dev)] * 2,
+                                     dev, pool=pool)
+        pool.sanitizer.pop_op()
+        cols, mask = b.columns, b.mask
+        syncs = count_syncs(b.release)
+        poisoned = bool((cols[:, :1000] == int(POISON)).all()) and bool(mask[:1000].all())
+        require(poisoned and syncs == 0,
+                f"sanitize: the released batch is not POISON throughout ({poisoned}) or its "
+                f"release made {syncs} host syncs")
+        try:
+            b.column(0)
+            msg = None
+        except SanitizeError as e:
+            msg = str(e)
+        require(msg is not None and "ServeSmokeBatch" in msg,
+                f"sanitize: touching a released batch raised {msg!r}")
+        rep["released_batch"] = {"poisoned": poisoned, "release_syncs": syncs, "error": msg}
+        log(f"  sanitize: a released card batch of 1,000 rows reads POISON throughout ({syncs} "
+            f"host syncs in its release); touching it raises: {msg}")
+    finally:
+        # the later phases run plain pools: take the hook out again
+        PB._SANITIZER = None
+
+
+def serve_phase(dev, store, bstore, bmeta, report):
+    """The serve phase (SERVE_BUDGET_S): the request stream, the feedback
+    loop, verify_plans and sanitize; returns the stream's launch counts."""
+    import repro_torch
+    from repro_torch.data import BSBM_BI_QUERIES
+
+    t0 = time.perf_counter()
+    report["serve"] = {"budget_s": SERVE_BUDGET_S}
+    closed = {**report["full"]["closed_forms"], **report["paths"]["closed_forms"]}
+    log(f"  the request stream: {elapsed()}")
+    launches, stream = serve_stream_part(dev, store, bstore, bmeta, report, closed)
+    log(f"  the feedback loop: {elapsed()}")
+    serve_feedback_part(dev, store, report, closed)
+    log(f"  verify_plans: {elapsed()}")
+    stream_texts = {f"stream {i}": t for i, t in enumerate(
+        dict.fromkeys(t for _, t, s in stream if s == "bsbm"))}
+    texts = {"lsqb": {**repro_torch.LSQB_QUERIES, **PATH_QUERIES, **DISTINCT_QUERIES},
+             "bsbm": {**BSBM_BI_QUERIES, **explore_queries(bmeta, SEED), **stream_texts}}
+    verify_part(dev, store, bstore, texts, report)
+    log(f"  sanitize: {elapsed()}")
+    lsqb_engine = repro_torch.Engine(store, repro_torch.EngineConfig(), device=dev,
+                                     stats=stats_for(store))
+    sanitize_part(dev, store, lsqb_engine, report, closed)
+    phase_s = report["serve"]["phase_s"] = time.perf_counter() - t0
+    log(f"  serve phase: {phase_s:.2f} s of its {SERVE_BUDGET_S:.0f} s budget "
+        f"({'met' if phase_s <= SERVE_BUDGET_S else 'NOT met'}) {elapsed()}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2300,7 +2751,8 @@ def legacy_full(dev, store, report, mixed_runs):
 
     forms = report["full"]["closed_forms"]
     rep = report["legacy"]["full"] = {}
-    mixed = repro_torch.Engine(store, repro_torch.EngineConfig(engine="mixed"), device=dev)
+    mixed = repro_torch.Engine(store, repro_torch.EngineConfig(engine="mixed"), device=dev,
+                               stats=stats_for(store))
     for name in LEGACY_FULL_MIXED:
         text = repro_torch.LSQB_QUERIES[name]
         res, wall = mixed_runs.run(mixed, text)
@@ -2317,7 +2769,8 @@ def legacy_full(dev, store, report, mixed_runs):
         log(f"  mixed {name}: count={got} (closed form) wall={wall:.3f} s, {crossed} batches "
             f"crossed to the host, {syncs} host syncs (a second run), {sum(copies)} of them "
             f"in the {len(copies)} BatchToRow copies (a third run)")
-    legacy = repro_torch.Engine(store, repro_torch.EngineConfig(engine="legacy"), device=dev)
+    legacy = repro_torch.Engine(store, repro_torch.EngineConfig(engine="legacy"), device=dev,
+                                stats=stats_for(store))
     for name in LEGACY_FULL_ROW:
         res, wall = run_query(legacy, repro_torch.LSQB_QUERIES[name])
         got = _count(res, store)
@@ -2772,7 +3225,7 @@ def adaptive_check(dev, store, want, rep, tally):
     from repro_torch.core.operators.adaptive_join import AdaptiveMergeJoin
 
     engine = repro_torch.Engine(store, repro_torch.EngineConfig(
-        join_strategy="merge", adaptive_join="on"), device=dev)
+        join_strategy="merge", adaptive_join="on"), device=dev, stats=stats_for(store))
     text = repro_torch.LSQB_QUERIES[ADAPTIVE_QUERY]
     require(" adaptive" in engine.explain(text),
             f"outofcore adaptive: {ADAPTIVE_QUERY} has no adaptive merge join")
@@ -2813,7 +3266,7 @@ def outofcore_phase(dev, store, bstore, forms, report):
     with tempfile.TemporaryDirectory(prefix="barq-spill-") as tmp:
         spill_stress(dev, tmp, rep, tally)
         engine = repro_torch.Engine(store, repro_torch.EngineConfig(
-            memory_budget=OOC_BUDGET, spill_dir=tmp), device=dev)
+            memory_budget=OOC_BUDGET, spill_dir=tmp), device=dev, stats=stats_for(store))
         for name in OOC_QUERIES:
             rows, q = _budget_query(engine, name, repro_torch.LSQB_QUERIES[name], tmp, tally,
                                     rep, default[name])
@@ -2832,7 +3285,7 @@ def outofcore_phase(dev, store, bstore, forms, report):
         require({r["city"]: int(r["n"]) for r in rows} == forms["d2"],
                 "outofcore d2: per-city counts differ from the closed form")
         bengine = repro_torch.Engine(bstore, repro_torch.EngineConfig(
-            memory_budget=OOC_BUDGET, spill_dir=tmp), device=dev)
+            memory_budget=OOC_BUDGET, spill_dir=tmp), device=dev, stats=stats_for(bstore))
         partitioned = []
         for name in OOC_BSBM_QUERIES:
             rows, q = _budget_query(bengine, name, BSBM_BI_QUERIES[name], tmp, tally, rep,
@@ -2864,7 +3317,7 @@ def full_followups(engines, report):
 
     reruns = [(path, name, repro_torch.LSQB_QUERIES[name], report["full"]["paths"][path])
               for path, queries in (("merge", MERGE_SYNC_QUERIES),
-                                    ("default", PATHS["default"][1]))
+                                    ("default", DEFAULT_SYNC_QUERIES))
               for name in queries]
     reruns += [("default", name, text, report["paths"]) for name, text in PATH_QUERIES.items()]
     for path, name, text, rep in reruns:
@@ -2925,10 +3378,11 @@ def telemetry_phase(dev, engines, store, kept, report):
     counting's launches, walls; for the small query also cudaLaunchKernel
     under the profiler), whose sync difference must be the same for every
     query; q6's EXPLAIN ANALYZE from the full phase's run, the rows into
-    its COUNT(*) equal to the closed form; q6 under
-    ``cardinality_feedback="apply"`` after that run's actuals, its plan
-    marked ``(source=feedback)`` and its count the closed form; q6's Chrome
-    trace written and parsed back. The checks are counts and equalities."""
+    its COUNT(*) equal to the closed form; APPLY_QUERY under
+    ``cardinality_feedback="apply"`` after the full phase's run's actuals,
+    its plan marked ``(source=feedback)`` and its count the closed form;
+    q6's Chrome trace written and parsed back. The checks are counts and
+    equalities."""
     import repro_torch
     from repro_torch.core.operators import base as OB
     from repro_torch.core.operators.aggregate import StreamingGroupBy
@@ -3010,28 +3464,30 @@ def telemetry_phase(dev, engines, store, kept, report):
 
     fb = repro_torch.CardinalityFeedback()
     ap = repro_torch.Engine(store, repro_torch.EngineConfig(cardinality_feedback="apply"),
-                            device=dev, feedback=fb)
-    text = repro_torch.LSQB_QUERIES["q6"]
+                            device=dev, stats=stats_for(store), feedback=fb)
+    name = APPLY_QUERY
+    text = repro_torch.LSQB_QUERIES[name]
     plan1 = ap.explain(text)
-    fresh = repro_torch.Engine(store, repro_torch.EngineConfig(), device=dev)
+    fresh = repro_torch.Engine(store, repro_torch.EngineConfig(), device=dev,
+                               stats=stats_for(store))
     require(plan1 == fresh.explain(text), "telemetry: an apply plan with no history "
                                           "differs from a fresh default engine's")
     del fresh
-    # an empty history plans q6 as the default engine does, so the full
-    # phase's run is the first apply run: record its actuals as the engine
-    # does after a drain
-    ap._record_actuals(res.root)
+    # an empty history plans the query as the default engine does, so the
+    # full phase's run is the first apply run: record its actuals as the
+    # engine does after a drain
+    ap._record_actuals(kept[name].root)
     plan2 = ap.explain(text)
-    require("(source=feedback)" in plan2, "telemetry: q6's second plan shows no feedback")
+    require("(source=feedback)" in plan2, f"telemetry: {name}'s second plan shows no feedback")
     got, wall, res2 = run_traced(ap, text)
     analyze2 = res2.explain_analyze()
-    require(got == forms["q6"] and "(source=feedback)" in analyze2,
-            f"telemetry: q6 under apply counted {got} (closed form {forms['q6']})")
-    rep["apply"] = {"feedback_entries": len(fb), "version": fb.version,
+    require(got == forms[name] and "(source=feedback)" in analyze2,
+            f"telemetry: {name} under apply counted {got} (closed form {forms[name]})")
+    rep["apply"] = {"query": name, "feedback_entries": len(fb), "version": fb.version,
                     "plan_shape_changed": _plan_shape(plan2) != _plan_shape(plan1),
                     "count": got, "wall_s": wall, "plan": plan2,
                     "explain_analyze": analyze2}
-    log(f"  q6 under cardinality_feedback=\"apply\": count={got} (closed form), "
+    log(f"  {name} under cardinality_feedback=\"apply\": count={got} (closed form), "
         f"wall={wall:.3f} s, {len(fb)} feedback entries; the second plan:\n{plan2}")
     rep["phase_s"] = time.perf_counter() - t_phase
     log(f"  telemetry phase: {rep['phase_s']:.1f} s")
@@ -3153,6 +3609,8 @@ def breadth_results(device, scale, seed):
             for st, queries in work:
                 engine = repro_torch.Engine(st, _config(cfg, spill), device=device)
                 for name, text in queries.items():
+                    if name == "q8" and cfg_name not in Q8_BREADTH_CONFIGS:
+                        continue
                     try:
                         res, wall = run_query(engine, text)
                     except ValueError as e:
@@ -3235,6 +3693,8 @@ def main() -> int:
                                                              report, forms)
     log(f"explore: {elapsed()}")
     path_launches["explore"] = explore_phase(dev, bstore, bmeta, report)
+    log(f"serve: {elapsed()}")
+    path_launches["serve"] = serve_phase(dev, store, bstore, bmeta, report)
     log(f"legacy: {elapsed()}")
     path_launches["legacy"] = legacy_phase(dev, store, report)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3249,6 +3709,7 @@ def main() -> int:
             log(f"outofcore: {elapsed()}")
             path_launches["outofcore"] = outofcore_phase(dev, store, bstore, forms, report)
             del store, bstore
+            _GRAPH_STATS.clear()
             for name, (_, _, path) in KERNEL_INFO.items():
                 rows[name]["launches"] = path_launches[path][name]
                 rows[name]["launches_by_path"] = {p: n[name] for p, n in path_launches.items()}
@@ -3260,6 +3721,10 @@ def main() -> int:
                 child.wait()
     log(f"done: {elapsed()}")
 
+    report["graph_stats"] = GRAPH_STATS_REPORT
+    for label, g in GRAPH_STATS_REPORT.items():
+        log(f"  planner statistics over {label}: one build of {g['build_s']:.3f} s shared by "
+            f"{g['engines']} engines")
     report["kernels"] = list(rows.values())
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -11,6 +11,11 @@ Public API:
                     ``CardinalityFeedback``
     profile_tree, collect_stats — the operator-tree report (EXPLAIN
                     ANALYZE with ``analyze=True``) and its aggregate
+
+Serving (``repro_torch.serve``: ``QueryServer`` with its metrics, workload
+repository and flight recorder; ``python -m repro_torch.launch.serve``) and
+the correctness tooling the config's ``verify_plans`` and ``sanitize``
+switch on (``repro_torch.analysis``) are imported from their modules.
 """
 
 from repro_torch.core import telemetry  # noqa: F401

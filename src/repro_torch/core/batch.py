@@ -12,6 +12,12 @@ between single owners (release / MOVE through ``with_mask``).
 reads the mask and so waits for the device. ``dense`` marks a batch whose
 filled prefix is all active, known on the host without reading the mask:
 the operator statistics count such a batch's rows as ``n_rows``.
+
+The pool sanitizer (``repro_torch.analysis.sanitize``) hooks in here as in
+the reference: ``_SANITIZER`` stays None until a ``SanitizingBatchPool`` is
+built, so each hook below is one ``is None`` test when sanitizing is off,
+and batches of plain pools stay untracked when it is on. Its state lives on
+the host; no hook reads the device.
 """
 
 from __future__ import annotations
@@ -24,6 +30,10 @@ import torch
 # NULL marker: OPTIONAL can leave variables unbound inside an aligned batch.
 # Valid dictionary IDs are >= 0.
 NULL_ID = -1
+
+# Pool-sanitizer hook point: None until the first SanitizingBatchPool is
+# built (repro_torch.analysis.sanitize installs its tracker here)
+_SANITIZER = None
 
 MIN_BATCH = 32
 MAX_BATCH = 4096
@@ -44,9 +54,12 @@ class BatchPool:
     """Arena of recycled device batch buffers, keyed by (n_vars, capacity).
 
     Counters mirror the reference pool: ``allocations`` count fresh
-    buffers, ``reuses`` recycled ones, ``dropped`` buffers retired over a
-    full stack or by ``drain()``, and ``bytes_copied`` is credited by the
-    operators for every byte of column data they move."""
+    buffers, ``reuses`` recycled ones, ``releases`` buffers handed back,
+    ``dropped`` buffers retired over a full stack or by ``drain()``, and
+    ``bytes_copied`` is credited by the operators for every byte of column
+    data they move. ``stats()`` reports them under the reference's keys
+    (the per-query attribution); ``counters()`` is the conservation
+    snapshot."""
 
     def __init__(self, device: torch.device, max_per_bucket: int = 32) -> None:
         self.device = torch.device(device)
@@ -80,9 +93,25 @@ class BatchPool:
         else:
             self.dropped += 1
 
+    def drain(self) -> None:
+        """Drop every recycled buffer (end-of-query teardown)."""
+        self.dropped += sum(len(s) for s in self._free.values())
+        self._free.clear()
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "allocations": self.allocations,
+            "reuses": self.reuses,
+            "releases": self.releases,
+            "bytes_allocated": self.bytes_allocated,
+            "bytes_copied": self.bytes_copied,
+        }
+
     def counters(self) -> Dict[str, int]:
-        """Buffer conservation snapshot: after a query fully drains its
-        operators, ``allocs == releases + pooled`` and ``live == 0``."""
+        """Buffer conservation snapshot: every fresh buffer is live (owned
+        by a batch), pooled (in a free stack) or retired, so after a query
+        fully drains its operators ``allocs == releases + pooled`` and
+        ``live == 0``."""
         pooled = sum(len(s) for s in self._free.values())
         return {
             "allocs": self.allocations,
@@ -90,10 +119,7 @@ class BatchPool:
             "pooled": pooled,
             "live": self.allocations - self.dropped - pooled,
             "acquires": self.allocations + self.reuses,
-            "reuses": self.reuses,
             "recycles": self.releases,
-            "bytes_allocated": self.bytes_allocated,
-            "bytes_copied": self.bytes_copied,
         }
 
 
@@ -148,7 +174,10 @@ class ColumnBatch:
             mask[:n] = True
         for i, c in enumerate(cols):
             data[i, :n] = c
-        return ColumnBatch(var_ids, data, mask, n, sorted_by, pool, dense=True)
+        b = ColumnBatch(var_ids, data, mask, n, sorted_by, pool, dense=True)
+        if pool is not None and _SANITIZER is not None:
+            _SANITIZER.on_create(b)
+        return b
 
     @staticmethod
     def alloc(
@@ -171,7 +200,10 @@ class ColumnBatch:
                 (len(var_ids), capacity), NULL_ID, dtype=torch.int32, device=device
             )
             mask = torch.zeros(capacity, dtype=torch.bool, device=device)
-        return ColumnBatch(var_ids, data, mask, 0, sorted_by, pool)
+        b = ColumnBatch(var_ids, data, mask, 0, sorted_by, pool)
+        if pool is not None and _SANITIZER is not None:
+            _SANITIZER.on_create(b)
+        return b
 
     @staticmethod
     def empty(var_ids: Sequence[int], device: torch.device,
@@ -189,7 +221,21 @@ class ColumnBatch:
         unpooled batches. The caller must not touch columns/mask after."""
         pool, self.pool = self.pool, None
         if pool is not None:
-            pool.release(self.columns, self.mask)
+            if _SANITIZER is not None:
+                _SANITIZER.on_release(self)
+            if getattr(pool, "_sanitized", False):
+                # only [:, :n_rows] ever held exposed data: poisoning just
+                # that region keeps the release cost proportional to use
+                pool.release(self.columns, self.mask, used=self.n_rows)
+            else:
+                pool.release(self.columns, self.mask)
+
+    def _guard(self) -> None:
+        """Use-after-release tripwire: raises SanitizeError when the
+        sanitizer is installed and this batch's buffers were released or
+        MOVEd. A host-side check: it reads no device memory."""
+        if _SANITIZER is not None and self.__dict__.get("_san_state") is not None:
+            _SANITIZER.on_access(self)
 
     # -- accessors ---------------------------------------------------------
 
@@ -203,6 +249,7 @@ class ColumnBatch:
 
     @property
     def n_active(self) -> int:
+        self._guard()
         return int(self.mask[: self.n_rows].sum()) if self.n_rows else 0
 
     def col_index(self, var: int) -> int:
@@ -210,10 +257,12 @@ class ColumnBatch:
 
     def column(self, var: int) -> torch.Tensor:
         """Raw (uncompacted) column including inactive rows."""
+        self._guard()
         return self.columns[self.col_index(var), : self.n_rows]
 
     def selection_vector(self) -> torch.Tensor:
         """The paper's SV: sorted dense indices of active rows (int32)."""
+        self._guard()
         return torch.nonzero(self.mask[: self.n_rows]).flatten().to(torch.int32)
 
     # -- transforms ----------------------------------------------------------
@@ -221,6 +270,7 @@ class ColumnBatch:
     def compact(self) -> "ColumnBatch":
         """Drop inactive rows. Buffer ownership moves to the compacted batch;
         when rows are dropped the source buffers are recycled."""
+        self._guard()
         if self.n_active == self.n_rows:
             self.dense = True
             return self
@@ -242,15 +292,13 @@ class ColumnBatch:
         return ColumnBatch(keep, self.columns[idx], m, self.n_rows, sb, dense=self.dense)
 
     def with_mask(self, mask: torch.Tensor) -> "ColumnBatch":
+        self._guard()
         if self.pool is not None:
             # pooled batches are single-owner: narrow the mask in place and
             # MOVE buffer ownership to the derived batch (zero-copy)
             self.mask.logical_and_(mask)
             self.dense = False
-            pool, self.pool = self.pool, None
-            return ColumnBatch(
-                self.var_ids, self.columns, self.mask, self.n_rows, self.sorted_by, pool
-            )
+            return self._moved()
         return ColumnBatch(
             self.var_ids, self.columns, self.mask & mask, self.n_rows, self.sorted_by
         )
@@ -263,15 +311,22 @@ class ColumnBatch:
         unpooled one."""
         from repro_torch.kernels.bloom_filter import sip_mask
 
+        self._guard()
         if self.pool is not None:
             sip_mask(self.mask, self.n_rows, filters)
             self.dense = False
-            pool, self.pool = self.pool, None
-            return ColumnBatch(
-                self.var_ids, self.columns, self.mask, self.n_rows, self.sorted_by, pool
-            )
+            return self._moved()
         fresh = sip_mask(self.mask, self.n_rows, filters, out=torch.empty_like(self.mask))
         return ColumnBatch(self.var_ids, self.columns, fresh, self.n_rows, self.sorted_by)
+
+    def _moved(self) -> "ColumnBatch":
+        """A batch over this one's buffers that takes over their ownership
+        (the MOVE of ``with_mask``)."""
+        pool, self.pool = self.pool, None
+        out = ColumnBatch(self.var_ids, self.columns, self.mask, self.n_rows, self.sorted_by, pool)
+        if _SANITIZER is not None:
+            _SANITIZER.on_move(self, out)
+        return out
 
 
 def concat_batches(

@@ -31,6 +31,12 @@ configuration outside it raises ``NotImplementedError`` naming the part of
 the port that will bring it; the engine never evaluates a query some other
 way.
 
+Under ``EngineConfig.verify_plans`` every plan goes through the reference's
+plan verifier (``repro_torch.analysis.plan_verify``); under ``sanitize`` the
+engine's buffer arena is a ``SanitizingBatchPool``
+(``repro_torch.analysis.sanitize``). ``sip_backend`` accepts only None: the
+package runs one kernel per device.
+
 Every query runs under a ``telemetry.QueryTrace`` (``EngineConfig.
 telemetry``, on by default): spans for parse, plan, translate and execute,
 the ported kernels' dispatches for this query alone, and the operator tree.
@@ -93,8 +99,8 @@ from repro_torch.core.operators.simple import (
 )
 from repro_torch.core.operators.sort import OrderByOp, SortByVarOp
 from repro_torch.core.profiler import _pool_delta, profile_tree
-from repro_torch.core.sip import SipFilter
 from repro_torch.core.stats import GraphStats
+from repro_torch.core.sip import SipFilter
 from repro_torch.core.storage import QuadStore
 
 # the only values this package implements, and the part of the port that
@@ -105,6 +111,8 @@ _SUPPORTED = {
     "sip": ((None, "on", "off"), None),
     "adaptive_join": ((None, "off", "on"), None),
     "cardinality_feedback": (("off", "observe", "apply"), None),
+    # one kernel per device: there is no backend to choose
+    "sip_backend": ((None,), None),
 }
 
 
@@ -124,6 +132,10 @@ class EngineConfig:
     join_strategy: Optional[str] = None
     # sideways information passing: None = cost-gated, "on", "off"
     sip: Optional[str] = None
+    # the reference's kernel backend for the bloom summaries; this package
+    # runs the CUDA kernel on the card and its plain version on the CPU,
+    # so only None is accepted
+    sip_backend: Optional[str] = None
     # buffer pooling: recycle batch buffers through an Engine-owned arena
     pool_buffers: bool = True
     pool_max_per_bucket: int = 32
@@ -137,6 +149,17 @@ class EngineConfig:
     cardinality_feedback: str = "off"
     memory_budget: Optional[int] = None
     adaptive_join: str = "off"
+    # correctness tooling: verify_plans runs the PlanVerifier's structural
+    # checks on every planned query; sanitize wraps the buffer arena in
+    # shadow ownership tracking (poisoned releases, use-after-release,
+    # double-release and leak detection). Both default from the
+    # environment, as in the reference.
+    verify_plans: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get("BARQ_VERIFY_PLANS", "") == "1"
+    )
+    sanitize: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get("BARQ_SANITIZE", "") == "1"
+    )
 
     def check(self) -> None:
         """Raise NotImplementedError for a value this package has not
@@ -159,6 +182,16 @@ class EngineConfig:
 
 
 AnyOp = Union[BatchOperator, LOP.RowOperator]
+
+
+def _make_pool(cfg: EngineConfig, device: torch.device) -> BatchPool:
+    """The engine's buffer arena; under ``cfg.sanitize`` a shadow-tracked
+    one that poisons releases and attributes leaks."""
+    if cfg.sanitize:
+        from repro_torch.analysis.sanitize import SanitizingBatchPool
+
+        return SanitizingBatchPool(device, cfg.pool_max_per_bucket)
+    return BatchPool(device, cfg.pool_max_per_bucket)
 
 
 class Translator:
@@ -523,7 +556,7 @@ class QueryResult:
         # frozen here so later queries on the same arena can't leak in
         self.pool_base = pool_base
         self.pool_final: Optional[Dict[str, int]] = (
-            dict(pool.counters()) if pool is not None else None
+            dict(pool.stats()) if pool is not None else None
         )
         self.trace = trace  # QueryTrace, or None with telemetry off
 
@@ -559,17 +592,20 @@ class QueryResult:
 
 
 class Engine:
-    """Public API: ``Engine(store, cfg, device, feedback).execute(sparql_text
+    """Public API: ``Engine(store, cfg, device, feedback, stats).execute(sparql_text
     | plan)``.
 
     ``device=None`` is the CUDA card; it raises where there is none. Pass
     ``device="cpu"`` to run the kernels' plain PyTorch versions. Under
     ``cardinality_feedback`` "observe" or "apply" the engine records into
     ``feedback`` (a caller-shared ``CardinalityFeedback``) or into one of
-    its own."""
+    its own. ``stats`` is the planner's ``GraphStats`` over ``store``,
+    built here when it is None; engines over one store may share one,
+    since building it reads every quad on the host."""
 
     def __init__(self, store: QuadStore, cfg: Optional[EngineConfig] = None,
-                 device=None, feedback: Optional[telemetry.CardinalityFeedback] = None):
+                 device=None, feedback: Optional[telemetry.CardinalityFeedback] = None,
+                 stats: Optional[GraphStats] = None):
         self.device = resolve_device(device)
         self.cfg = cfg or EngineConfig()
         self.cfg.check()
@@ -578,7 +614,9 @@ class Engine:
                 f"the store lies on {store.device}, the engine on {self.device}"
             )
         self.store = store
-        self.stats = GraphStats(store)
+        if stats is not None and stats.store is not store:
+            raise ValueError("stats were built over another store")
+        self.stats = stats if stats is not None else GraphStats(store)
         mode = self.cfg.cardinality_feedback
         self.feedback: Optional[telemetry.CardinalityFeedback] = None
         if mode != "off":
@@ -597,7 +635,7 @@ class Engine:
         # row engine holds no batches); per-query attribution comes from
         # counter snapshots, not resets
         self.pool: Optional[BatchPool] = (
-            BatchPool(self.device, self.cfg.pool_max_per_bucket)
+            _make_pool(self.cfg, self.device)
             if self.cfg.pool_buffers and self.cfg.engine != "legacy" else None
         )
 
@@ -619,7 +657,14 @@ class Engine:
         return parse_query(text)
 
     def plan(self, node: A.PlanNode) -> PL.Phys:
-        return self.planner.plan(node)
+        phys = self.planner.plan(node)
+        if self.cfg.verify_plans:
+            # structural invariant checks: raises PlanInvariantError naming
+            # the node on a malformed plan
+            from repro_torch.analysis.plan_verify import verify_plan
+
+            verify_plan(phys)
+        return phys
 
     def explain(self, node_or_text: Union[str, A.PlanNode],
                 var_table: Optional[A.VarTable] = None) -> str:
@@ -671,7 +716,7 @@ class Engine:
     def _run_plan(self, phys: PL.Phys, var_table: Optional[A.VarTable],
                   trace: Optional[telemetry.QueryTrace]) -> QueryResult:
         pool = self.pool
-        pool_base = dict(pool.counters()) if pool is not None else None
+        pool_base = dict(pool.stats()) if pool is not None else None
         t0 = time.perf_counter()
         op = Translator(self.store, self.cfg, self.device, pool=pool).translate(phys)
         if trace is not None:

@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import batch as _batch
 from repro_torch.core.batch import ColumnBatch
 
 # per-batch device counts an operator keeps before folding them into one
@@ -183,11 +184,19 @@ class BatchOperator:
         """The next output batch, or None when exhausted."""
         st = self.stats
         st.next_calls += 1
+        san = _batch._SANITIZER
+        if san is not None:
+            # pool-sanitizer attribution scope: batches acquired while this
+            # operator runs carry its name, so leak / use-after-release
+            # reports name the allocating operator
+            san.push_op(st.name)
         t0 = time.perf_counter()
         try:
             b = self._next()
         finally:
             st.wall_time += time.perf_counter() - t0
+            if san is not None:
+                san.pop_op()
         if b is not None:
             st.batches += 1
             st.count(b)

@@ -76,8 +76,8 @@ class CrossJoin(BatchOperator):
             b.columns[:, count:] = NULL_ID
         b.mask[:count] = mask
         b.dense = not self._plan.pairs  # no pair to test: every row is active
-        if self.pool is not None:
-            self.pool.bytes_copied += len(self._vars) * count * 4
+        # no bytes_copied credit: the reference's cross product credits
+        # none, and a query's pool attribution is the reference's
         return b
 
     def _reset(self) -> None:

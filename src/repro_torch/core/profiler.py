@@ -13,10 +13,10 @@ row count, and flags misestimates whose q-error ``max(est/actual,
 actual/est)`` reaches ``QERROR_FLAG`` — the signal the adaptive join and
 cardinality feedback consume.
 
-The ``pool:`` line reads the port's ``BatchPool.counters()``: ``alloc`` are
-fresh device buffers, ``reuse`` recycled ones, ``release`` buffers handed
-back, ``allocated`` the bytes of the fresh buffers and ``copied`` the bytes
-the operators moved.
+The ``pool:`` line reads ``BatchPool.stats()``, as the reference's does:
+``alloc`` are fresh device buffers, ``reuse`` recycled ones, ``release``
+buffers handed back, ``allocated`` the bytes of the fresh buffers and
+``copied`` the bytes the operators moved.
 """
 
 from __future__ import annotations
@@ -69,9 +69,9 @@ def _pool_delta(pool, pool_base: Optional[dict]) -> dict:
     """Pool counters attributable to this query: current counters minus
     the pre-execution snapshot (a shared Engine's pool accumulates across
     queries). ``pool`` may be a live BatchPool or an already-frozen
-    counters dict (QueryResult snapshots at the end of the query so later
+    stats dict (QueryResult snapshots at the end of the query so later
     queries on the same arena can't leak into the report)."""
-    s = pool.counters() if hasattr(pool, "counters") else dict(pool)
+    s = pool.stats() if hasattr(pool, "stats") else dict(pool)
     if not pool_base:
         return s
     return {k: v - pool_base.get(k, 0) for k, v in s.items()}
@@ -87,9 +87,9 @@ def profile_tree(root, var_table=None, pool=None,
         lines.append(
             "pool: alloc: {alloc}, reuse: {reuse}, release: {release}, "
             "allocated: {ab}, copied: {cb}".format(
-                alloc=_fmt_count(s["allocs"]),
+                alloc=_fmt_count(s["allocations"]),
                 reuse=_fmt_count(s["reuses"]),
-                release=_fmt_count(s["recycles"]),
+                release=_fmt_count(s["releases"]),
                 ab=_fmt_bytes(s["bytes_allocated"]),
                 cb=_fmt_bytes(s["bytes_copied"]),
             )

@@ -253,10 +253,13 @@ def test_collect_stats_rules_and_report_match_reference():
 def test_collect_stats_pool_base_delta():
     pool = BatchPool(CPU)
     pool.acquire(2, 32)
-    base = dict(pool.counters())
+    base = dict(pool.stats())
     pool.acquire(2, 64)
     agg = PProf.collect_stats(_Stub("Leaf"), pool=pool, pool_base=base)
-    assert agg["pool_allocs"] == 1 and agg["pool_bytes_allocated"] == 2 * 64 * 4 + 64
+    assert agg["pool_allocations"] == 1 and agg["pool_bytes_allocated"] == 2 * 64 * 4 + 64
+    assert set(k for k in agg if k.startswith("pool_")) == {
+        "pool_allocations", "pool_reuses", "pool_releases", "pool_bytes_allocated",
+        "pool_bytes_copied"}
 
 
 def test_shared_engine_pool_delta_per_query(chain):
@@ -268,11 +271,11 @@ def test_shared_engine_pool_delta_per_query(chain):
     rr1, rr2 = ref.execute(q), ref.execute(q)
     assert r1.pool is r2.pool
     d1, d2 = r1.pool_delta(), r2.pool_delta()
-    assert d1["allocs"] > 0 and d2["allocs"] == 0 and d2["reuses"] > 0
+    assert d1["allocations"] > 0 and d2["allocations"] == 0 and d2["reuses"] > 0
     assert rr1.pool_delta()["allocations"] > 0 and rr2.pool_delta()["allocations"] == 0
-    assert d1["recycles"] == d2["recycles"]
-    cum = r2.pool.counters()
-    for k in ("allocs", "reuses", "recycles", "acquires", "bytes_allocated", "bytes_copied"):
+    assert d1["releases"] == d2["releases"]
+    cum = r2.pool.stats()
+    for k in ("allocations", "reuses", "releases", "bytes_allocated", "bytes_copied"):
         assert d1[k] + d2[k] == cum[k], k
     line1, line2 = r1.profile().splitlines()[0], r2.profile().splitlines()[0]
     assert line1.startswith("pool:") and line2.startswith("pool:")
@@ -282,7 +285,30 @@ def test_shared_engine_pool_delta_per_query(chain):
 def test_fresh_engine_first_query_delta_is_absolute(chain):
     _, port = _engines(chain)
     r = port.execute("SELECT ?a { ?a :age ?x }")
-    assert r.pool_delta() == r.pool.counters()
+    assert r.pool_delta() == r.pool.stats()
+
+
+POOL_QUERIES = (
+    "SELECT ?a ?b { ?a :knows ?b . ?b :age ?x . FILTER(?x > 25) }",
+    "SELECT ?a { ?a :age ?x }",
+    "SELECT ?a (COUNT(?b) AS ?n) { ?a :knows ?b } GROUP BY ?a",
+    "SELECT ?a ?b { ?a :knows ?b . ?b :age ?x . FILTER(?x > 25) }",
+)
+
+
+def test_pool_delta_equals_reference_key_for_key(chain):
+    """The same queries on one shared engine in each package: each query's
+    pool_delta() dict, the profile's pool: line and collect_stats' pool_*
+    entries equal the reference's, key for key and value for value."""
+    ref, port = _engines(chain)
+    for q in POOL_QUERIES:
+        res, rres = port.execute(q), ref.execute(q)
+        assert res.pool_delta() == rres.pool_delta(), q
+        assert res.profile().splitlines()[0] == rres.profile().splitlines()[0], q
+        agg = PProf.collect_stats(res.root, pool=res.pool_final, pool_base=res.pool_base)
+        ragg = RProf.collect_stats(rres.root, pool=rres.pool_final, pool_base=rres.pool_base)
+        assert ({k: v for k, v in agg.items() if k.startswith("pool_")}
+                == {k: v for k, v in ragg.items() if k.startswith("pool_")}), q
 
 
 # ---------------------------------------------------------------------------
