@@ -100,6 +100,29 @@ script exits non-zero:
             by the three engines, and a FILTER marked uncompilable through
             the tree walk on the card against the VM's and the row
             engine's rows. Its launch counts are those of the mixed runs;
+  fused     ``repro_torch.core.fused`` on the full-size store (counters set
+            to 0 before the three counts, read after): q6 against its closed
+            form and the default path's q6 count, the :knows -> :hasInterest
+            chains of two and three relations against int64 numpy closed
+            forms; sorted_search must launch. Each count's wall (CUDA
+            events) and host syncs beside the default path's q6 wall; then
+            ``python -m repro_torch.launch.report --query q4`` at LSQB scale
+            0.05 on the card (EXPLAIN, EXPLAIN ANALYZE, spans, kernels
+            attributed to cuda);
+  distributed ``repro_torch.core.distributed`` through an NCCL group of the
+            visible card (a ``file://`` rendezvous in a temporary directory,
+            destroyed at the end): the :knows ⋈ :hasInterest join on ?p2 at
+            full size (the count equal to the fused chain of two and its
+            closed form, overflow 0), the group count over :knows' objects
+            against ``np.unique``, the materialised join (slots: the next
+            power of two above the count) with n equal to the count and its
+            per-key multiset equal to numpy's (counters set to 0 before
+            these three, read after: radix_partition, sorted_search and
+            join_expand must launch); the join count's time (CUDA events)
+            beside the dry run's terms for this rank
+            (``launch/engine_dryrun.account``); ``_bucket`` at 8 partitions
+            on the card against its CPU run, buffer for buffer, at the
+            join's capacity factor and at 0.95 (overflow);
   follow-ups  a second run of each default-path query but q6, of the
             merge path's q1 and of p1-p5 counts its host syncs, and a third of q4
             (PROFILED_QUERY) under torch.profiler gives the device's busy
@@ -159,6 +182,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
@@ -174,13 +198,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32 rate
-# outside the tensor cores, used for every elementwise or integer operation,
-# and the float64 rate outside the tensor cores, for expr_eval's float64
-# value plane
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-PEAK_FP64_OPS_PER_S = 34e12
+# H100 SXM peaks (NVIDIA data sheet, in one place: the port's
+# launch/roofline.py): HBM3 bandwidth, the float32 rate outside the tensor
+# cores, used for every elementwise or integer operation, and the float64
+# rate outside the tensor cores, for expr_eval's float64 value plane
+from repro_torch.launch.roofline import HBM_BYTES_PER_S as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FP64_OPS_PER_S, PEAK_OPS_PER_S  # noqa: E402
+
 # values float32 cannot hold (0.1, 1/3, 2^24 + 1, 2^24 + 0.4), beside exact
 # ones: the float64 value plane's inputs in the kernel checks
 NOT_F32 = (0.1, 1 / 3, 16777217.0, 16777216.4, 123456789.123, 0.7, 7.0, -2.5, 0.0)
@@ -350,6 +374,21 @@ LEGACY_FILTER_ROWS = 20_000  # one-row FILTER evaluations timed for the per-row 
 # a FILTER over :knows for the tree walk on the card: a term test, a code
 # comparison and a value comparison
 WALK_FILTER = "FILTER(?a != ?b && (isIRI(?b) || ?a < ?b))"
+
+# the fused phase: the chains it counts (besides q6) on the full-size store,
+# the calls each wall is the mean of, and the report --query run on the card
+FUSED_CHAINS = {"chain2": (":knows", ":hasInterest"),
+                "chain3": (":knows", ":knows", ":hasInterest")}
+FUSED_ITERS = 5
+REPORT_QUERY, REPORT_SCALE = "q4", 0.05
+# the distributed phase: the join's capacity factor, the group count's
+# groups a rank (above the store's terms), _bucket's partitions and its
+# tight capacity factor, the timed calls
+DIST_CAP_FACTOR = 2.0
+DIST_MAX_GROUPS = 1 << 20
+DIST_BUCKET_PARTS = 8
+DIST_TIGHT_CAP_FACTOR = 0.95
+DIST_ITERS = 5
 
 T_START = time.perf_counter()
 
@@ -2965,6 +3004,200 @@ def legacy_phase(dev, store, report):
 
 
 # ---------------------------------------------------------------------------
+# the fused and distributed phases: whole-BGP counts without materialising,
+# and the hash-exchange join over a torch.distributed group
+# ---------------------------------------------------------------------------
+
+
+def chain_closed_forms(store):
+    """The :knows -> :hasInterest chain counts in int64 numpy, with the
+    per-key matches of the two-relation chain on ?p2: ``(chain2, chain3,
+    per_key)``."""
+    q = store.index_array("spoc").astype(np.int64)
+    d = store.dict
+    n = len(d)
+    k = q[q[:, 1] == d.lookup(":knows")]
+    ks, ko = k[:, 0], k[:, 2]
+    tags = np.bincount(q[q[:, 1] == d.lookup(":hasInterest"), 0], minlength=n)
+    out = np.zeros(n, dtype=np.int64)
+    np.add.at(out, ks, tags[ko])
+    per_key = np.bincount(ko, minlength=n) * tags
+    return int(tags[ko].sum()), int(out[ko].sum()), per_key
+
+
+def report_query_part(rep):
+    """``python -m repro_torch.launch.report --query q4`` on the card: the
+    telemetry surface, with the kernels attributed to ``cuda``."""
+    from repro_torch.launch import report as PR
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = PR.main(["--query", REPORT_QUERY, "--scale", str(REPORT_SCALE)])
+    out = buf.getvalue()
+    cuda_rows = [ln for ln in out.splitlines() if re.match(r"\s+\w+\s+cuda\s+\d+", ln)]
+    require(rc == 0 and ", cuda:0): 1 rows" in out,
+            f"report --query {REPORT_QUERY} on the card: rc {rc}, output {out[:400]!r}")
+    for part in ("plan (EXPLAIN):", "operators (EXPLAIN ANALYZE):", "lifecycle spans:"):
+        require(part in out, f"report --query {REPORT_QUERY}: no {part!r}")
+    require(len(cuda_rows) > 0, f"report --query {REPORT_QUERY}: no kernel attributed to cuda")
+    rep["report_query"] = {"query": REPORT_QUERY, "scale": REPORT_SCALE,
+                           "s": time.perf_counter() - t0, "cuda_kernel_rows": cuda_rows}
+    log(f"  report --query {REPORT_QUERY} --scale {REPORT_SCALE} on the card: EXPLAIN, EXPLAIN "
+        f"ANALYZE, spans and {len(cuda_rows)} kernels attributed to cuda in "
+        f"{rep['report_query']['s']:.1f} s")
+
+
+def fused_phase(dev, store, report, chains):
+    """The fused counts on the full-size store against their closed forms
+    (``chains``: ``chain_closed_forms(store)``) and the default engine's
+    q6; returns their launch counts."""
+    from repro_torch import kernels as K
+    from repro_torch.core import fused as F
+
+    t0 = time.perf_counter()
+    rep = report["fused"] = {}
+    chain2, chain3, _ = chains
+    want = {"q6": report["full"]["closed_forms"]["q6"], "chain2": chain2, "chain3": chain3}
+    engine_q6 = report["full"]["paths"]["default"]["queries"]["q6"]
+    runs = {"q6": lambda: F.fused_q6_count(store),
+            "chain2": lambda: F.fused_chain_count(store, list(FUSED_CHAINS["chain2"])),
+            "chain3": lambda: F.fused_chain_count(store, list(FUSED_CHAINS["chain3"]))}
+    K.reset_launch_counts()
+    got = {name: fn() for name, fn in runs.items()}
+    launches = K.launch_counts()
+    for name, n in got.items():
+        require(n == want[name], f"fused {name}: {n} != closed form {want[name]}")
+    require(got["q6"] == engine_q6["count"],
+            f"fused q6 {got['q6']} != the default engine's q6 {engine_q6['count']}")
+    require(launches["sorted_search"] > 0, "fused: sorted_search was never launched")
+    for name, fn in runs.items():
+        syncs = count_syncs(fn)
+        ms = event_ms(lambda: None, fn, FUSED_ITERS)
+        rep[name] = {"count": got[name], "closed_form": want[name], "wall_ms": ms,
+                     "host_syncs": syncs}
+        log(f"  fused {name}: {got[name]} = closed form; wall {ms:.3f} ms (CUDA events, mean of "
+            f"{FUSED_ITERS}), {syncs} host syncs")
+    rep["engine_q6_wall_s"] = engine_q6["wall_s"]
+    log(f"  fused q6 {rep['q6']['wall_ms']:.3f} ms against the default engine's q6 "
+        f"{engine_q6['wall_s']:.3f} s (count {engine_q6['count']}, full phase), "
+        f"{engine_q6['wall_s'] * 1e3 / rep['q6']['wall_ms']:.0f}x; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    report_query_part(rep)
+    rep["launches"] = launches
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"  fused phase: {rep['phase_s']:.1f} s")
+    return launches
+
+
+def _pred_rows(store, pred):
+    rng = store.predicate_range(store.dict.lookup(pred))
+    cols = store.index_columns("psoc")
+    return cols[1][rng.lo: rng.hi], cols[2][rng.lo: rng.hi]
+
+
+def bucket_check(rows, rep):
+    """``_bucket`` at DIST_BUCKET_PARTS on the card against its CPU run,
+    buffer for buffer, at the join's capacity factor and a tight one."""
+    from repro_torch.core import distributed as D
+
+    n = int(rows.shape[1])
+    host = rows.cpu()
+    for label, cf in (("join", DIST_CAP_FACTOR), ("tight", DIST_TIGHT_CAP_FACTOR)):
+        cap = D.bucket_cap(n, cf, DIST_BUCKET_PARTS)
+        card = [x.cpu() for x in D._bucket(rows, rows[0], DIST_BUCKET_PARTS, cap)]
+        cpu = D._bucket(host, host[0], DIST_BUCKET_PARTS, cap)
+        same = all(torch.equal(a, b) for a, b in zip(card, cpu))
+        require(same, f"_bucket at {DIST_BUCKET_PARTS} parts, cap_factor {cf}: the card's "
+                      f"buffers differ from the CPU's")
+        of = int(card[2])
+        require((of > 0) == (label == "tight"), f"_bucket cap_factor {cf}: overflow {of}")
+        rep[f"bucket_{label}"] = {"n_parts": DIST_BUCKET_PARTS, "cap_factor": cf, "cap": cap,
+                                  "overflow": of}
+        log(f"  _bucket, {n} rows in {DIST_BUCKET_PARTS} parts of {cap} (cap_factor {cf}): "
+            f"the card's buffers equal the CPU's, overflow {of} on both")
+
+
+def distributed_phase(dev, store, report, chains):
+    """The :knows ⋈ :hasInterest join on ?p2 at full size through an NCCL
+    group against the fused phase's chain of two and ``chains``
+    (``chain_closed_forms(store)``), its group count and materialisation
+    against numpy; returns their launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import engine_dryrun as ED
+
+    t0 = time.perf_counter()
+    rep = report["distributed"] = {}
+    chain2, _, per_key = chains
+    fused_chain2 = report["fused"]["chain2"]["count"]
+    ks, ko = _pred_rows(store, ":knows")
+    i_s, i_o = _pred_rows(store, ":hasInterest")
+    with tempfile.TemporaryDirectory() as tmp:
+        group = D.engine_group(dev, init_method=f"file://{tmp}/rendezvous")
+        try:
+            world = dist.get_world_size(group)
+            log(f"  NCCL group of {world} rank(s) over {torch.cuda.device_count()} visible "
+                f"card(s) {elapsed()}")
+            left = D.shard_relation(torch.stack([ko, ks]), group)
+            right = D.shard_relation(torch.stack([i_s, i_o]), group)
+            objects = D.shard_relation(ko[None, :], group)
+            join = D.make_join_count(group, DIST_CAP_FACTOR)
+            K.reset_launch_counts()
+            count, of = join(left, right)
+            gkeys, gcounts, gof = D.make_group_count(group, DIST_CAP_FACTOR,
+                                                     DIST_MAX_GROUPS)(objects)
+            count, of = int(count), int(of)
+            out_cap = 1 << count.bit_length()
+            mkeys, li, ri, n, mof = D.make_join_materialize(group, out_cap,
+                                                            DIST_CAP_FACTOR)(left, right)
+            n, mof, gof = int(n), int(mof), int(gof)
+            launches = K.launch_counts()
+            require(count == fused_chain2 == chain2 and of == 0,
+                    f"distributed join count {count} (overflow {of}) != fused chain2 "
+                    f"{fused_chain2} / closed form {chain2}")
+            want_keys, want_counts = np.unique(ko.cpu().numpy(), return_counts=True)
+            got_n = int((gcounts > 0).sum())
+            require(gof == 0 and got_n == len(want_keys)
+                    and np.array_equal(gkeys[:got_n].cpu().numpy(), want_keys)
+                    and np.array_equal(gcounts[:got_n].cpu().numpy(), want_counts),
+                    "distributed group count over :knows objects != bincount")
+            valid = mkeys[mkeys != D.SENTINEL].long()
+            got_per_key = torch.bincount(valid, minlength=len(per_key)).cpu().numpy()
+            require(n == count and mof == 0 and np.array_equal(got_per_key, per_key),
+                    f"distributed materialise: n {n} overflow {mof}, per-key multiset "
+                    f"{'equal' if np.array_equal(got_per_key, per_key) else 'differs'}")
+            for k in ("radix_partition", "sorted_search", "join_expand"):
+                require(launches[k] > 0, f"distributed: {k} was never launched")
+            ms = event_ms(lambda: None, lambda: join(left, right), DIST_ITERS)
+            mat_ms = event_ms(lambda: None, lambda: D.make_join_materialize(
+                group, out_cap, DIST_CAP_FACTOR)(left, right), DIST_ITERS)
+            dry = ED.account(int(left.shape[1]), int(right.shape[1]), world, DIST_CAP_FACTOR)
+            rt = dry["roofline"]
+            rep.update(world=world, left_rows=int(ks.shape[0]), right_rows=int(i_s.shape[0]),
+                       count=count, overflow=of, groups=got_n, out_cap=out_cap,
+                       materialised=n, join_count_ms=ms, materialise_ms=mat_ms,
+                       dryrun=dry, launches=launches)
+            log(f"  join count {count} = fused chain2 = closed form, overflow 0; "
+                f"{got_n} groups = bincount; materialised {n} of {out_cap} slots, per-key "
+                f"multiset = numpy; launches { {k: v for k, v in launches.items() if v} }")
+            log(f"  join count {ms:.3f} ms on the card (CUDA events, mean of {DIST_ITERS}), "
+                f"materialise {mat_ms:.3f} ms; the dry run's terms for this rank: memory "
+                f"{rt['memory_s'] * 1e3:.3f} ms ({dry['cost']['bytes_per_device']:.0f} bytes), "
+                f"compute {rt['compute_s'] * 1e3:.3f} ms, collective "
+                f"{rt['collective_s'] * 1e3:.3f} ms; measured / memory term "
+                f"{ms / (rt['memory_s'] * 1e3):.1f}x")
+            bucket_check(left, rep)
+        finally:
+            dist.destroy_process_group()
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"  distributed phase: {rep['phase_s']:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the outofcore phase: budgets, spills, grace joins, partitioned grouping,
 # the merge join's spilling window and the adaptive merge join
 # ---------------------------------------------------------------------------
@@ -3697,6 +3930,11 @@ def main() -> int:
     path_launches["serve"] = serve_phase(dev, store, bstore, bmeta, report)
     log(f"legacy: {elapsed()}")
     path_launches["legacy"] = legacy_phase(dev, store, report)
+    log(f"fused: {elapsed()}")
+    chains = chain_closed_forms(store)
+    path_launches["fused"] = fused_phase(dev, store, report, chains)
+    log(f"distributed: {elapsed()}")
+    path_launches["distributed"] = distributed_phase(dev, store, report, chains)
     with tempfile.TemporaryDirectory() as tmp:
         child_out = Path(tmp) / "cpu_breadth.json"
         child = start_cpu_breadth(child_out)

@@ -60,6 +60,7 @@ class QuadStore:
         self._index_cols: Dict[str, List[torch.Tensor]] = {}
         self._host: Dict[str, np.ndarray] = {}
         self._pending: list = []
+        self._pred_rows: Dict[int, Tuple[int, int]] = {}
         self.n_quads = 0
 
     # -- loading -------------------------------------------------------------
@@ -106,6 +107,14 @@ class QuadStore:
             if name != "spoc":
                 cols = cols[:, lexsort((cols[3], cols[2], cols[1], cols[0]))]
             self._index_cols[name] = [cols[i].contiguous() for i in range(4)]
+        # each predicate's rows of the PSOC index, read to the host once here
+        # so that cutting a predicate's edges (the fused counts) waits for
+        # nothing
+        preds, counts = torch.unique_consecutive(self._index_cols["psoc"][0],
+                                                 return_counts=True)
+        ends = counts.cumsum(0)
+        self._pred_rows = {p: (e - c, e) for p, c, e in
+                           zip(*torch.stack([preds.long(), counts, ends]).tolist())}
         return self
 
     def device_bytes(self) -> int:
@@ -125,6 +134,12 @@ class QuadStore:
 
     def index_columns(self, name: str) -> List[torch.Tensor]:
         return self._index_cols[name]
+
+    def predicate_range(self, pid: Optional[int]) -> ScanRange:
+        """The PSOC rows of predicate ``pid`` (empty for an unknown one),
+        from the bounds ``build`` kept on the host: no device read."""
+        lo, hi = self._pred_rows.get(pid, (0, 0))
+        return ScanRange("psoc", lo, hi)
 
     def choose_index(
         self, bound: Sequence[Optional[int]], want_sorted_role: Optional[int]

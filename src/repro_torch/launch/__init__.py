@@ -1,3 +1,5 @@
 """Entry points: ``python -m repro_torch.launch.serve`` serves a request
-stream; ``repro_torch.launch.report`` renders saved metrics and workload
-records."""
+stream; ``python -m repro_torch.launch.report`` renders dry-run records,
+bench files, one query's telemetry, saved metrics and workload records;
+``python -m repro_torch.launch.engine_dryrun`` writes the distributed
+join's roofline record (``launch/roofline.py`` holds the card's peaks)."""

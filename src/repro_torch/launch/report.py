@@ -1,18 +1,148 @@
-"""Report generators over the serving layer's records, as in the reference
-package's ``launch/report.py`` (its serving and telemetry tables only):
-``kernel_table`` and ``span_table`` render a QueryTrace's kernel ledger and
-spans; ``metrics_report`` pretty-prints a saved MetricsRegistry snapshot
-(``registry.save()`` or a server's ``metrics_snapshot()`` JSON) and
-``workload_report`` a saved WorkloadRepository. The kernel times are host
-milliseconds inside the kernel wrappers (on the card, the time to enqueue
-the launches). Both reports read files only; no store is built and no
-engine runs.
+"""Report generators, as in the reference package's ``launch/report.py``:
+
+- dry-run records (``launch/engine_dryrun.py``'s JSON files under
+  ``--out``) -> the roofline table and its summary;
+- ``--bench BENCH_PR*.json`` -> the property-path metrics table (frontier
+  rounds, dedup ratio, pool traffic);
+- ``--query q6`` / ``--sparql '...'`` runs one query on a generated LSQB
+  store on the device (the CUDA card unless ``--device cpu``) and prints
+  the whole observability surface: EXPLAIN, EXPLAIN ANALYZE (actual
+  against estimated rows, MISEST at q-error >= 4), the lifecycle spans, the
+  query's kernel attribution table and, with ``--trace``, the Chrome-trace
+  JSON; ``--json`` prints the trace summary instead;
+- ``--metrics`` pretty-prints a saved MetricsRegistry snapshot
+  (``registry.save()`` or a server's ``metrics_snapshot()`` JSON) and
+  ``--workload-report`` a saved WorkloadRepository; both read files only.
+
+The kernel times are host milliseconds inside the kernel wrappers (on the
+card, the time to enqueue the launches).
+
+    python -m repro_torch.launch.report --query q6 [--device cpu] [--trace q6.json]
+    python -m repro_torch.launch.report --sparql 'SELECT ?a { ... }'
+    python -m repro_torch.launch.report --out experiments/dryrun --mesh single
+    python -m repro_torch.launch.report --bench BENCH_PR2.json
+    python -m repro_torch.launch.report --metrics metrics.json
+    python -m repro_torch.launch.report --workload-report wl.jsonl
 """
 
 from __future__ import annotations
 
+import argparse
+import glob
 import json
-from typing import List
+import os
+import sys
+from typing import Dict, List
+
+
+def load(out_dir: str) -> List[Dict]:
+    recs = []
+    for p in sorted(glob.glob(os.path.join(out_dir, "*.json"))):
+        with open(p) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _f(x: float) -> str:
+    if x == 0:
+        return "0"
+    if x < 1e-3:
+        return f"{x * 1e6:.1f}µs"
+    if x < 1:
+        return f"{x * 1e3:.2f}ms"
+    return f"{x:.2f}s"
+
+
+def _gb(x: float) -> str:
+    return f"{x / 1e9:.2f}"
+
+
+def roofline_table(recs: List[Dict], mesh: str, tag_filter: str = "") -> str:
+    """Markdown roofline table of the ``ok`` records on ``mesh`` (a null
+    ``compile_s``, as the port's dry run writes, shows as —)."""
+    rows = [
+        "| arch | shape | compute | memory | collective | dominant | "
+        "step LB | useful/HLO | temp GB/dev | compile s |",
+        "|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in recs:
+        if r.get("mesh") != mesh or r.get("status") != "ok":
+            continue
+        rt = r["roofline"]
+        ratio = r.get("useful_flops_ratio")
+        cs = r.get("compile_s")
+        rows.append(
+            "| {arch} | {shape} | {c} | {m} | {k} | **{dom}** | {lb} | {ur} | {tmp} | {cs} |".format(
+                arch=r["arch"],
+                shape=r["shape"],
+                c=_f(rt["compute_s"]),
+                m=_f(rt["memory_s"]),
+                k=_f(rt["collective_s"]),
+                dom=rt["dominant"],
+                lb=_f(rt["step_time_lower_bound_s"]),
+                ur=f"{ratio:.2f}" if ratio else "—",
+                tmp=_gb(r["memory"]["temp_bytes"]),
+                cs="—" if cs is None else cs,
+            )
+        )
+    return "\n".join(rows)
+
+
+def summary(recs: List[Dict]) -> str:
+    ok = [r for r in recs if r.get("status") == "ok"]
+    fail = [r for r in recs if r.get("status") != "ok"]
+    doms = {}
+    for r in ok:
+        doms[r["roofline"]["dominant"]] = doms.get(r["roofline"]["dominant"], 0) + 1
+    lines = [
+        f"cells ok: {len(ok)}, failed: {len(fail)}",
+        f"dominant-term distribution: {doms}",
+    ]
+    for r in fail:
+        lines.append(f"FAILED {r['arch']} x {r['shape']} x {r['mesh']}: {r.get('error')}")
+    return "\n".join(lines)
+
+
+def _derived_dict(derived: str) -> Dict[str, str]:
+    out: Dict[str, str] = {}
+    for part in derived.split(";"):
+        if "=" in part:
+            k, v = part.split("=", 1)
+            out[k] = v
+    return out
+
+
+def path_metrics_table(bench_json: str) -> str:
+    """Markdown table of the property-path rows in a BENCH_PR*.json:
+    per-operator frontier rounds, dedup ratio and pool alloc/reuse traffic
+    next to the row-baseline speedup."""
+    with open(bench_json) as f:
+        report = json.load(f)
+    rows = [
+        "| bench | ms/call | pairs | rounds | dedup ratio | pool alloc/reuse | speedup |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    for suite in report.values():
+        for rec in suite:
+            if not str(rec.get("name", "")).startswith("path_"):
+                continue
+            d = _derived_dict(str(rec.get("derived", "")))
+            rows.append(
+                "| {name} | {ms:.1f} | {pairs} | {rounds} | {dedup} | {pool} | {sp} |".format(
+                    name=rec["name"],
+                    ms=float(rec["us_per_call"]) / 1e3,
+                    pairs=d.get("pairs", "—"),
+                    rounds=d.get("rounds", "—"),
+                    dedup=d.get("dedup_ratio", "—"),
+                    pool=(
+                        f"{d['pool_alloc']}/{d['pool_reuse']}"
+                        if "pool_alloc" in d
+                        else "—"
+                    ),
+                    sp=d.get("speedup_vs_row", "—"),
+                )
+            )
+    return "\n".join(rows)
 
 
 def kernel_table(ledger) -> str:
@@ -133,3 +263,94 @@ def workload_report(path: str, top_n: int = 15) -> str:
     else:
         lines.append("\nno latency regressions recorded")
     return "\n".join(lines)
+
+
+def query_report(args, parser) -> int:
+    """The --query/--sparql mode: one query, the full telemetry surface."""
+    from repro_torch.core.executor import Engine, EngineConfig
+    from repro_torch.data.lsqb import LSQB_QUERIES, generate_social_graph
+
+    if args.sparql:
+        query, label = args.sparql, "adhoc"
+    else:
+        if args.query not in LSQB_QUERIES:
+            parser.error(f"unknown LSQB query {args.query!r} "
+                         f"(have: {', '.join(sorted(LSQB_QUERIES))})")
+        query, label = LSQB_QUERIES[args.query], args.query
+
+    store, meta = generate_social_graph(scale=args.scale, device=args.device)
+    engine = Engine(store, EngineConfig(engine=args.engine), device=args.device)
+    res = engine.execute(query)
+    trace = res.trace
+
+    if args.json:
+        doc = trace.summary()
+        doc["pool"] = res.pool_delta()
+        doc["rows"] = res.n_rows
+        print(json.dumps(doc, indent=2))
+    else:
+        print(f"query {label} on {meta['n_triples']} triples "
+              f"({args.engine} engine, {engine.device}): {res.n_rows} rows\n")
+        print("plan (EXPLAIN):")
+        print(engine.explain(query))
+        print("\noperators (EXPLAIN ANALYZE):")
+        print(res.explain_analyze())
+        print("\nlifecycle spans:")
+        print(span_table(trace))
+        print("\nkernel attribution:")
+        print(kernel_table(trace.ledger))
+        if res.pool_delta():
+            print("\npool delta:", res.pool_delta())
+
+    if args.trace:
+        trace.save_chrome_trace(args.trace)
+        print(f"\nwrote {args.trace} — open in ui.perfetto.dev", file=sys.stderr)
+    return 0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="dry-run, bench, query and serving reports")
+    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--mesh", default="single")
+    ap.add_argument("--bench", default=None, metavar="BENCH_JSON",
+                    help="print the property-path metrics table instead")
+    ap.add_argument("--query", default=None,
+                    help="telemetry report for an LSQB query (q1..q9)")
+    ap.add_argument("--sparql", default=None,
+                    help="telemetry report for raw SPARQL text")
+    ap.add_argument("--scale", type=float, default=0.05,
+                    help="social-graph scale factor for --query/--sparql")
+    ap.add_argument("--engine", default="barq",
+                    choices=("barq", "mixed", "legacy"))
+    ap.add_argument("--device", default=None,
+                    help="torch device for --query/--sparql (default: the CUDA card; "
+                         "'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the query's Chrome-trace JSON here")
+    ap.add_argument("--json", action="store_true",
+                    help="emit the query trace summary as JSON")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="pretty-print a saved MetricsRegistry JSON")
+    ap.add_argument("--workload-report", default=None, metavar="PATH",
+                    help="render a saved WorkloadRepository JSONL")
+    args = ap.parse_args(argv)
+    if args.metrics:
+        print(metrics_report(args.metrics))
+        return 0
+    if args.workload_report:
+        print(workload_report(args.workload_report))
+        return 0
+    if args.query or args.sparql:
+        return query_report(args, ap)
+    if args.bench:
+        print(path_metrics_table(args.bench))
+        return 0
+    recs = [r for r in load(args.out) if "__" not in (r.get("tag") or "")]
+    print(summary(recs))
+    print()
+    print(roofline_table(recs, args.mesh))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

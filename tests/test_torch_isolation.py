@@ -55,6 +55,10 @@ def test_entry_points_default_to_the_card():
         repro_torch.Engine(store)
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.QuadStore()
+    from repro_torch.core.distributed import engine_group
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine_group()
 
 
 @pytest.mark.parametrize("field,value", [
