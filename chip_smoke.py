@@ -123,6 +123,17 @@ script exits non-zero:
             (``launch/engine_dryrun.account``); ``_bucket`` at 8 partitions
             on the card against its CPU run, buffer for buffer, at the
             join's capacity factor and at 0.95 (overflow);
+  sampler   the engine as a GNN data pipeline: the full-size store's
+            :knows edges as a node-id store (term i is person i, built with
+            ``convert.store_from_arrays``), ``GraphPipeline`` over
+            ``BARQSampler`` at graphsage-reddit's minibatch_lg (1,024 seeds,
+            fanouts 15 and 10: 169,984 slots a block) for SAMPLER_STEPS
+            blocks (counters set to 0 before them, read after: join_expand
+            and gather_emit must launch) and one more counted for its host
+            syncs, each block equal array for array to a numpy replay (the
+            CSR sampler over the (s, o)-sorted edges, the same RandomState
+            draws) and every sampled edge a :knows edge; the wall of each
+            block;
   follow-ups  a second run of each default-path query but q6, of the
             merge path's q1 and of p1-p5 counts its host syncs, and a third of q4
             (PROFILED_QUERY) under torch.profiler gives the device's busy
@@ -170,7 +181,22 @@ script exits non-zero:
             equal rows required (a plan the
             budget makes unrunnable must be refused alike). The CPU side
             runs in a child process (``--cpu-breadth``), started after the
-            timed runs and joined at the end.
+            timed runs and joined at the end;
+  lm        LM serving, once the stores are freed: qwen3-8b at full width
+            and depth (36 layers, 7.57B parameters drawn from the seed,
+            held in bfloat16), its logits after twelve decode steps against
+            prefill's on a (2, 12) batch (within the tests' rtol = atol =
+            LM_DECODE_TOL), then a warm-up request and 8 seeded requests
+            (prompts of 4-12 tokens, 16 new tokens) through
+            ``LMServer(n_slots=4, cache_len=128)``: tokens a second, one
+            full decode step's time (CUDA events) beside the
+            weight-streaming bound, host syncs a decode call, peak device
+            memory; qwen3-moe-30b-a3b at full width cut to LM_MOE_LAYERS of
+            its 48 layers likewise (decode against prefill at a capacity
+            factor of experts / top_k, where nothing drops; 4 requests
+            served at the config's 1.25); the reduced qwen3-8b's served
+            tokens equal to offline greedy decoding. None of the engine's
+            kernels is on this path (its launches are counted all the same).
 
 Each phase header carries the seconds since the start. The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -389,6 +415,22 @@ DIST_MAX_GROUPS = 1 << 20
 DIST_BUCKET_PARTS = 8
 DIST_TIGHT_CAP_FACTOR = 0.95
 DIST_ITERS = 5
+
+# the sampler phase: graphsage-reddit's minibatch_lg (configs/base.py GNN_SHAPES:
+# 1,024 seed nodes, fanouts 15 and 10) over the full-size store's :knows graph
+SAMPLER_STEPS = 3
+SAMPLER_SEED = 0
+# the lm phase: qwen3-8b at full width and depth, served; qwen3-moe-30b-a3b at
+# full width cut to LM_MOE_LAYERS of its 48 layers; the reduced qwen3-8b's
+# server against offline greedy decoding
+LM_SLOTS, LM_CACHE = 4, 128
+LM_REQUESTS, LM_MAX_NEW = 8, 16
+LM_PROMPT = (4, 12)  # prompt lengths, inclusive
+LM_CHECK_TOKENS = (2, 12)  # the decode-against-prefill batch
+LM_DECODE_TOL = 1e-3  # decode against prefill, rtol and atol (tests/test_torch_lm.py)
+LM_STEP_ITERS = 20
+LM_MOE_LAYERS = 4
+LM_MOE_REQUESTS, LM_MOE_MAX_NEW = 4, 8
 
 T_START = time.perf_counter()
 
@@ -1409,6 +1451,9 @@ SIP_CASES = {
     "codes at phase 3, capacity 4,099": (("bloom", "range"), 4099, 4001, True, 3),
     "one row": (("bloom",), 32, 1, False, 0),
     "no rows": (("bloom",), 32, 0, True, 0),
+    # four rows a thread (the kernel's WIDE_FROM), 16-byte code loads and not
+    "wide, capacity 2^18 + 5": (("bloom", "range"), (1 << 18) + 5, 1 << 18, True, 0),
+    "wide, codes at phase 1": (("bloom", "bloom"), 1 << 18, (1 << 18) - 3, False, 1),
 }
 
 
@@ -1441,6 +1486,12 @@ def _sip_inputs(rng, dev, words, case):
     mask = torch.zeros(cap, dtype=torch.bool, device=dev)
     mask[:n] = (torch.from_numpy(rng.rand(n) < 0.7).to(dev) if partly else True)
     return mask, n, filters
+
+
+def _sip_pairs(filters):
+    """A zeroed counter pair a filter, as the engine's SIP filters give
+    each batch."""
+    return [torch.zeros(2, dtype=torch.int64, device=f[0].device) for f in filters]
 
 
 def _unfused_sip_step(mask, n, filters):
@@ -1477,8 +1528,11 @@ def host_calls(fn, iters: int = 20) -> dict:
 def check_sip_mask(dev, words):
     """The fused SIP mask (bloom_probe's second entry point) against
     sip_mask_plain on the card, bit for bit, in place, into a fresh mask and
-    with no mask; then the device time of its launch and its time per call
-    beside the unfused step, at 4,096 rows with one and two filters."""
+    with no mask, and each filter's counter pair (the engine's launch
+    counts its filters in the same launch) equal to the plain version's;
+    then the device time of its launch, with and without the counting, and
+    its time per call beside the unfused step, at 4,096 rows with one and
+    two filters."""
     from repro_torch.kernels import bloom_filter as BF
 
     rng = np.random.RandomState(SEED + 2)
@@ -1499,16 +1553,24 @@ def check_sip_mask(dev, words):
                 f"sip_mask differs from the unfused step ({case})")
         require(launched == -(-len(filters) // BF.SIP_TERMS),
                 f"sip_mask: {launched} launches for {len(filters)} filters ({case})")
+        counted, plain = _sip_pairs(filters), _sip_pairs(filters)
+        require(torch.equal(BF.sip_mask(mask.clone(), n, filters, counts=counted), want)
+                and torch.equal(BF.sip_mask_plain(mask.clone(), n, filters, counts=plain), want)
+                and torch.equal(torch.stack(counted), torch.stack(plain)),
+                f"sip_mask's counts disagree with its plain version ({case})")
         log(f"  sip_mask {case}: {int(got.sum())} of {n} rows kept, {launched} launch(es), ok")
     for case, key in (("one filter", "sip_mask 1 filter"),
                       ("two filters (q5's shape)", "sip_mask 2 filters")):
         mask, n, filters = _sip_inputs(rng, dev, words, case)
         fused = lambda: BF.sip_mask(mask, n, filters)  # noqa: E731
+        pairs = _sip_pairs(filters)
+        counting = lambda: BF.sip_mask(mask, n, filters, counts=pairs)  # noqa: E731
         unfused = lambda: _unfused_sip_step(mask, n, filters)  # noqa: E731
         sectors = sum(_word_sectors(f[1], f[0]) for f in filters if f[1] is not None)
         b_ms, b_by = bound(4 * n * len(filters) + 2 * mask.shape[0] + 32 * sectors,
                            12 * n * len(filters))
         out[key] = {"ms": device_ms(fused, 200, kernel="bloom_probe"),
+                    "counting_ms": device_ms(counting, 200, kernel="bloom_probe"),
                     "call_ms": call_ms(fused, 200),
                     "unfused_call_ms": call_ms(unfused, 200),
                     "unfused_device_ms": device_ms(unfused, 200),
@@ -1937,9 +1999,9 @@ def sip_tally():
 
     tally, real = {}, BF.sip_mask
 
-    def counting(mask, n_rows, filters, out=None):
+    def counting(mask, n_rows, filters, out=None, counts=None):
         tally[len(filters)] = tally.get(len(filters), 0) + 1
-        return real(mask, n_rows, filters, out)
+        return real(mask, n_rows, filters, out, counts)
 
     BF.sip_mask = counting
     try:
@@ -3198,6 +3260,304 @@ def distributed_phase(dev, store, report, chains):
 
 
 # ---------------------------------------------------------------------------
+# the sampler phase: BARQ neighbour sampling over the :knows graph
+# ---------------------------------------------------------------------------
+
+
+def node_store(dev, store):
+    """The :knows graph as a node-id store on the card (term i is person i,
+    then :knows and :default), its edges (s, o) sorted, and the persons."""
+    from repro_torch.convert import store_from_arrays
+
+    meta_n = 0
+    while store.dict.lookup(f":person{meta_n}") is not None:
+        meta_n += 1
+    codes = np.asarray([store.dict.lookup(f":person{i}") for i in range(meta_n)], np.int64)
+    index = np.full(len(store.dict), -1, np.int64)
+    index[codes] = np.arange(meta_n)
+    ks, ko = _pred_rows(store, ":knows")
+    src, dst = index[ks.cpu().numpy()], index[ko.cpu().numpy()]
+    require((src >= 0).all() and (dst >= 0).all(), "a :knows end is not a person")
+    order = np.lexsort((dst, src))
+    src, dst = src[order].astype(np.int32), dst[order].astype(np.int32)
+    quads = np.stack([src, np.full_like(src, meta_n), dst, np.full_like(src, meta_n + 1)], 1)
+    nstore = store_from_arrays(quads, list(range(meta_n)) + [":knows", ":default"], device=dev)
+    return nstore, np.stack([src, dst]), meta_n
+
+
+def _block_arrays(b):
+    return {f: getattr(b, f) for f in ("nodes", "edge_src", "edge_dst", "seed_mask", "labels")}
+
+
+def sampler_phase(dev, store, report):
+    """GraphPipeline over BARQSampler on a node-id store of the full-size
+    :knows graph at graphsage-reddit's minibatch_lg (1,024 seeds, fanouts
+    15 and 10), SAMPLER_STEPS blocks, each equal array for array to a numpy
+    replay (the CSR sampler over the (s, o)-sorted edges, the same
+    RandomState draws) and every sampled edge a :knows edge; wall and host
+    syncs a block; returns the launches of the timed blocks."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.models.gnn.sampler import BARQSampler, CSRSampler
+    from repro_torch.pipeline.data import GraphPipeline
+
+    t0 = time.perf_counter()
+    shape = GNN_SHAPES["minibatch_lg"]
+    fanouts, batch_nodes = list(shape["fanouts"]), shape["batch_nodes"]
+    nstore, edges, n = node_store(dev, store)
+    build_s = time.perf_counter() - t0
+    labels = np.random.RandomState(SEED).randint(0, shape["n_classes"], n).astype(np.int32)
+    pipe = GraphPipeline(BARQSampler(nstore, ":knows", seed=SAMPLER_SEED, device=dev), labels,
+                         n, batch_nodes, fanouts, seed=SAMPLER_SEED)
+    replay = GraphPipeline(CSRSampler(edges, n, seed=SAMPLER_SEED), labels, n, batch_nodes,
+                           fanouts, seed=SAMPLER_SEED)
+    keys = edges[0].astype(np.int64) * n + edges[1]  # sorted: (s, o) order
+    K.reset_launch_counts()
+    walls, blocks = [], []
+    for step in range(SAMPLER_STEPS):
+        t1 = time.perf_counter()
+        blocks.append(pipe.batch(step))
+        walls.append(time.perf_counter() - t1)
+    launches = K.launch_counts()
+    syncs = count_syncs(lambda: blocks.append(pipe.batch(SAMPLER_STEPS)))
+    slots = batch_nodes * (1 + fanouts[0] + fanouts[0] * fanouts[1])
+    sampled = []
+    for step, b in enumerate(blocks):
+        want = replay.batch(step)
+        for f, a in _block_arrays(b).items():
+            require(np.array_equal(a, getattr(want, f)),
+                    f"sampler block {step}: {f} differs from the numpy replay")
+        require(len(b.nodes) == slots, f"sampler block {step}: {len(b.nodes)} slots")
+        ok = (b.edge_src >= 0) & (b.edge_dst >= 0)
+        s_g, o_g = b.nodes[b.edge_dst[ok]], b.nodes[b.edge_src[ok]]
+        k = s_g.astype(np.int64) * n + o_g
+        pos = np.minimum(np.searchsorted(keys, k), len(keys) - 1)
+        require(bool((keys[pos] == k).all()), f"sampler block {step}: an edge is not :knows")
+        sampled.append(int(ok.sum()))
+    for k in ("join_expand", "gather_emit"):
+        require(launches[k] > 0, f"sampler: {k} was never launched")
+    rep = report["sampler"] = {
+        "persons": n, "edges": int(edges.shape[1]), "store_s": build_s,
+        "batch_nodes": batch_nodes, "fanouts": fanouts, "slots": slots,
+        "block_wall_s": walls, "edges_sampled": sampled, "host_syncs_one_block": syncs,
+        "launches": launches}
+    log(f"  node store: {n} persons, {edges.shape[1]} :knows edges, built in {build_s:.1f} s")
+    log(f"  {SAMPLER_STEPS + 1} blocks of {slots} slots (fanouts {fanouts}, {batch_nodes} "
+        f"seeds) equal to the numpy replay, every edge a :knows edge; edges sampled "
+        f"{sampled}; wall a block {[round(w, 3) for w in walls]} s; host syncs in one "
+        f"block {syncs}; launches { {k: v for k, v in launches.items() if v} }")
+    del pipe, nstore
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"  sampler phase: {rep['phase_s']:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the lm phase: serving the transformer on the card
+# ---------------------------------------------------------------------------
+
+
+def _lm_requests(vocab, n, max_new, seed):
+    from repro_torch.serve.lm_server import Request
+
+    rng = np.random.RandomState(seed)
+    lo, hi = LM_PROMPT
+    return [Request(rid=i, prompt=rng.randint(0, vocab, rng.randint(lo, hi + 1)).astype(np.int32),
+                    max_new=max_new) for i in range(n)]
+
+
+def decode_vs_prefill(dev, cfg, params, label, rep):
+    """Prefill logits against twelve decode steps on a (2, 12) seeded
+    batch, within the tests' LM_DECODE_TOL (rtol and atol)."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.parallel.sharding import MeshAxes
+
+    b, s = LM_CHECK_TOKENS
+    toks = torch.from_numpy(np.random.RandomState(SEED).randint(0, cfg.vocab, (b, s))
+                            .astype(np.int32)).to(dev)
+    axes = MeshAxes()
+    with torch.inference_mode():
+        logits_p, _ = TF.prefill(params, cfg, axes, toks)
+        cache = TF.init_cache(cfg, b, s, dev)
+        for t in range(s):
+            logits_d, cache = TF.decode_step(params, cfg, axes, cache, toks[:, t: t + 1],
+                                             torch.full((b, 1), t, dtype=torch.int32,
+                                                        device=dev))
+    lp, ld = logits_p.float(), logits_d.float()
+    diff, scale = float((lp - ld).abs().max()), float(lp.abs().max())
+    same_top = (lp.argmax(-1) == ld.argmax(-1)).all().item()
+    require(bool(torch.isfinite(lp).all() and torch.isfinite(ld).all()),
+            f"{label}: non-finite logits")
+    require(bool(torch.allclose(ld, lp, rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL)),
+            f"{label}: decode against prefill max |diff| {diff} outside rtol = atol = "
+            f"{LM_DECODE_TOL} (max |logit| {scale})")
+    rep["decode_vs_prefill"] = {"max_abs_diff": diff, "max_abs_logit": scale,
+                                "same_top1": bool(same_top)}
+    log(f"  {label}: decode against prefill max |diff| {diff} of max |logit| {scale} "
+        f"(rtol = atol = {LM_DECODE_TOL}), top-1 equal {bool(same_top)}")
+
+
+def serve_lm_stream(dev, cfg, params, n, max_new, rep, label):
+    """One warm-up request, then ``n`` seeded requests through an LMServer;
+    tokens a second, steps, the decode step's time and host syncs."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.lm_server import LMServer
+
+    server = LMServer(cfg, params, n_slots=LM_SLOTS, cache_len=LM_CACHE, device=dev)
+    for r in _lm_requests(cfg.vocab, 1, 2, SEED + 1):
+        server.submit(r)
+    server.run_until_drained()
+    steps0 = server.steps
+    reqs = _lm_requests(cfg.vocab, n, max_new, SEED)
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.run_until_drained()
+    wall = time.perf_counter() - t0
+    n_steps = server.steps - steps0
+    toks = sum(len(v) for v in out.values())
+    require(sorted(out) == list(range(n)) and all(len(v) == max_new for v in out.values())
+            and all(0 <= t < cfg.vocab for v in out.values() for t in v),
+            f"{label}: served {len(out)} requests, tokens {toks}")
+    # one full decode step (every slot live) alone: CUDA events, host syncs
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((LM_SLOTS, 1), 5, dtype=torch.int32, device=dev)
+
+    def step():
+        with torch.inference_mode():
+            logits, _ = TF.decode_step(server.params, server.cfg, server.axes, server.cache,
+                                       tok, pos)
+        return logits
+
+    ms = event_ms(lambda: None, step, LM_STEP_ITERS)
+    # host syncs of one more request, over the decode calls it takes
+    calls, real = [0], server._decode
+
+    def counted(*a):
+        calls[0] += 1
+        return real(*a)
+
+    server._decode = counted
+    for r in _lm_requests(cfg.vocab, 1, max_new, SEED + 2):
+        server.submit(r)
+    syncs = count_syncs(server.run_until_drained) / calls[0]
+    server._decode = real
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in _tensors(server.params)) + sum(
+        x.numel() * x.element_size() for x in server.cache.values())
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    rep.update(requests=n, tokens=toks, wall_s=wall, tokens_per_s=toks / wall,
+               steps=n_steps, step_ms=ms, bound_ms=bound_ms,
+               weight_bytes=nbytes, host_syncs_per_decode_call=syncs)
+    log(f"  {label}: {n} requests, {toks} tokens in {wall:.3f} s ({toks / wall:.1f} tok/s, "
+        f"{n_steps} steps); a full decode step {ms:.3f} ms (CUDA events, mean "
+        f"of {LM_STEP_ITERS}) beside the weight-streaming bound {bound_ms:.3f} ms "
+        f"({nbytes} bytes); host syncs a decode call {syncs:.3f}")
+    return server
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def lm_phase(dev, report):
+    """qwen3-8b at full width and depth (random bfloat16 weights from SEED):
+    decode against prefill, then LM_REQUESTS seeded requests served; the
+    4-layer full-width qwen3-moe-30b-a3b likewise; the reduced qwen3-8b's
+    server against offline greedy decoding. Returns the launches (none of
+    the engine's kernels is on this path)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.parallel.sharding import MeshAxes
+    from repro_torch.serve.lm_server import LMServer
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rep = report["lm"] = {}
+    K.reset_launch_counts()
+
+    cfg = dataclasses.replace(get_config("qwen3-8b").model, remat="none")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    params = TF.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    dense = rep["qwen3-8b"] = {"params": cfg.param_count(), "init_s": time.perf_counter() - t1,
+                               "layers": cfg.n_layers}
+    log(f"  qwen3-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_count()} "
+        f"parameters in bfloat16 ({torch.cuda.memory_allocated() - base} bytes), drawn in "
+        f"{dense['init_s']:.1f} s")
+    decode_vs_prefill(dev, cfg, params, "qwen3-8b", dense)
+    server = serve_lm_stream(dev, cfg, params, LM_REQUESTS, LM_MAX_NEW, dense, "qwen3-8b")
+    dense["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    log(f"  qwen3-8b: peak device memory {dense['peak_bytes']} bytes")
+    del server, params
+    torch.cuda.empty_cache()
+
+    full = get_config("qwen3-moe-30b-a3b").model
+    # no assignment can drop at a capacity factor of experts / top_k (each
+    # expert holds every token), so decode and prefill route alike
+    cf = full.moe.n_experts / full.moe.top_k
+    mcfg = dataclasses.replace(full, n_layers=LM_MOE_LAYERS, remat="none",
+                               moe=dataclasses.replace(full.moe, capacity_factor=cf))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = TF.init_params(mcfg, SEED, device=dev, dtype=torch.bfloat16)
+    moe = rep["qwen3-moe-30b-a3b"] = {"params": mcfg.param_count(), "layers": LM_MOE_LAYERS,
+                                      "of_layers": full.n_layers, "capacity_factor": cf}
+    log(f"  qwen3-moe-30b-a3b, {LM_MOE_LAYERS} of {full.n_layers} layers at full width "
+        f"({mcfg.param_count()} parameters), capacity factor {cf}")
+    decode_vs_prefill(dev, mcfg, params, "qwen3-moe-30b-a3b", moe)
+    served = dataclasses.replace(mcfg, moe=full.moe)  # the config's capacity factor
+    server = serve_lm_stream(dev, served, params, LM_MOE_REQUESTS, LM_MOE_MAX_NEW, moe,
+                             "qwen3-moe-30b-a3b")
+    moe["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del server, params
+    torch.cuda.empty_cache()
+
+    # the reduced qwen3-8b: the server's tokens against offline greedy decoding
+    rcfg = dataclasses.replace(get_config("qwen3-8b").reduced_model, remat="none")
+    params = TF.init_params(rcfg, SEED, device=dev)
+    server = LMServer(rcfg, params, n_slots=3, cache_len=64, device=dev)
+    reqs = _lm_requests(rcfg.vocab, 5, 4, SEED)
+    for r in reqs:
+        server.submit(r)
+    got = server.run_until_drained()
+    axes, served_params = MeshAxes(), TF.for_serving(params)
+    for r in reqs:
+        cache = TF.init_cache(rcfg, 1, 256, dev)
+        want, logits, toks = [], None, r.prompt.tolist()
+        with torch.inference_mode():
+            for t in range(len(toks) + 4):
+                tok = toks[t] if t < len(toks) else want[-1]
+                logits, cache = TF.decode_step(
+                    served_params, rcfg, axes, cache,
+                    torch.tensor([[tok]], dtype=torch.int32, device=dev),
+                    torch.tensor([[t]], dtype=torch.int32, device=dev))
+                if t >= len(toks) - 1 and len(want) < 4:
+                    want.append(int(torch.argmax(logits[0, 0])))
+        require(got[r.rid] == want, f"reduced qwen3-8b: request {r.rid} served {got[r.rid]}, "
+                                    f"offline greedy {want}")
+    rep["reduced_server_equals_offline"] = True
+    log(f"  reduced qwen3-8b: {len(reqs)} served requests equal offline greedy decoding")
+    launches = K.launch_counts()
+    rep["launches"] = launches
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"  lm phase: {rep['phase_s']:.1f} s; engine kernel launches "
+        f"{sum(launches.values())}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the outofcore phase: budgets, spills, grace joins, partitioned grouping,
 # the merge join's spilling window and the adaptive merge join
 # ---------------------------------------------------------------------------
@@ -3543,14 +3903,16 @@ def outofcore_phase(dev, store, bstore, forms, report):
     return tally.counts
 
 
-def full_followups(engines, report):
-    """The sync-counting reruns (of the full phase's queries and of the
-    property paths) and the profiled run of the full phase."""
+def full_followups(engines, report, sync_q6=False):
+    """The sync-counting reruns (of the full phase's queries, q6's too with
+    ``sync_q6``, and of the property paths) and the profiled run of the
+    full phase."""
     import repro_torch
 
+    default_sync = DEFAULT_SYNC_QUERIES + (("q6",) if sync_q6 else ())
     reruns = [(path, name, repro_torch.LSQB_QUERIES[name], report["full"]["paths"][path])
               for path, queries in (("merge", MERGE_SYNC_QUERIES),
-                                    ("default", DEFAULT_SYNC_QUERIES))
+                                    ("default", default_sync))
               for name in queries]
     reruns += [("default", name, text, report["paths"]) for name, text in PATH_QUERIES.items()]
     for path, name, text, rep in reruns:
@@ -3889,6 +4251,8 @@ def main() -> int:
     ap.add_argument("--json", help="also write the full report to this file")
     ap.add_argument("--cpu-breadth", metavar="OUT",
                     help="(the breadth phase's child) write the CPU counts to OUT and exit")
+    ap.add_argument("--sync-q6", action="store_true",
+                    help="also count the default path's q6 host syncs (about 50 s more)")
     args = ap.parse_args()
 
     if args.cpu_breadth:
@@ -3935,12 +4299,14 @@ def main() -> int:
     path_launches["fused"] = fused_phase(dev, store, report, chains)
     log(f"distributed: {elapsed()}")
     path_launches["distributed"] = distributed_phase(dev, store, report, chains)
+    log(f"sampler: {elapsed()}")
+    path_launches["sampler"] = sampler_phase(dev, store, report)
     with tempfile.TemporaryDirectory() as tmp:
         child_out = Path(tmp) / "cpu_breadth.json"
         child = start_cpu_breadth(child_out)
         try:
             log(f"full-size follow-ups (the CPU breadth runs beside them): {elapsed()}")
-            full_followups(engines, report)
+            full_followups(engines, report, args.sync_q6)
             log(f"telemetry: {elapsed()}")
             telemetry_phase(dev, engines, store, kept, report)
             del engines, kept
@@ -3948,15 +4314,17 @@ def main() -> int:
             path_launches["outofcore"] = outofcore_phase(dev, store, bstore, forms, report)
             del store, bstore
             _GRAPH_STATS.clear()
-            for name, (_, _, path) in KERNEL_INFO.items():
-                rows[name]["launches"] = path_launches[path][name]
-                rows[name]["launches_by_path"] = {p: n[name] for p, n in path_launches.items()}
             log(f"breadth: {elapsed()}")
             breadth_phase(dev, BREADTH_SCALE, SEED, report, child, child_out)
         finally:
             if child.poll() is None:
                 child.kill()
                 child.wait()
+    log(f"lm: {elapsed()}")
+    path_launches["lm"] = lm_phase(dev, report)
+    for name, (_, _, path) in KERNEL_INFO.items():
+        rows[name]["launches"] = path_launches[path][name]
+        rows[name]["launches_by_path"] = {p: n[name] for p, n in path_launches.items()}
     log(f"done: {elapsed()}")
 
     report["graph_stats"] = GRAPH_STATS_REPORT

@@ -303,20 +303,21 @@ class ColumnBatch:
             self.var_ids, self.columns, self.mask & mask, self.n_rows, self.sorted_by
         )
 
-    def with_sip_mask(self, filters) -> "ColumnBatch":
+    def with_sip_mask(self, filters, counts=None) -> "ColumnBatch":
         """``with_mask`` of the SIP filters' keep-mask (``(codes, words or
-        None, lo, hi)`` each; see ``kernels.bloom_filter.sip_mask``), with
-        the same ownership rules, computed into the mask by one kernel
-        launch: in place for a pooled batch, into a fresh mask for an
-        unpooled one."""
+        None, lo, hi)`` each, and ``counts`` their counter pairs; see
+        ``kernels.bloom_filter.sip_mask``), with the same ownership rules,
+        computed into the mask by one kernel launch: in place for a pooled
+        batch, into a fresh mask for an unpooled one."""
         from repro_torch.kernels.bloom_filter import sip_mask
 
         self._guard()
         if self.pool is not None:
-            sip_mask(self.mask, self.n_rows, filters)
+            sip_mask(self.mask, self.n_rows, filters, counts=counts)
             self.dense = False
             return self._moved()
-        fresh = sip_mask(self.mask, self.n_rows, filters, out=torch.empty_like(self.mask))
+        fresh = sip_mask(self.mask, self.n_rows, filters, out=torch.empty_like(self.mask),
+                         counts=counts)
         return ColumnBatch(self.var_ids, self.columns, fresh, self.n_rows, self.sorted_by)
 
     def _moved(self) -> "ColumnBatch":

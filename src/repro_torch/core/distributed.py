@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.partition import next_pow2
 from repro_torch.kernels.join_expand import join_expand
 from repro_torch.kernels.radix_partition import radix_partition
 from repro_torch.kernels.sorted_search import sorted_search_range
@@ -88,13 +89,27 @@ def bucket_cap(n_local: int, cap_factor: float, n_parts: int) -> int:
 def _bucket(rows: torch.Tensor, keys: torch.Tensor, n_parts: int, cap: int):
     """A rank's step before the exchange: ``(buf_rows (C, n_parts, cap),
     buf_keys (n_parts, cap), overflow)``. Row i goes to bucket
-    ``hash(keys[i]) & (n_parts - 1)`` (the ``radix_partition`` kernel), at
-    its position among that bucket's rows in input order; the rows at
-    positions ``>= cap`` are counted in ``overflow`` (a 0-d int64 tensor)
-    and not written. Empty slots hold INT32_MAX."""
+    ``hash(keys[i]) & (n_parts - 1)`` at any ``n_parts``, as in the
+    reference (with 3 ranks nothing goes to rank 1), at its position among
+    that bucket's rows in input order; the rows at positions ``>= cap`` are
+    counted in ``overflow`` (a 0-d int64 tensor) and not written. Empty
+    slots hold INT32_MAX.
+
+    The ``radix_partition`` kernel takes a power of two: it runs at ``p2``,
+    the next one up, and ``h & (p2 - 1) & (n_parts - 1) == h & (n_parts -
+    1)`` turns its ids into the buckets; their histogram sums the kernel's
+    over the ids that fold together (no host read)."""
     n = int(keys.shape[0])
-    pid, hist = radix_partition(keys.contiguous(), n_parts)
-    starts = torch.cumsum(hist, 0, dtype=_I64) - hist
+    p2 = next_pow2(n_parts)
+    pid, hist2 = radix_partition(keys.contiguous(), p2)
+    if p2 == n_parts:
+        hist = hist2.to(_I64)
+    else:
+        fold = torch.arange(p2, dtype=_I64, device=keys.device) & (n_parts - 1)
+        hist = torch.zeros(n_parts, dtype=_I64, device=keys.device).index_add_(
+            0, fold, hist2.to(_I64))
+        pid = pid & (n_parts - 1)
+    starts = torch.cumsum(hist, 0) - hist
     order = torch.sort(pid, stable=True).indices
     pid_s = pid[order].to(_I64)
     within = torch.arange(n, dtype=_I64, device=keys.device) - starts[pid_s]

@@ -582,6 +582,7 @@ class QueryResult:
         return _pool_delta(self.pool_final, self.pool_base)
 
     def profile(self, analyze: bool = False) -> str:
+        settle_counts(self.root)  # counts still on the device: one copy
         return profile_tree(self.root, self.var_table, pool=self.pool_final,
                             pool_base=self.pool_base, analyze=analyze)
 

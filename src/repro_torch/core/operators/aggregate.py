@@ -44,7 +44,7 @@ from repro_torch.core.algebra import AggSpec
 from repro_torch.core.batch import MAX_BATCH, NULL_ID, BatchPool, ColumnBatch
 from repro_torch.core.dictionary import Dictionary
 from repro_torch.core.exprs.vm import numeric_of
-from repro_torch.core.operators.base import BatchOperator
+from repro_torch.core.operators.base import BatchOperator, HostTimer
 from repro_torch.core.operators.sort import MaterializedSource, materialize
 from repro_torch.core.partition import PartitionedRelation, fan_in
 from repro_torch.kernels.frontier_dedup import frontier_dedup
@@ -127,6 +127,7 @@ class StreamingGroupBy(BatchOperator):
         self._enc_cols: List[torch.Tensor] = []
         self._emitted = 0
         self._drained = False
+        self._zero_counters()
         super().__init__(
             "Group",
             f"by=?v{group_var} " + ",".join(f"{a.func}->?v{a.out}" for a in aggs),
@@ -142,9 +143,17 @@ class StreamingGroupBy(BatchOperator):
     def children(self) -> List[BatchOperator]:
         return [self.child]
 
+    def _zero_counters(self) -> None:
+        # segment_scan and frontier_dedup dispatches with their host time
+        # (on the card the time to enqueue them), and the runs consumed
+        self._sr = HostTimer()
+        self._dd = HostTimer()
+        self._runs = 0
+
     def _reduce(self, keys: torch.Tensor, values: Optional[torch.Tensor],
                 func: str) -> torch.Tensor:
-        return vecops.segment_reduce(keys, values, func)[1]
+        with self._sr:
+            return vecops.segment_reduce(keys, values, func)[1]
 
     # -- aggregation -------------------------------------------------------------
 
@@ -170,6 +179,13 @@ class StreamingGroupBy(BatchOperator):
             # (COUNT = 0, SUM = 0; MIN/MAX/AVG stay unbound)
             self._carry = self._open_carry(0)
             self._close_carry()
+        ex = self.stats.extra
+        ex["group_runs"] = self._runs
+        ex["segment_reduce"] = self._sr.calls
+        ex["segment_reduce_ms"] = self._sr.ms
+        if self._dd.calls:
+            ex["distinct_dedup"] = self._dd.calls
+            ex["distinct_dedup_ms"] = self._dd.ms
         self._drained = True
 
     def _batch_stats(self, keys: torch.Tensor, cb: ColumnBatch):
@@ -202,7 +218,8 @@ class StreamingGroupBy(BatchOperator):
                 # frontier_dedup kernel with an empty visited set, over
                 # codes + 1 so that NULL (-1) stays non-negative
                 none = skeys.new_zeros(0)
-                first = frontier_dedup(skeys, scodes + 1, none, none)
+                with self._dd:
+                    first = frontier_dedup(skeys, scodes + 1, none, none)
                 d = (skeys, scodes, c["vals"][order], first & (scodes >= 0))
                 dsort_cache[var] = d
             return d
@@ -252,6 +269,7 @@ class StreamingGroupBy(BatchOperator):
         n_runs = int(run_keys.shape[0])
         if n_runs == 0:
             return
+        self._runs += n_runs
         stats, dinfo = self._batch_stats(keys, cb)
         i0 = 0
         if self._carry.key is not None:
@@ -401,6 +419,7 @@ class StreamingGroupBy(BatchOperator):
         self._enc_cols = []
         self._emitted = 0
         self._drained = False
+        self._zero_counters()
 
 
 # synthetic variable id for the dense group id column (never collides with

@@ -16,6 +16,13 @@ reduction launch, no read back); the executor turns every operator's
 pending device count into a host integer with one copy per query
 (``pending_counts`` / ``settle_counts``). ``stats.results`` read before
 that settles the one operator it is read on.
+
+Counters in ``stats.extra`` are host values written straight into the
+dict, apart from the SIP filters' pruned rows and bloom probes, which the
+filters count on the device (``core.sip``): an operator that tests
+filters records them in ``stats.sip``, and their sums join the same one
+copy a query, landing in ``extra`` when it settles. ``HostTimer`` times
+the ``_ms`` counters.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from repro_torch.core import batch as _batch
 from repro_torch.core.batch import ColumnBatch
+from repro_torch.core.sip import sip_totals
 
 # per-batch device counts an operator keeps before folding them into one
 _SLOTS = 256
@@ -84,6 +92,7 @@ class OpStats:
         "est_source",
         "node_fp",
         "extra",
+        "sip",
     )
 
     def __init__(self, name: str, detail: str = "") -> None:
@@ -110,6 +119,10 @@ class OpStats:
         # operator-specific counters (spill bytes, host copies, ...); the
         # profiler prints and aggregates them generically
         self.extra: dict = {}
+        # the SIP filters this operator tests, each with the batches it had
+        # counted after the operator's latest batch (``core.sip.sip_seen``),
+        # until the query settles their sums into ``extra``
+        self.sip: Optional[list] = None
 
     @property
     def results(self) -> int:
@@ -144,22 +157,78 @@ class OpStats:
         self._results += int(device_rows)
 
 
-def pending_counts(root) -> Tuple[List[OpStats], Optional[torch.Tensor]]:
-    """The stats in ``root``'s tree (batch or row operators) whose row
-    counts are still on the device, and those counts stacked into one
-    int64 device tensor (None when every count is on the host)."""
-    stats: List[OpStats] = []
+class HostTimer:
+    """Calls of one kind and their summed host time: on the card the time
+    to prepare and enqueue their launches (and any sync inside them), as
+    ``kernel_wall_s`` is. ``with timer:`` times one call."""
+
+    __slots__ = ("calls", "wall_s", "_t0")
+
+    def __init__(self) -> None:
+        self.calls = 0
+        self.wall_s = 0.0
+
+    def __enter__(self) -> "HostTimer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.calls += 1
+        self.wall_s += time.perf_counter() - self._t0
+
+    @property
+    def ms(self) -> float:
+        """The summed time in ms, as the reference rounds it."""
+        return round(self.wall_s * 1e3, 3)
+
+
+SIP_KEYS = ("sip_pruned_rows", "sip_probe_dispatches")
+
+
+class _SipCount:
+    """One of an operator's two SIP counters, settled like its row count."""
+
+    __slots__ = ("stats", "key")
+
+    def __init__(self, stats: OpStats, key: str) -> None:
+        self.stats, self.key = stats, key
+
+    def settle(self, value: int) -> None:
+        self.stats.extra[self.key] = int(value)
+        self.stats.sip = None
+
+
+def pending_counts(root) -> Tuple[list, Optional[torch.Tensor]]:
+    """What in ``root``'s tree (batch or row operators) is still on the
+    device, each with a ``settle(value)``: the stats whose row counts
+    are, and the SIP counters (``_SipCount``); and their values stacked
+    into one int64 device tensor (None when everything is on the host).
+    SIP counters with no batch counted are set to 0 here."""
+    stats: list = []
+    values: List[torch.Tensor] = []
     stack = [root]
     while stack:
         op = stack.pop()
-        if op.stats._pending is not None:
-            stats.append(op.stats)
+        st = op.stats
+        if st._pending is not None:
+            stats.append(st)
+            values.append(st.pending())
+        if st.sip is not None:
+            tot = sip_totals(st.sip)
+            for k, key in enumerate(SIP_KEYS):
+                if tot is None:
+                    st.extra[key] = 0
+                else:
+                    stats.append(_SipCount(st, key))
+                    values.append(tot[k])
+            if tot is None:
+                st.sip = None
         stack.extend(op.children())
     global count_launches
     if not stats:
         return stats, None
     count_launches += 1
-    return stats, torch.stack([s.pending() for s in stats])
+    return stats, torch.stack(values)
 
 
 def settle_counts(root) -> None:

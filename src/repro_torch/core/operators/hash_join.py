@@ -45,7 +45,7 @@ import torch
 from repro_torch.core import vecops
 from repro_torch.core.adaptive import AdaptiveBatchSizer
 from repro_torch.core.batch import NULL_ID, BatchPool, ColumnBatch, bucket_for
-from repro_torch.core.operators.base import BatchOperator
+from repro_torch.core.operators.base import BatchOperator, HostTimer
 from repro_torch.core.operators.simple import expr_mask, resolve_program
 from repro_torch.core.operators.sort import materialize
 from repro_torch.core.partition import (
@@ -176,6 +176,7 @@ class HashJoin(BatchOperator):
         # floor masks emitted rows below it instead of dropping the batch
         self._skip_floor: Optional[Tuple[int, int]] = None
         super().__init__("HashJoin", f"({','.join(f'?v{k}' for k in keys)}) mode={mode}")
+        self._probe_timer = HostTimer()  # hash_probe_ms: host time, all probes
 
     # -- metadata ---------------------------------------------------------------
 
@@ -202,13 +203,21 @@ class HashJoin(BatchOperator):
     # -- build phase -------------------------------------------------------------
 
     def _ensure_built(self) -> None:
+        """The build phase. ``hash_build_ms`` is host time (on the card the
+        time to enqueue the build, and the syncs inside it)."""
         if self._built:
             return
+        timer = HostTimer()
+        with timer:
+            self._build_phase()
+        self._built = True
+        self.stats.extra["hash_build_ms"] = timer.ms
+
+    def _build_phase(self) -> None:
         if self.grace and self.keys:
             # planner-directed grace build: the build child streams straight
             # into the partitioned relation and is never resident whole
             self._grace_build_stream()
-            self._built = True
             return
         bvars, bcols = materialize(self.build, self.device)
         self._bv = bvars
@@ -228,7 +237,7 @@ class HashJoin(BatchOperator):
             self._grace_switch_from_block(bcols)
         else:
             self._build_resident(bcols)
-        self._built = True
+            self.stats.extra["hash_partitions"] = self._n_parts
 
     def _build_resident(self, bcols: torch.Tensor) -> None:
         """Radix-build one device block (the whole build side, or one grace
@@ -259,7 +268,7 @@ class HashJoin(BatchOperator):
                 bl = (packed & 0x7FFFFFFF).to(_I32)
         else:
             bh, bl = None, kcols[0].contiguous()
-        n_parts = self._n_parts_cfg or _n_parts_for(n)
+        n_parts = self._n_parts = self._n_parts_cfg or _n_parts_for(n)
         order, self._part_starts = hash_build(bh, bl, n_parts)
         idx = order.long()
         self._bcols = bcols[:, idx].contiguous()
@@ -391,6 +400,7 @@ class HashJoin(BatchOperator):
         forcing it from a probe-side scan only moves the same work
         earlier. The bloom filter does not depend on the row order."""
         self._ensure_built()
+        self.stats.extra["sip_exports"] = self.stats.extra.get("sip_exports", 0) + 1
         if self._grace_active:
             # every partition's key column, loaded without freeing: the
             # grace drain still needs them
@@ -417,7 +427,11 @@ class HashJoin(BatchOperator):
                 torch.full((n,), self._n_build, dtype=_I32, device=self.device),
             )
         qh, ql = self._probe_keys(cb)
-        lo, hi = hash_probe(self._part_starts, self._skh, self._skl, qh, ql)
+        with self._probe_timer:
+            lo, hi = hash_probe(self._part_starts, self._skh, self._skl, qh, ql)
+        ex = self.stats.extra
+        ex["hash_probe_ms"] = self._probe_timer.ms
+        ex["hash_probe_rows"] = ex.get("hash_probe_rows", 0) + n
         return lo, hi - lo
 
     def _plan_for(self, cb: ColumnBatch) -> Tuple[EmitPlan, EmitPlan]:

@@ -26,7 +26,7 @@ from repro_torch.core.batch import BatchPool, ColumnBatch
 from repro_torch.core.operators.base import BatchOperator
 from repro_torch.core.paths.engine import PathEngine, PathResult
 from repro_torch.core.paths.expr import PathExpr, path_repr
-from repro_torch.core.sip import SipFilter
+from repro_torch.core.sip import SipFilter, apply_sip, sip_seen
 from repro_torch.core.storage import QuadStore
 
 
@@ -165,9 +165,10 @@ class PathExpand(BatchOperator):
             self._var_ids, cols, self.device, self._sorted_var, pool=self.pool
         )
         # every filter's range and bloom test over the batch, one launch
-        terms = [t for t in (f.term(b.column(f.var)) for f in self.sip_filters
-                             if f.var in self._var_ids) if t is not None]
-        return b.with_sip_mask(terms) if terms else b
+        b = apply_sip(b, [f for f in self.sip_filters if f.var in self._var_ids])
+        if self.sip_filters:
+            sip_seen(self.stats, self.sip_filters)
+        return b
 
     def can_skip(self, var: Optional[int]) -> bool:
         return var is not None and var == self._sorted_var

@@ -17,7 +17,7 @@ from repro_torch.core.adaptive import AdaptiveBatchSizer
 from repro_torch.core.algebra import K, TriplePattern, V
 from repro_torch.core.batch import BatchPool, ColumnBatch
 from repro_torch.core.operators.base import BatchOperator
-from repro_torch.core.sip import SipFilter
+from repro_torch.core.sip import SipFilter, apply_sip, sip_seen
 from repro_torch.core.storage import INDEX_ORDERS, QuadStore, ScanRange
 
 _INT32_MAX = (1 << 31) - 1
@@ -169,10 +169,12 @@ class IndexScan(BatchOperator):
                 self._end = min(self._end, end)
 
     def _apply_sip_masks(self, b: ColumnBatch) -> ColumnBatch:
-        """Every filter's range and bloom test over the batch, one launch."""
-        terms = [t for t in (f.term(b.column(f.var)) for f in self.sip_filters)
-                 if t is not None]
-        return b.with_sip_mask(terms) if terms else b
+        """Every filter's range and bloom test over the batch, one launch;
+        the filters' counters as they stand after it."""
+        b = apply_sip(b, self.sip_filters)
+        if self.sip_filters:
+            sip_seen(self.stats, self.sip_filters)
+        return b
 
     def can_skip(self, var: Optional[int]) -> bool:
         return (

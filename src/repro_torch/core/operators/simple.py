@@ -21,7 +21,7 @@ from repro_torch.core.dictionary import Dictionary
 from repro_torch.core.expressions import eval_expr_mask, eval_expr_values
 from repro_torch.core.exprs import ExprCompileError, compile_expr
 from repro_torch.core.exprs.vm import eval_program_mask, eval_program_values
-from repro_torch.core.operators.base import BatchOperator
+from repro_torch.core.operators.base import BatchOperator, HostTimer
 
 
 def resolve_program(expr: Expr, dictionary: Optional[Dictionary], program,
@@ -49,9 +49,18 @@ def expr_mask(expr: Expr, program, batch: ColumnBatch,
     return eval_program_mask(program, batch, dictionary)
 
 
+def _report_program(op) -> None:
+    """The program's evaluations and their host time in ``op.stats``."""
+    ex = op.stats.extra
+    ex["expr_dispatches"] = op._timer.calls
+    ex["expr_eval_ms"] = op._timer.ms
+
+
 class FilterOp(BatchOperator):
     """FILTER through the expression VM (one kernel launch per batch) or
-    the tree walk, narrowing the mask in place."""
+    the tree walk, narrowing the mask in place. A program's instruction
+    count, evaluations and their host time are ``stats.extra``'s
+    ``expr_ops``, ``expr_dispatches`` and ``expr_eval_ms``."""
 
     def __init__(
         self,
@@ -65,7 +74,10 @@ class FilterOp(BatchOperator):
         self.expr = expr
         self.dictionary = dictionary
         self.program = resolve_program(expr, dictionary, program, "mask")
+        self._timer = HostTimer()
         super().__init__(name, "" if self.program is None else "[vm]")
+        if self.program is not None:
+            self.stats.extra["expr_ops"] = len(self.program.instrs)
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids()
@@ -81,7 +93,13 @@ class FilterOp(BatchOperator):
             b = self.child.next_batch()
             if b is None:
                 return None
-            b = b.with_mask(expr_mask(self.expr, self.program, b, self.dictionary))
+            if self.program is None:
+                m = eval_expr_mask(self.expr, b, self.dictionary)
+            else:
+                with self._timer:
+                    m = eval_program_mask(self.program, b, self.dictionary)
+                _report_program(self)
+            b = b.with_mask(m)
             if b.n_active:
                 return b
             b.release()  # all rows inactive: recycle batch, keep pulling
@@ -164,7 +182,10 @@ class ExtendOp(BatchOperator):
         self.device = device
         self.pool = pool
         self.program = resolve_program(expr, dictionary, program, "value")
+        self._timer = HostTimer()
         super().__init__("Bind", f"?v{var}" + ("" if self.program is None else " [vm]"))
+        if self.program is not None:
+            self.stats.extra["expr_ops"] = len(self.program.instrs)
 
     def var_ids(self) -> Tuple[int, ...]:
         return self.child.var_ids() + (self.var,)
@@ -182,7 +203,9 @@ class ExtendOp(BatchOperator):
         if self.program is None:
             vals, ok = eval_expr_values(self.expr, b, self.dictionary)
         else:
-            vals, ok = eval_program_values(self.program, b, self.dictionary)
+            with self._timer:
+                vals, ok = eval_program_values(self.program, b, self.dictionary)
+            _report_program(self)
         n = b.n_rows
         codes = torch.full((b.capacity,), NULL_ID, dtype=torch.int32, device=self.device)
         okn = ok[:n]

@@ -17,15 +17,27 @@ The filter is lazy: the translator binds a provider closure onto the
 exporting join, and the first consuming scan forces it. Providers return
 ("keys", tensor) for a bloom + range summary, ("range", lo, hi) for a
 range only, or None, which leaves the filter a pass-through.
+
+Each filter counts, for every batch a consumer tests, the rows it pruned
+and whether it probed its words (a code fell inside its range), as the
+reference counts a filter: one row of ``counts`` a batch, filled by the
+mask's own launch, so counting takes no launch and no host read. A
+consumer's stats keep its filters with the batches each had seen after
+its last batch (``sip_seen``); the reference's ``sip_pruned_rows`` and
+``sip_probe_dispatches`` are the sums up to there (``sip_totals``), read
+back with the query's row counts.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels.bloom_filter import SipTerm, bloom_build, sip_mask
+
+# the counter rows a filter's table starts with; it doubles when full
+_FIRST_ROWS = 64
 
 
 class SipFilter:
@@ -37,6 +49,9 @@ class SipFilter:
         self.words: Optional[torch.Tensor] = None
         self.lo = 0
         self.hi = -1  # (0, -1) == provably empty build side
+        # per batch tested, in order: rows pruned, bloom probe (0 or 1)
+        self.batches = 0
+        self.counts: Optional[torch.Tensor] = None  # (rows, 2) int64
 
     # -- producer side -----------------------------------------------------
 
@@ -73,6 +88,17 @@ class SipFilter:
             return None
         return codes, self.words, self.lo, self.hi
 
+    def next_counts(self, device: torch.device) -> torch.Tensor:
+        """The zeroed (2,) counter row of the next batch tested."""
+        if self.counts is None or self.batches == int(self.counts.shape[0]):
+            grown = torch.zeros((max(_FIRST_ROWS, 2 * self.batches), 2), dtype=torch.int64,
+                                device=device)
+            if self.counts is not None:
+                grown[: self.batches] = self.counts
+            self.counts = grown
+        self.batches += 1
+        return self.counts[self.batches - 1]
+
     def mask(self, codes: torch.Tensor) -> Optional[torch.Tensor]:
         """Bool keep-mask over ``codes`` (range and bloom membership), or
         None for pass-through. May keep non-members (bloom false
@@ -81,3 +107,32 @@ class SipFilter:
         host read per batch, and the AND gives the same mask."""
         t = self.term(codes)
         return None if t is None else sip_mask(None, int(codes.shape[0]), [t])
+
+
+def apply_sip(b, filters: Sequence[SipFilter]):
+    """``b`` masked by every filter of ``filters`` over its variable's
+    column, each filter counting this batch in its next counter row: one
+    ``sip_mask`` launch."""
+    pairs = [(f, t) for f, t in ((f, f.term(b.column(f.var))) for f in filters)
+             if t is not None]
+    if not pairs:
+        return b
+    return b.with_sip_mask([t for _, t in pairs],
+                           [f.next_counts(b.device) for f, _ in pairs])
+
+
+def sip_seen(stats, filters: Sequence[SipFilter]) -> None:
+    """Record on ``stats`` that its operator's counters are ``filters``'
+    sums as they stand now, after its latest batch (the reference sets
+    them after every batch)."""
+    stats.sip = [(f, f.batches) for f in filters]
+
+
+def sip_totals(seen: Sequence[Tuple[SipFilter, int]]) -> Optional[torch.Tensor]:
+    """The (2,) int64 device sums (pruned rows, bloom probes) over each
+    filter's first batches as ``sip_seen`` recorded them, or None where
+    no batch was counted."""
+    parts: List[torch.Tensor] = [f.counts[:n].sum(0) for f, n in seen if n]
+    if not parts:
+        return None
+    return parts[0] if len(parts) == 1 else torch.stack(parts).sum(0)

@@ -70,6 +70,13 @@
 // loads are issued before its word loads. mask_in may equal out (in
 // place) or be null (all true: the membership mask of bloom_probe(words,
 // queries), one term over the whole int32 range).
+//
+// A term may carry a counter pair (the SIP filter's row for this batch,
+// zeroed): the same launch adds the rows of [0, n_rows) that the term
+// alone rejects, whatever mask_in holds, and sets the second word to 1
+// where the term has words and a row fell inside its range (a bloom
+// probe), as the reference counts a filter. A warp sums its rows and its
+// first lane adds them with one atomic, so counting takes no launch.
 
 #include <climits>
 #include <cstdint>
@@ -105,10 +112,20 @@ struct SipTerm {
   int lo, hi;
 };
 
+// the terms, their count, then each term's counter pair or null (the
+// wrapper's descriptor: five 64-bit words a term and one)
 struct SipDesc {
   SipTerm t[SIP_TERMS];
   long long n_terms;
+  unsigned long long* counts[SIP_TERMS];
 };
+
+// the lanes of the calling thread's warp that have rows below capacity
+// (the others returned): the warp's first rows come first
+__device__ __forceinline__ unsigned live_lanes(long long warp_r0, int items, int capacity) {
+  const long long n = (capacity - warp_r0 + items - 1) / items;
+  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
+}
 
 __device__ __forceinline__ void bloom_hash(int key, unsigned wmask,
                                            unsigned* word, unsigned* bits) {
@@ -340,11 +357,29 @@ bloom_probe_kernel(const SipDesc d, const unsigned char* mask_in,
     }
   }
 #pragma unroll
-  for (int k = 0; k < NT; ++k)
+  for (int k = 0; k < NT; ++k) {
+    unsigned rejected = 0;
+    bool in_range = false;
 #pragma unroll
-    for (int e = 0; e < IT; ++e)
-      if (c[k][e] < d.t[k].lo || c[k][e] > d.t[k].hi || (w[k][e] & b[k][e]) != b[k][e])
+    for (int e = 0; e < IT; ++e) {
+      const bool in = c[k][e] >= d.t[k].lo && c[k][e] <= d.t[k].hi;
+      if (!in || (w[k][e] & b[k][e]) != b[k][e]) {
         keep &= ~(1u << e);
+        rejected += r0 + e < n_rows;
+      }
+      in_range |= in && r0 + e < n_rows;
+    }
+    unsigned long long* cnt = d.counts[k];
+    if (cnt != nullptr) {  // the same for every thread of the launch
+      const unsigned lanes = live_lanes(r0 - (long long)(threadIdx.x & 31) * IT, IT, capacity);
+      rejected = __reduce_add_sync(lanes, rejected);
+      in_range = __any_sync(lanes, in_range);
+      if ((threadIdx.x & 31) == 0) {
+        if (rejected) atomicAdd(cnt, (unsigned long long)rejected);
+        if (in_range && d.t[k].words != nullptr) atomicMax(cnt + 1, 1ull);
+      }
+    }
+  }
   if (word_io && ((uintptr_t)(out + r0) & 3) == 0) {
     unsigned m = 0;
 #pragma unroll
@@ -414,7 +449,8 @@ extern "C" int bloom_probe_launch(const unsigned* words, int n_words,
 }
 
 // a scan batch's SIP mask: the SipDesc at desc, its terms over rows
-// [0, n_rows) of out (capacity bytes), ANDed into mask_in (null: all true).
+// [0, n_rows) of out (capacity bytes), ANDed into mask_in (null: all true),
+// each term's counts added into its counter pair where it has one.
 // desc is untyped so that this function keeps external linkage.
 extern "C" int sip_mask_launch(const void* desc, const bool* mask_in,
                                bool* out, int n_rows, int capacity,

@@ -17,7 +17,13 @@ each filter is ``(codes, words or None, lo, hi)``, and for ``i < n_rows``
 ``out[i] = mask[i] and`` every filter's ``lo <= codes[i] <= hi`` and, where
 it has words, membership of ``codes[i]``; ``out[i]`` is False from
 ``n_rows`` to the mask's end. ``out`` is ``mask`` unless given (in place);
-a ``mask`` of None reads as all True.
+a ``mask`` of None reads as all True. ``counts``, where given, holds for
+each filter None or its counter pair (a zeroed contiguous (2,) int64
+tensor, the SIP filter's row for this batch): the same launch adds the
+rows of the first ``n_rows`` that the filter alone rejects, whatever the
+mask holds, and sets the second word to 1 where the filter has words and
+a code fell inside its range (a bloom probe), as the reference counts a
+filter.
 
 Keys of -1 (NULL_ID) hash like any other value. The Pallas build kernel
 skips INT32_MIN keys (its padding); codes are >= -1, so it never arises.
@@ -68,7 +74,8 @@ STATE_WORDS = 96
 # KEYS_PER_BLOCK keys, at most BUILD_BLOCKS (one an SM of the H100)
 KEYS_PER_BLOCK = 8192
 BUILD_BLOCKS = 132
-_DESC_WORDS = 4 * SIP_TERMS + 1  # 64-bit words: four a filter, then the count
+# 64-bit words: four a filter, the count, then a counter pair's pointer a filter
+_DESC_WORDS = 5 * SIP_TERMS + 1
 build_launches = 0
 probe_launches = 0
 wordless_launches = 0
@@ -123,20 +130,25 @@ def _clamp_range(lo: int, hi: int) -> Tuple[int, int]:
 
 
 def sip_mask_plain(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTerm],
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None,
+                   counts: Optional[Sequence[Optional[torch.Tensor]]] = None) -> torch.Tensor:
     out = _sip_out(mask, n_rows, filters, out)
     keep = out[:n_rows]
     if mask is None:
         keep.fill_(True)
     elif out is not mask:
         keep.copy_(mask[:n_rows])
-    for codes, words, lo, hi in filters:
+    for k, (codes, words, lo, hi) in enumerate(filters):
         c = codes[:n_rows]
         lo, hi = _clamp_range(lo, hi)
-        m = (c >= lo) & (c <= hi)
-        if words is not None:
-            m &= bloom_probe_plain(words, c)
+        in_range = (c >= lo) & (c <= hi)
+        m = in_range if words is None else in_range & bloom_probe_plain(words, c)
         keep &= m
+        pair = None if counts is None else counts[k]
+        if pair is not None:
+            pair[0] += (~m).sum()
+            if words is not None:
+                pair[1] = torch.maximum(pair[1], in_range.any().to(_I64))
     out[n_rows:] = False
     return out
 
@@ -206,7 +218,8 @@ def bloom_probe(words: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
 
 def sip_mask(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTerm],
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+             out: Optional[torch.Tensor] = None,
+             counts: Optional[Sequence[Optional[torch.Tensor]]] = None) -> torch.Tensor:
     """The SIP mask of a batch's first ``n_rows`` rows (see module
     docstring); returns ``out``."""
     global probe_launches, wordless_launches
@@ -229,8 +242,16 @@ def sip_mask(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTer
             w = int(words.shape[0])
             if w < 1 or w & (w - 1) or words.device != dev:
                 raise ValueError(f"sip_mask: words must be a power of two on {dev}")
+    if counts is not None:
+        if len(counts) != len(filters):
+            raise ValueError("sip_mask: one counter pair (or None) a filter")
+        for x in counts:
+            if x is not None and (x.dtype != _I64 or x.shape != (2,) or not x.is_contiguous()
+                                  or x.device != dev):
+                raise ValueError(f"sip_mask: a counter pair is a contiguous (2,) int64 "
+                                 f"tensor on {dev}")
     if dev.type == "cpu":
-        out = sip_mask_plain(mask, n_rows, filters, out)
+        out = sip_mask_plain(mask, n_rows, filters, out, counts)
         build.ledger("bloom_probe", "plain", t0)
         return out
     if dev.type != "cuda":
@@ -241,7 +262,7 @@ def sip_mask(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTer
     src = mask
     for k in range(0, max(len(filters), 1), SIP_TERMS):
         chunk = filters[k: k + SIP_TERMS]
-        desc = _descriptor(chunk)  # kept alive through the call
+        desc = _descriptor(chunk, None if counts is None else counts[k: k + SIP_TERMS])
         build.check(lib.sip_mask_launch(
             ctypes.addressof(desc), None if src is None else src.data_ptr(),
             out.data_ptr(), n_rows, int(out.shape[0]), stream), "sip_mask")
@@ -265,9 +286,12 @@ def _sip_out(mask: Optional[torch.Tensor], n_rows: int, filters: Sequence[SipTer
     return torch.empty(n_rows, dtype=torch.bool, device=filters[0][0].device)
 
 
-def _descriptor(chunk: Sequence[SipTerm]) -> ctypes.Array:
-    """The kernel's by-value descriptor: per filter the codes and words
-    pointers, the words' index mask and (lo, hi) packed in one word."""
+def _descriptor(chunk: Sequence[SipTerm],
+                counts: Optional[Sequence[Optional[torch.Tensor]]] = None) -> ctypes.Array:
+    """The kernel's by-value descriptor (kept alive through the call): per
+    filter the codes and words pointers, the words' index mask and (lo,
+    hi) packed in one word; the filter count; per filter its counter
+    pair's pointer or 0."""
     d = (ctypes.c_uint64 * _DESC_WORDS)()
     for k, (codes, words, lo, hi) in enumerate(chunk):
         lo, hi = _clamp_range(lo, hi)
@@ -277,6 +301,9 @@ def _descriptor(chunk: Sequence[SipTerm]) -> ctypes.Array:
             d[4 * k + 2] = int(words.shape[0]) - 1
         d[4 * k + 3] = (lo & 0xFFFFFFFF) | (hi & 0xFFFFFFFF) << 32
     d[4 * SIP_TERMS] = len(chunk)
+    for k, x in enumerate(counts or ()):
+        if x is not None:
+            d[4 * SIP_TERMS + 1 + k] = x.data_ptr()
     return d
 
 

@@ -1,8 +1,15 @@
-"""Serve a SPARQL request stream through the engine:
+"""Serving launcher, two modes:
 
-    python -m repro_torch.launch.serve --requests N --scale S \\
+    python -m repro_torch.launch.serve [--mode queries] --requests N --scale S \\
         [--engine barq|legacy|mixed] [--device cpu]
+    python -m repro_torch.launch.serve --mode lm --arch ID --requests N [--device cpu]
 
+``--mode lm`` runs continuous-batching decode (``LMServer``, adaptive
+admission) of the architecture's reduced config, parameters drawn from
+seed 0, over N seeded requests (prompts of 4-11 tokens, 16 new tokens
+each), and prints the tokens per second.
+
+``--mode queries``:
 Generates the BSBM e-commerce store and the LSQB social graph at scale S on
 the device (the CUDA card unless ``--device cpu``), builds a stream of N
 requests with ``build_requests`` from seed 0 (80% BSBM explore point
@@ -17,6 +24,8 @@ launches.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -85,8 +94,36 @@ def serve_queries(requests: int, scale: float, engine: str = "barq", device=None
     return stats
 
 
+def serve_lm(arch_id: str, requests: int, device=None) -> dict:
+    """The reference's ``serve_lm`` on ``device`` (None is the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.lm_server import LMServer, Request
+
+    cfg = dataclasses.replace(get_config(arch_id).reduced_model, remat="none")
+    params = TF.init_params(cfg, 0, device=device)
+    server = LMServer(cfg, params, n_slots=4, cache_len=128, device=device)
+    rng = np.random.RandomState(0)
+    for i in range(requests):
+        server.submit(Request(
+            rid=i,
+            prompt=rng.randint(0, cfg.vocab, rng.randint(4, 12)).astype(np.int32),
+            max_new=16,
+        ))
+    t0 = time.perf_counter()
+    out = server.run_until_drained()
+    dt = time.perf_counter() - t0
+    toks = sum(len(v) for v in out.values())
+    print(f"device: {server.device}")
+    print(f"lm serving: {len(out)} requests, {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s, {server.steps} engine steps)")
+    return {"requests": len(out), "tokens": toks, "seconds": dt, "steps": server.steps}
+
+
 def main() -> None:
-    ap = argparse.ArgumentParser(description="serve a SPARQL request stream")
+    ap = argparse.ArgumentParser(description="serve a SPARQL request stream or an LM")
+    ap.add_argument("--mode", choices=("queries", "lm"), default="queries")
+    ap.add_argument("--arch", default="qwen3-8b", help="--mode lm: the architecture")
     ap.add_argument("--requests", type=int, default=100)
     ap.add_argument("--scale", type=float, default=0.1)
     ap.add_argument("--engine", choices=("barq", "legacy", "mixed"), default="barq")
@@ -94,7 +131,10 @@ def main() -> None:
                     help="torch device (default: the CUDA card; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args()
-    serve_queries(args.requests, args.scale, args.engine, args.device)
+    if args.mode == "lm":
+        serve_lm(args.arch, args.requests, args.device)
+    else:
+        serve_queries(args.requests, args.scale, args.engine, args.device)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,233 @@
+"""Decoder-only transformer LM (dense and MoE), GQA, qk-norm, KV-cache
+decode, sliding-window serving: the reference's ``models/transformer.py``
+on PyTorch.
+
+Covers the five LM architectures (qwen3-8b, deepseek-7b,
+command-r-plus-104b, qwen3-moe-30b-a3b, moonshot-v1-16b-a3b). Parameters
+are dicts of tensors with the reference's names; ``layers`` is a list with
+one dict a layer (the reference stacks them on a leading axis for
+``scan``; ``convert.transformer_params_from_arrays`` unstacks its arrays).
+The layers run in a loop. ``remat`` and ``unroll_layers`` are accepted and
+change nothing here: serving keeps no activations for a backward pass.
+The KV cache is updated in place by ``decode_step``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, init_moe, moe_block
+from repro_torch.parallel.sharding import MeshAxes, constrain
+
+_F32, _BF16, _I32 = torch.float32, torch.bfloat16, torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    moe: Optional[MoEConfig] = None
+    window: Optional[int] = None  # sliding-window serving (long_500k)
+    remat: str = "full"  # none | full | dots (training; accepted here)
+    unroll_layers: bool = False  # the reference's dry run (accepted here)
+    seq_parallel: bool = False  # shard activations over (dp, mp)
+    microbatches: int = 1  # gradient accumulation (training)
+
+    @property
+    def attn(self) -> L.AttnConfig:
+        return L.AttnConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            head_dim=self.head_dim,
+            qk_norm=self.qk_norm,
+            rope_theta=self.rope_theta,
+        )
+
+    def param_count(self) -> int:
+        d, f, v, hd = self.d_model, self.d_ff, self.vocab, self.head_dim
+        attn = d * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        if self.moe:
+            ffn = self.moe.n_experts * 3 * d * self.moe.d_expert_ff + d * self.moe.n_experts
+        else:
+            ffn = 3 * d * f
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + v * d + d
+
+    def active_param_count(self) -> int:
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        attn = d * self.head_dim * (self.n_heads * 2 + self.n_kv_heads * 2)
+        ffn = self.moe.top_k * 3 * d * self.moe.d_expert_ff + d * self.moe.n_experts
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + self.vocab * d + d
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(cfg: TransformerConfig, gen: torch.Generator, device, dtype):
+    p = {
+        "ln1": L.init_rmsnorm(cfg.d_model, device),
+        "ln2": L.init_rmsnorm(cfg.d_model, device),
+        "attn": L.init_attention(gen, cfg.attn, device, dtype),
+    }
+    if cfg.moe:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.moe, device, dtype)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, device, dtype)
+    return p
+
+
+def init_params(cfg: TransformerConfig, gen: Union[int, torch.Generator], device=None,
+                dtype: torch.dtype = _F32) -> Dict[str, Any]:
+    """Random parameters drawn from ``gen`` (a generator on ``device``, or
+    a seed for one) on ``device`` (None is the CUDA card). Matmul weights
+    are drawn in float32 and held in ``dtype`` (bfloat16 halves a full-size
+    model's memory: the values a server's cast gives); norm scales stay
+    float32."""
+    dev = resolve_device(device)
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(gen))
+    return {
+        "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model, dev, dtype),
+        "layers": [_init_layer(cfg, gen, dev, dtype) for _ in range(cfg.n_layers)],
+        "ln_f": L.init_rmsnorm(cfg.d_model, dev),
+    }
+
+
+def for_serving(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The parameters with every matmul weight (2-D and up) in bfloat16,
+    the value each use's cast to the activations' dtype gives, cast once;
+    norm scales stay float32. Tensors already in bfloat16 are shared."""
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v) for v in x]
+        return x.to(_BF16) if x.dim() >= 2 else x
+
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _ffn(lp, cfg: TransformerConfig, axes: MeshAxes, x: torch.Tensor) -> torch.Tensor:
+    return moe_block(lp["moe"], cfg.moe, axes, x) if cfg.moe else L.mlp(lp["mlp"], x)
+
+
+def _layer_fwd(cfg: TransformerConfig, axes: MeshAxes, h, lp, positions):
+    if cfg.seq_parallel:
+        h = constrain(h, axes, "dp", "mp", None)
+    else:
+        h = constrain(h, axes, "dp", None, None)
+    a = L.attention(lp["attn"], cfg.attn, L.rmsnorm(lp["ln1"], h), positions,
+                    causal=True, window=cfg.window)
+    h = h + a
+    return h + _ffn(lp, cfg, axes, L.rmsnorm(lp["ln2"], h))
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=_I32, device=device).expand(b, s)
+
+
+def forward_hidden(params, cfg: TransformerConfig, axes: MeshAxes, tokens: torch.Tensor):
+    b, s = tokens.shape
+    h = L.embed(params["embed"], tokens)
+    positions = _positions(b, s, tokens.device)
+    for lp in params["layers"]:
+        h = _layer_fwd(cfg, axes, h, lp, positions)
+    return L.rmsnorm(params["ln_f"], h)
+
+
+def loss_fn(params, cfg: TransformerConfig, axes: MeshAxes, tokens, labels):
+    h = forward_hidden(params, cfg, axes, tokens)
+    logits = L.logits_from_hidden(params["embed"], h)
+    logits = constrain(logits, axes, "dp", None, "mp")
+    return L.cross_entropy(logits, labels, cfg.vocab)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: TransformerConfig, batch: int, cache_len: int, device=None):
+    """An empty cache on ``device`` (None is the CUDA card): keys and
+    values (L, batch, cache_len, kv, hd) bfloat16, positions -1."""
+    dev = resolve_device(device)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    shape = (cfg.n_layers, batch, cache_len, kv, hd)
+    return {
+        "k": torch.zeros(shape, dtype=_BF16, device=dev),
+        "v": torch.zeros(shape, dtype=_BF16, device=dev),
+        "pos": torch.full((cfg.n_layers, batch, cache_len), -1, dtype=_I32, device=dev),
+    }
+
+
+def prefill(params, cfg: TransformerConfig, axes: MeshAxes, tokens: torch.Tensor):
+    """Run the prompt, return (last-token logits (b, 1, V), filled cache).
+    Cache length = prompt length."""
+    b, s = tokens.shape
+    h = L.embed(params["embed"], tokens)
+    positions = _positions(b, s, tokens.device)
+    mask = L.causal_mask(positions, cfg.window)
+    ks, vs = [], []
+    for lp in params["layers"]:
+        h = constrain(h, axes, "dp", None, None)
+        x = L.rmsnorm(lp["ln1"], h)
+        q, k, v = L._qkv(lp["attn"], cfg.attn, x, positions)
+        probs = L._masked_softmax(L._gqa_scores(q, k, cfg.attn), mask)
+        a = L._gqa_mix(probs, v, cfg.attn).reshape(b, s, -1) @ lp["attn"]["wo"].to(h.dtype)
+        h = h + a
+        h = h + _ffn(lp, cfg, axes, L.rmsnorm(lp["ln2"], h))
+        ks.append(k)
+        vs.append(v)
+    h = L.rmsnorm(params["ln_f"], h)
+    logits = L.logits_from_hidden(params["embed"], h[:, -1:, :])
+    cache = {
+        "k": torch.stack(ks),
+        "v": torch.stack(vs),
+        "pos": _positions(b, s, tokens.device).expand(cfg.n_layers, b, s).clone(),
+    }
+    return logits, cache
+
+
+def decode_step(params, cfg: TransformerConfig, axes: MeshAxes, cache, token: torch.Tensor,
+                pos: torch.Tensor):
+    """token: (b, 1) int32; pos: (b, 1) int32 absolute position (-1: the
+    row writes the dump slot and attends to nothing it keeps).
+    Returns (logits (b, 1, V), cache): the cache is updated in place, a
+    rolling buffer of length cache_len (= window for sliding-window
+    serving)."""
+    h = L.embed(params["embed"], token)
+    for i, lp in enumerate(params["layers"]):
+        h = constrain(h, axes, "dp", None, None)
+        x = L.rmsnorm(lp["ln1"], h)
+        a, _, _, _ = L.attention_decode(lp["attn"], cfg.attn, x, cache["k"][i], cache["v"][i],
+                                        cache["pos"][i], pos)
+        h = h + a
+        h = h + _ffn(lp, cfg, axes, L.rmsnorm(lp["ln2"], h))
+    h = L.rmsnorm(params["ln_f"], h)
+    logits = L.logits_from_hidden(params["embed"], h)
+    logits = constrain(logits, axes, "dp", None, "mp")
+    return logits, cache

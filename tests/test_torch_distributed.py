@@ -5,7 +5,10 @@ Both sides run once for the module, at the same time: eight gloo ranks of
 the port (eight processes over a ``file://`` rendezvous, no network), and
 one process of the reference on eight placeholder XLA devices. Both take
 the reference test's inputs and a skewed pair under a tight capacity
-factor; the port also runs on groups of 1, 2 and 4 of its ranks."""
+factor, on all eight and on worlds of 3 and 6 (the port's first ranks, the
+reference's first devices): sizes that are not a power of two, where the
+reference routes by ``h & (P - 1)`` and leaves some ranks empty. The port
+also runs on groups of 1, 2 and 4 of its ranks."""
 
 import json
 import os
@@ -24,6 +27,7 @@ from repro_torch.core import distributed as D  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 N_RANKS = 8
 SUBGROUPS = (1, 2, 4)
+ODD_WORLDS = (3, 6)  # not powers of two: held against the reference's meshes
 
 # the inputs, as code both sides run: the reference test's relations
 # (RandomState(1), 4,096 x 2,048 rows, keys in [0, 300), cap_factor 4.0,
@@ -96,11 +100,16 @@ _PORT_RANK = _INPUTS + textwrap.dedent(
         if rank < size:
             # the same slots in all: 16,384 a rank of eight
             res[str(size)] = run(sub, *inputs(), **dict(STANDARD, out_cap=16384 * world // size))
+    for size in %r:
+        sub = dist.new_group(list(range(size)))
+        if rank < size:
+            res["world%%d" %% size] = run(sub, *inputs(), **STANDARD)
+            res["tight%%d" %% size] = run(sub, *skewed(), **TIGHT)
     if rank == 0:
         with open(out, "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
-    """ % (SUBGROUPS,)
+    """ % (SUBGROUPS, ODD_WORLDS)
 )
 
 _REFERENCE = textwrap.dedent(
@@ -114,10 +123,9 @@ _REFERENCE = textwrap.dedent(
     import jax
     from repro.core import distributed as D
 
-    mesh = D.engine_mesh()
     assert len(jax.devices()) == 8
 
-    def run(lrows, rrows, cap_factor, groups, out_cap):
+    def run(lrows, rrows, cap_factor, groups, out_cap, mesh=D.engine_mesh()):
         L, R = D.shard_relation(mesh, lrows), D.shard_relation(mesh, rrows)
         count, of = D.make_join_count(mesh, cap_factor=cap_factor)(L, R)
         gk, gc, gof = D.make_group_count(mesh, cap_factor=cap_factor,
@@ -128,9 +136,13 @@ _REFERENCE = textwrap.dedent(
                          np.asarray(k).ravel(), n, mof)
 
     res = {"8": run(*inputs(), **STANDARD), "tight": run(*skewed(), **TIGHT)}
+    for size in %r:
+        mesh = D.engine_mesh(jax.devices()[:size])
+        res["world%%d" %% size] = run(*inputs(), **STANDARD, mesh=mesh)
+        res["tight%%d" %% size] = run(*skewed(), **TIGHT, mesh=mesh)
     with open(sys.argv[1], "w") as f:
         json.dump(res, f)
-    """
+    """ % (ODD_WORLDS,)
 )
 
 
@@ -201,6 +213,30 @@ def test_group_sizes_give_the_same_answers(runs, size):
     assert port[str(size)] == port[str(N_RANKS)]
 
 
+@pytest.mark.parametrize("size", ODD_WORLDS)
+def test_odd_worlds_match_the_reference(runs, size):
+    """A world of 3 or 6 ranks: count, groups, the materialisation and every
+    overflow equal the reference's on as many devices, and the count and
+    groups the Counters' (the inputs' keys are all in range)."""
+    port, ref = runs
+    count, per_key, groups = _oracle()
+    got, want = port[f"world{size}"], ref[f"world{size}"]
+    assert got == want
+    assert got["count"] == count and got["groups"] == groups
+    assert got["overflow"] == got["group_overflow"] == 0
+
+
+@pytest.mark.parametrize("size", ODD_WORLDS)
+def test_odd_worlds_overflow_counts_match_the_reference(runs, size):
+    """The skewed pair under the tight capacity factor on 3 and 6 ranks:
+    the exchange's overflow counts (padding rows routed like the
+    reference's) equal the reference's."""
+    port, ref = runs
+    got, want = port[f"tight{size}"], ref[f"tight{size}"]
+    assert got["overflow"] > 0 and got["group_overflow"] > 0
+    assert (got["overflow"], got["group_overflow"]) == (want["overflow"], want["group_overflow"])
+
+
 def _bucket_oracle(rows, keys, n_parts, cap):
     h = ((keys.astype(np.uint64) * 0x9E3779B1) & 0xFFFFFFFF) >> 16
     pid = (h & (n_parts - 1)).astype(np.int64)
@@ -218,7 +254,8 @@ def _bucket_oracle(rows, keys, n_parts, cap):
 
 @pytest.mark.parametrize("n_parts,cap_factor,skew,overflows", [
     (8, 4.0, 0.0, False), (8, 0.9, 0.0, True), (8, 2.0, 0.3, True), (1, 1.0, 0.3, False),
-    (64, 1.5, 0.3, True)])
+    (64, 1.5, 0.3, True), (3, 4.0, 0.0, False), (3, 1.0, 0.3, True), (6, 2.0, 0.0, False),
+    (6, 1.5, 0.3, True), (12, 2.0, 0.3, True)])
 def test_bucket_matches_numpy(n_parts, cap_factor, skew, overflows):
     """Buckets, positions and overflow against a loop over the buckets;
     ``skew`` of the keys are one value, and the first seven are padding."""

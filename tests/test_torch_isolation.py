@@ -59,6 +59,18 @@ def test_entry_points_default_to_the_card():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         engine_group()
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn.sampler import BARQSampler
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.lm_server import LMServer
+
+    cfg = get_config("qwen3-8b").reduced_model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMServer(cfg, init_params(cfg, 0, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BARQSampler(store, ":knows")
 
 
 @pytest.mark.parametrize("field,value", [

@@ -203,18 +203,50 @@ def test_sip_mask_refuses_bad_inputs():
 
 def test_sip_descriptor_holds_the_kernel_layout():
     """Per filter four 64-bit words: codes and words pointers, the words'
-    index mask, and (lo, hi) as two int32 halves; then the filter count.
-    Ranges are cut to int32 and an empty one stays empty."""
+    index mask, and (lo, hi) as two int32 halves; then the filter count;
+    then per filter its counter pair's pointer, or 0. Ranges are cut to
+    int32 and an empty one stays empty."""
     codes = torch.arange(8, dtype=torch.int32)
     words = torch.zeros(64, dtype=torch.int32)
-    d = BF._descriptor([(codes, words, -5, 2 ** 40), (codes, None, 3, 2)])
-    assert len(d) == 4 * BF.SIP_TERMS + 1 == BF._DESC_WORDS
+    pair = torch.zeros(2, dtype=torch.int64)
+    d = BF._descriptor([(codes, words, -5, 2 ** 40), (codes, None, 3, 2)], [None, pair])
+    assert len(d) == 5 * BF.SIP_TERMS + 1 == BF._DESC_WORDS
+    assert d[4 * BF.SIP_TERMS + 1] == 0 and d[4 * BF.SIP_TERMS + 2] == pair.data_ptr()
+    assert all(d[4 * BF.SIP_TERMS + 1 + k] == 0 for k in range(2, BF.SIP_TERMS))
     assert d[0] == codes.data_ptr() and d[1] == words.data_ptr() and d[2] == 63
     half = lambda w, k: int(np.int32(np.uint32((w >> (32 * k)) & 0xFFFFFFFF)))  # noqa: E731
     assert (half(d[3], 0), half(d[3], 1)) == (-5, 2 ** 31 - 1)
     assert d[4] == codes.data_ptr() and d[5] == 0 and d[6] == 0
     assert (half(d[7], 0), half(d[7], 1)) == (0, -1)
     assert d[4 * BF.SIP_TERMS] == 2
+
+
+def _reference_filter(keys, lo, hi):
+    f = RSipFilter(var=0, backend="numpy")
+    f.bind((lambda: ("keys", keys)) if keys is not None else (lambda: ("range", lo, hi)))
+    return f
+
+
+@pytest.mark.parametrize("case", sorted(SIP_CASES))
+def test_sip_mask_counts_each_filter_as_the_reference(case):
+    """Each filter's counter pairs, a zeroed pair a batch as ``SipFilter``
+    gives them, summed over two batches: the rows of [0, n_rows) that it
+    alone rejects, whatever the mask holds, and the batches where it has
+    words and a code fell inside its range: the reference SipFilter's
+    ``rows_pruned`` and ``probe_dispatches``."""
+    mask_np, n, specs, mat, phase = _sip_case(case)
+    terms = _port_filters(specs, mat, phase, n)
+    refs = [_reference_filter(*spec) for spec in specs]
+    total = torch.zeros(len(terms), 2, dtype=torch.int64)
+    for _ in range(2):
+        pairs = [torch.zeros(2, dtype=torch.int64) for _ in terms]
+        BF.sip_mask(T(mask_np), n, terms, counts=pairs)
+        total += torch.stack(pairs)
+        for k, f in enumerate(refs):
+            f.mask(mat[k, :n])
+    assert total.tolist() == [[f.rows_pruned, f.probe_dispatches] for f in refs]
+    with pytest.raises(ValueError, match="counter pair"):
+        BF.sip_mask(T(mask_np), n, terms, counts=pairs[:-1] + [torch.zeros(2)])
 
 
 def test_sip_mask_counts_no_launch_on_the_cpu():
@@ -247,9 +279,9 @@ def recorded(monkeypatch):
     calls = []
     real = BF.sip_mask
 
-    def rec(mask, n_rows, filters, out=None):
+    def rec(mask, n_rows, filters, out=None, counts=None):
         calls.append((len(filters), out is None))
-        return real(mask, n_rows, filters, out)
+        return real(mask, n_rows, filters, out, counts)
 
     monkeypatch.setattr(BF, "sip_mask", rec)
     return calls
