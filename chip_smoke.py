@@ -134,6 +134,26 @@ script exits non-zero:
             CSR sampler over the (s, o)-sorted edges, the same RandomState
             draws) and every sampled edge a :knows edge; the wall of each
             block;
+  train     training on the card, parts 1 and 2 (the node store is the
+            sampler phase's). Part 1: graphsage-reddit at full width
+            (2 layers, d_hidden 128, d_feat 602; 169,984 nodes and 168,960
+            edges a block) through the port's Trainer for TRAIN_STEPS steps
+            on blocks of GraphPipeline(BARQSampler) at minibatch_lg, with a
+            checkpoint at TRAIN_CKPT_AT in a temporary directory (counters
+            set to 0 before the run, read after: join_expand and
+            gather_emit must launch); every loss finite; the step-4
+            checkpoint removed and a second Trainer on the same directory
+            resumed from step 2, its restored state bit-equal to the state
+            the first run saved and its step-4 parameters within RESUME_TOL
+            lr of the uninterrupted run's; each step's sampling wall, host
+            feature build, upload and device time (CUDA events), the host
+            syncs of a step, peak device memory, one step under
+            torch.profiler; one step on the card against the same step on
+            the CPU (loss, every gradient leaf). Part 2: each of the ten
+            architectures' reduced train step (tests/test_arch_smoke.py's
+            shapes) on the card against the CPU from the same parameters
+            and inputs: loss, grad_norm, lr, step, parameters (tolerances
+            in TRAIN_REDUCED_TOL). Parts 3 and 4 run last, after lm;
   follow-ups  a second run of each default-path query but q6, of the
             merge path's q1 and of p1-p5 counts its host syncs, and a third of q4
             (PROFILED_QUERY) under torch.profiler gives the device's busy
@@ -196,7 +216,14 @@ script exits non-zero:
             factor of experts / top_k, where nothing drops; 4 requests
             served at the config's 1.25); the reduced qwen3-8b's served
             tokens equal to offline greedy decoding. None of the engine's
-            kernels is on this path (its launches are counted all the same).
+            kernels is on this path (its launches are counted all the same);
+  train, parts 3 and 4: dcn-v2 with the full Criteo tables (33,763,622
+            rows x 16) for TRAIN_DCN_STEPS steps at train_batch (65,536
+            rows from recsys_batch), qwen3-8b at full width cut to
+            TRAIN_LM_LAYERS of its 36 layers for TRAIN_LM_STEPS steps on
+            one sequence of 4,096 tokens (token_batch): finite losses, a
+            parameter changed, ms a step (CUDA events), peak device memory
+            above the state's, one more step under torch.profiler.
 
 Each phase header carries the seconds since the start. The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -431,6 +458,42 @@ LM_DECODE_TOL = 1e-3  # decode against prefill, rtol and atol (tests/test_torch_
 LM_STEP_ITERS = 20
 LM_MOE_LAYERS = 4
 LM_MOE_REQUESTS, LM_MOE_MAX_NEW = 4, 8
+# the train phase. Part 1: graphsage-reddit at full width through the
+# Trainer on BARQ-sampled minibatch_lg blocks (a sampler of its own, seeded
+# TRAIN_SEED, over the sampler phase's node store): TRAIN_STEPS steps with
+# a checkpoint at TRAIN_CKPT_AT, then a second trainer resumed there; the
+# resumed run's last parameters within RESUME_TOL * TRAIN_LR of the
+# uninterrupted run's (index_add adds in no fixed order on the card, so two
+# replays of a step are not bit-equal; deterministic algorithms stay off);
+# one step on the card against the CPU: loss to CARD_CPU_LOSS_RTOL, each
+# gradient leaf within CARD_CPU_GRAD_FRACTION of its largest magnitude
+# (float32, TF32 off as PyTorch's default has it)
+TRAIN_SEED = 1
+TRAIN_STEPS, TRAIN_CKPT_AT = 4, 2
+TRAIN_LR = 1e-2
+RESUME_TOL = 0.1
+CARD_CPU_LOSS_RTOL = 1e-5
+CARD_CPU_GRAD_FRACTION = 1e-4
+# part 2: each architecture's reduced model at tests/test_arch_smoke.py's
+# shapes, one step on the card against the CPU. Loss (relative) and
+# grad_norm (relative); new parameters within 2 lr of the CPU's (AdamW's
+# first step moves an entry by about lr times its gradient's sign) and the
+# share of entries further than 1e-3 lr apart at most "far" (a gradient
+# near zero may take the other sign). bfloat16 compute for the LMs; MoE
+# routing near a tie may send a token to another expert.
+TRAIN_SMOKE_SHAPES = {
+    "lm": {"train_4k": {"global_batch": 4, "seq_len": 64}},
+    "gnn": {"full_graph_sm": {"n_nodes": 128, "n_edges": 512, "d_feat": 24, "n_classes": 6}},
+    "recsys": {"train_batch": {"batch": 64}},
+}
+TRAIN_REDUCED_TOL = {"f32": {"loss": 1e-5, "grad_norm": 1e-4, "far": 0.01},
+                     "dense": {"loss": 1e-3, "grad_norm": 2e-2, "far": 0.05},
+                     "moe": {"loss": 1e-3, "grad_norm": 5e-2, "far": 0.2}}
+# parts 3 and 4, after the lm phase: dcn-v2 with the full Criteo tables at
+# train_batch (65,536), and qwen3-8b at full width cut to TRAIN_LM_LAYERS
+# of its 36 layers on one sequence of train_4k's 4,096 tokens
+TRAIN_DCN_STEPS = 3
+TRAIN_LM_LAYERS, TRAIN_LM_STEPS = 2, 2
 
 T_START = time.perf_counter()
 
@@ -3346,10 +3409,439 @@ def sampler_phase(dev, store, report):
         f"seeds) equal to the numpy replay, every edge a :knows edge; edges sampled "
         f"{sampled}; wall a block {[round(w, 3) for w in walls]} s; host syncs in one "
         f"block {syncs}; launches { {k: v for k, v in launches.items() if v} }")
-    del pipe, nstore
+    del pipe
     rep["phase_s"] = time.perf_counter() - t0
     log(f"  sampler phase: {rep['phase_s']:.1f} s")
+    return launches, (nstore, labels, n)
+
+
+# ---------------------------------------------------------------------------
+# the train phase: training on the card
+# ---------------------------------------------------------------------------
+
+
+def _cpu_tree(tree):
+    from repro_torch.train.tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def _tree_to(tree, dev):
+    from repro_torch.train.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def _leaf_err(got, want):
+    """max |got - want| over every leaf, and that over the leaves' largest
+    magnitude (each leaf's own), worst leaf first."""
+    from repro_torch.train.tree import flatten_with_paths, leaves
+
+    worst, rel, name = 0.0, 0.0, ""
+    for (path, a), b in zip(flatten_with_paths(got), leaves(want)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        d = float((a - b).abs().max()) if a.numel() else 0.0
+        r = d / max(float(b.abs().max()), 1e-30) if a.numel() else 0.0
+        worst = max(worst, d)
+        if r > rel:
+            rel, name = r, "/".join(path)
+    return worst, rel, name
+
+
+def _moved_apart(new, want, old, lr):
+    """(largest |new - want| in units of lr, share of entries further than
+    1e-3 lr apart, whether any entry of ``new`` differs from ``old``)."""
+    from repro_torch.train.tree import leaves
+
+    worst, far, total, moved = 0.0, 0, 0, False
+    for a, b, o in zip(leaves(new), leaves(want), leaves(old)):
+        a, b, o = a.detach().float().cpu(), b.detach().float().cpu(), o.detach().float().cpu()
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()) / lr)
+        far += int((d > 1e-3 * lr).sum())
+        total += d.numel()
+        moved = moved or not torch.equal(a, o)
+    return worst, far / max(total, 1), moved
+
+
+def _step_profile(fn):
+    """One run of a train step under torch.profiler: device busy seconds,
+    the wall, the idle share, the top device ops."""
+    out = device_profile(fn, top=6)
+    busy, wall = out["device_busy_s"], out["profiled_wall_s"]
+    return {"device_busy_s": busy, "profiled_wall_s": wall,
+            "idle_share": None if busy is None else 1 - busy / wall,
+            "device_ops": out["device_ops"], "cuda_launch_kernel": out["cuda_launch_kernel"]}
+
+
+def _log_profile(label, prof):
+    top = ", ".join(f"{name[:48]} {us / 1e3:.3f} ms ({n})" for name, n, us in prof["device_ops"])
+    busy = prof["device_busy_s"]
+    log(f"    {label} under torch.profiler: device busy "
+        f"{'not recorded' if busy is None else f'{busy * 1e3:.3f} ms'} of "
+        f"{prof['profiled_wall_s'] * 1e3:.3f} ms, {prof['cuda_launch_kernel']} "
+        f"cudaLaunchKernel; top device ops {top}")
+
+
+def graphsage_blocks(dev, nstore, labels, n):
+    """A step -> (graph on the card,) function over
+    ``GraphPipeline(BARQSampler)`` at graphsage-reddit's minibatch_lg, and
+    the timings of each step's parts. A step's block and its features are
+    built once and kept on the host (the sampler's draws are stateful), so
+    a resumed run replays the blocks of the run it resumes; every call
+    uploads its graph."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.models.gnn.sampler import BARQSampler
+    from repro_torch.pipeline.data import GraphPipeline, block_to_model_inputs
+
+    shape = GNN_SHAPES["minibatch_lg"]
+    pipe = GraphPipeline(BARQSampler(nstore, ":knows", seed=TRAIN_SEED, device=dev), labels, n,
+                         shape["batch_nodes"], list(shape["fanouts"]), seed=TRAIN_SEED)
+    kept, parts = {}, {}
+
+    def batch(step):
+        if step not in kept:
+            t0 = time.perf_counter()
+            block = pipe.batch(step)
+            t1 = time.perf_counter()
+            kept[step] = block_to_model_inputs(block, shape["d_feat"])
+            parts[step] = {"sample_s": t1 - t0, "features_s": time.perf_counter() - t1,
+                           "x_bytes": int(kept[step]["x"].nbytes),
+                           "edges": int((block.edge_src >= 0).sum()), "upload_s": []}
+        t2 = time.perf_counter()
+        g = {k: torch.from_numpy(v).to(dev) for k, v in kept[step].items()}
+        torch.cuda.synchronize()
+        parts[step]["upload_s"].append(time.perf_counter() - t2)
+        return (g,)
+
+    return batch, parts
+
+
+def _graphsage_trainer(dev, bundle, init_state, batch, ckpt_dir, steps, events, seen):
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def train_step(state, b):
+        seen.append(state)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, metrics = bundle.fn(*state, *b)
+        end.record()
+        events.append((start, end))
+        return (params, opt), metrics
+
+    return Trainer(TrainerConfig(total_steps=steps, ckpt_every=TRAIN_CKPT_AT, ckpt_dir=ckpt_dir,
+                                 keep_ckpts=3, log_every=1), train_step, init_state, batch)
+
+
+def train_graphsage(dev, nstore, labels, n, rep, fail):
+    """Part 1: graphsage-reddit at full width on BARQ-sampled blocks through
+    the port's Trainer, a checkpoint, a resume, and one step against the
+    CPU."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import _gnn_graph_shape, build_step
+    from repro_torch.models.gnn import models as GNN
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.trainer import host_metrics
+    from repro_torch.train.tree import leaves, tree_map, value_and_grad
+
+    arch = get_config("graphsage-reddit")
+    gshape = _gnn_graph_shape(arch, "minibatch_lg", arch.model)
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    bundle = build_step(arch, "minibatch_lg", None, opt_cfg)
+    out = rep["graphsage"] = {"n_nodes": gshape.n_nodes, "n_edges": gshape.n_edges,
+                              "d_feat": gshape.d_feat, "d_hidden": arch.model.d_hidden,
+                              "layers": arch.model.n_layers, "steps": TRAIN_STEPS,
+                              "ckpt_at": TRAIN_CKPT_AT, "lr": TRAIN_LR,
+                              "tf32_matmul": torch.backends.cuda.matmul.allow_tf32}
+
+    def init_state():
+        params = GNN.init(SEED, arch.model, gshape, dev)
+        return (params, init_opt_state(params))
+
+    with tempfile.TemporaryDirectory(prefix="barq-train-") as ckdir:
+        batch, parts = graphsage_blocks(dev, nstore, labels, n)
+        events, seen = [], []
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = _graphsage_trainer(dev, bundle, init_state, batch, ckdir, TRAIN_STEPS, events, seen)
+        res = first.run()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        step_ms = [s.elapsed_time(e) for s, e in events]
+        losses = [m["loss"] for m in first.metrics_history]
+        final = first.state
+        saved = seen[TRAIN_CKPT_AT]  # the state the step-2 checkpoint holds
+        for k in ("join_expand", "gather_emit"):
+            fail.check(launches[k] > 0, f"train: {k} was never launched in the graphsage run")
+        fail.check(all(np.isfinite(losses)) and res["step"] == TRAIN_STEPS,
+                   f"train: graphsage losses {losses}, result {res}")
+        fail.check(CheckpointManager(ckdir).all_steps() == [TRAIN_CKPT_AT, TRAIN_STEPS],
+                   f"train: checkpoints {CheckpointManager(ckdir).all_steps()}")
+        # a run preempted after its step-2 save: the step-4 checkpoint goes
+        # and a second trainer on the same directory resumes
+        import shutil
+
+        shutil.rmtree(Path(ckdir) / f"step_{TRAIN_STEPS:09d}")
+        seen2 = []
+        second = _graphsage_trainer(dev, bundle, init_state, batch, ckdir, TRAIN_STEPS, [], seen2)
+        res2 = second.run()
+        restored = seen2[0]
+        bit_equal = all(torch.equal(a, b) for a, b in zip(leaves(restored), leaves(saved))) \
+            and len(leaves(restored)) == len(leaves(saved))
+        fail.check(bit_equal, "train: the restored state differs from the state saved at step 2")
+        resumed_diff = max(float((a - b).abs().max()) for a, b in
+                           zip(leaves(second.state[0]), leaves(final[0])))
+        fail.check(res2["step"] == TRAIN_STEPS and len(second.metrics_history) ==
+                   TRAIN_STEPS - TRAIN_CKPT_AT, f"train: the resumed run gave {res2}")
+        fail.check(resumed_diff <= RESUME_TOL * TRAIN_LR,
+                   f"train: resumed step-{TRAIN_STEPS} parameters differ from the "
+                   f"uninterrupted run's by {resumed_diff} (> {RESUME_TOL} lr)")
+        # host syncs of one step: the step function and its metrics' read
+        state0 = seen[0]
+        (graph0,) = batch(0)
+        syncs = count_syncs(lambda: host_metrics(bundle.fn(*state0, graph0)[2]))
+        prof = _step_profile(lambda: host_metrics(bundle.fn(*state0, graph0)[2]))
+        # one step on the card against the same step on the CPU
+        loss_fn = value_and_grad(lambda p, g: GNN.loss(p, arch.model, g))
+        c0 = time.perf_counter()
+        gl, gg = loss_fn(state0[0], graph0)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - c0
+        c0 = time.perf_counter()
+        cl, cg = loss_fn(_cpu_tree(state0[0]), _cpu_tree(graph0))
+        cpu_s = time.perf_counter() - c0
+        loss_rel = abs(float(gl) - float(cl)) / abs(float(cl))
+        g_abs, g_rel, g_name = _leaf_err(gg, cg)
+        fail.check(loss_rel <= CARD_CPU_LOSS_RTOL and g_rel <= CARD_CPU_GRAD_FRACTION,
+                   f"train: graphsage card step against the CPU: loss rel {loss_rel}, "
+                   f"gradient {g_rel} of {g_name}'s largest")
+    out.update(result=res, losses=losses, wall_s=wall, launches=launches,
+               step_device_ms=step_ms, blocks=parts, host_syncs_step=syncs,
+               profile=prof, restored_bit_equal=bit_equal, resumed_max_abs_diff=resumed_diff,
+               resumed_tol=RESUME_TOL * TRAIN_LR,
+               card_vs_cpu={"loss_card": float(gl), "loss_cpu": float(cl), "loss_rel": loss_rel,
+                             "grad_max_abs": g_abs, "grad_worst_fraction": g_rel,
+                             "grad_worst_leaf": g_name, "card_s": card_s, "cpu_s": cpu_s})
+    log(f"  graphsage-reddit at full width ({gshape.n_nodes} nodes, {gshape.n_edges} edges, "
+        f"d_feat {gshape.d_feat}, d_hidden {arch.model.d_hidden}): {TRAIN_STEPS} Trainer steps "
+        f"on BARQ-sampled minibatch_lg blocks, losses {[round(x, 4) for x in losses]}, "
+        f"checkpoint at {TRAIN_CKPT_AT}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for s in sorted(parts):
+        p = parts[s]
+        log(f"    step {s}: sampling {p['sample_s']:.3f} s, features {p['features_s']:.3f} s "
+            f"({p['x_bytes']} bytes), uploads {[round(u, 3) for u in p['upload_s']]} s, train step "
+            f"{step_ms[s]:.3f} ms (CUDA events), {p['edges']} edges sampled")
+    _log_profile("graphsage step", prof)
+    log(f"    host syncs a train step {syncs}; peak device memory {out['peak_bytes']} bytes; "
+        f"restored state bit-equal to the saved {bit_equal}; resumed step-{TRAIN_STEPS} "
+        f"parameters within {resumed_diff} of the uninterrupted run's (tolerance "
+        f"{RESUME_TOL * TRAIN_LR})")
+    log(f"    card against CPU, one step: loss {float(gl)} / {float(cl)} (rel {loss_rel:.3g}, "
+        f"rtol {CARD_CPU_LOSS_RTOL}), gradients within {g_rel:.3g} of the leaf's largest "
+        f"(worst {g_name}, tolerance {CARD_CPU_GRAD_FRACTION}); card {card_s:.3f} s, CPU "
+        f"{cpu_s:.3f} s")
     return launches
+
+
+def _smoke_cell(arch_id):
+    from repro_torch.configs import get_config
+
+    arch = get_config(arch_id)
+    shape_name, override = next(iter(TRAIN_SMOKE_SHAPES[arch.kind].items()))
+    return dataclasses.replace(arch, shapes={shape_name: {**arch.shapes[shape_name],
+                                                          **override}}), shape_name
+
+
+def _smoke_inputs(arch, shape_name):
+    """The smoke cell's inputs on the CPU, from SEED."""
+    from repro_torch.launch.steps import _gnn_graph_shape
+    from repro_torch.models.gnn import models as GNN
+    from repro_torch.pipeline.data import recsys_batch, token_batch
+
+    red = arch.reduced_model
+    if arch.kind == "lm":
+        sh = arch.shapes[shape_name]
+        d = token_batch(SEED, 0, sh["global_batch"], sh["seq_len"], red.vocab)
+        return (torch.from_numpy(d["tokens"]), torch.from_numpy(d["labels"]))
+    if arch.kind == "gnn":
+        g = GNN.make_graph_inputs(_gnn_graph_shape(arch, shape_name, red), SEED, device="cpu")
+        pad = torch.from_numpy(np.random.RandomState(SEED).rand(len(g["edge_src"])) < 0.1)
+        g["edge_src"][pad] = -1
+        g["edge_dst"][pad] = -1
+        return (g,)
+    d = recsys_batch(SEED, 0, arch.shapes[shape_name]["batch"], red.n_dense, red.n_sparse,
+                     [red.table_rows(i) for i in range(red.n_sparse)])
+    return tuple(torch.from_numpy(d[k]) for k in ("dense", "sparse", "labels"))
+
+
+def train_reduced(dev, rep, fail):
+    """Part 2: each architecture's reduced train step on the card against
+    the same step on the CPU, from the same parameters and inputs."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.steps import build_step
+    from repro_torch.launch.train import init_state
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    out = rep["reduced"] = {}
+    for arch_id in ARCH_IDS:
+        arch, shape_name = _smoke_cell(arch_id)
+        bundle = build_step(arch, shape_name, None,
+                            OptimizerConfig(warmup_steps=2, total_steps=10), use_reduced=True)
+        params, opt = init_state(arch, shape_name, SEED, "cpu")
+        args = _smoke_inputs(arch, shape_name)
+        cp, _, cm = bundle.fn(params, opt, *args)
+        gp, gopt, gm = bundle.fn(_tree_to(params, dev), _tree_to(opt, dev),
+                                 *_tree_to(args, dev))
+        kind = "f32" if arch.kind != "lm" else ("moe" if arch.reduced_model.moe else "dense")
+        tol = TRAIN_REDUCED_TOL[kind]
+        lr = float(cm["lr"])
+        loss, want = float(gm["loss"]), float(cm["loss"])
+        gn_rel = abs(float(gm["grad_norm"]) - float(cm["grad_norm"])) / float(cm["grad_norm"])
+        worst, far, moved = _moved_apart(gp, cp, params, lr)
+        ok = (np.isfinite(loss) and abs(loss - want) <= tol["loss"] * max(abs(want), 1.0)
+              and gn_rel <= tol["grad_norm"] and float(gm["lr"]) == lr
+              and int(gopt["step"]) == 1 and worst <= 2.002 and far <= tol["far"] and moved)
+        out[arch_id] = {"shape": shape_name, "loss_card": loss, "loss_cpu": want,
+                        "grad_norm_card": float(gm["grad_norm"]),
+                        "grad_norm_cpu": float(cm["grad_norm"]), "grad_norm_rel": gn_rel,
+                        "lr": lr, "max_param_diff_lr": worst, "far_share": far, "ok": ok}
+        fail.check(ok, f"train: {arch_id} reduced step, card against CPU: {out[arch_id]}")
+        log(f"  {arch_id} reduced: loss card {loss:.6f} / CPU {want:.6f}, grad_norm rel "
+            f"{gn_rel:.3g}, parameters within {worst:.3f} lr (share beyond 1e-3 lr "
+            f"{far:.4f}; tolerances {tol})")
+
+
+def train_phase(dev, nstore, labels, n, report):
+    """Parts 1 and 2 of training on the card (the node store is the sampler
+    phase's); returns the launches of part 1's run."""
+    t0 = time.perf_counter()
+    rep = report["train"] = {}
+    fail = Failures("train")
+    launches = train_graphsage(dev, nstore, labels, n, rep, fail)
+    train_reduced(dev, rep, fail)
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"  train phase (parts 1 and 2): {rep['phase_s']:.1f} s")
+    fail.raise_any()
+    return launches
+
+
+def _step_ms_and_peak(dev, bundle, state, batches, rep, label, fail):
+    """Run ``len(batches)`` steps from the (params, opt) popped from the
+    list ``state`` (so that no caller keeps the first state alive); CUDA-event
+    ms a step, peak bytes, the losses; a leaf must change and every loss be
+    finite."""
+    from repro_torch.train.tree import leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, opt = state.pop()
+    first = [t.clone() for t in leaves(params)[:3]]
+    ms, losses = [], []
+    for args in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = bundle.fn(params, opt, *args)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    moved = any(not torch.equal(a, b) for a, b in zip(first, leaves(params)[:3]))
+    peak = torch.cuda.max_memory_allocated() - base
+    # one more step under the profiler, its result dropped
+    prof = _step_profile(lambda: float(bundle.fn(params, opt, *batches[-1])[2]["loss"]))
+    _log_profile(f"{label} step", prof)
+    fail.check(all(np.isfinite(losses)) and moved,
+               f"train: {label}: losses {losses}, a parameter moved {moved}")
+    rep[label].update(step_ms=ms, losses=losses, peak_bytes=peak, base_bytes=base,
+                      parameter_moved=moved, profile=prof)
+    log(f"  {label}: {len(ms)} steps, losses {[round(x, 5) for x in losses]}, ms a step "
+        f"{[round(x, 3) for x in ms]} (CUDA events), peak device memory {peak} bytes above "
+        f"the state's {base}")
+    return params, opt
+
+
+def train_big_phase(dev, report):
+    """Parts 3 and 4: dcn-v2 with the full Criteo tables at train_batch and
+    qwen3-8b at full width cut to TRAIN_LM_LAYERS layers, one sequence of
+    4,096 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.recsys import dcn as DCN
+    from repro_torch.pipeline.data import recsys_batch, token_batch
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+
+    t0 = time.perf_counter()
+    rep = report["train"]
+    fail = Failures("train")
+    torch.cuda.empty_cache()
+    arch = get_config("dcn-v2")
+    cfg = arch.model
+    batch = arch.shapes["train_batch"]["batch"]
+    params = DCN.init_params(cfg, SEED, device=dev)
+    rows = sum(cfg.padded_rows(i) for i in range(cfg.n_sparse))
+    rep["dcn-v2"] = {"table_rows": rows, "batch": batch,
+                     "params": sum(t.numel() for t in _tensors(params))}
+    bundle = build_step(arch, "train_batch", None, OptimizerConfig())
+
+    def dcn_batch(step):
+        d = recsys_batch(SEED, step, batch, cfg.n_dense, cfg.n_sparse,
+                         [cfg.table_rows(i) for i in range(cfg.n_sparse)])
+        return tuple(torch.from_numpy(d[k]).to(dev) for k in ("dense", "sparse", "labels"))
+
+    state = [(params, init_opt_state(params))]
+    del params
+    _step_ms_and_peak(dev, bundle, state, [dcn_batch(s) for s in range(TRAIN_DCN_STEPS)], rep,
+                      "dcn-v2", fail)
+    torch.cuda.empty_cache()
+
+    full = get_config("qwen3-8b")
+    cfg = dataclasses.replace(full.model, n_layers=TRAIN_LM_LAYERS)
+    arch = dataclasses.replace(full, model=cfg, shapes={"train": {
+        **full.shapes["train_4k"], "global_batch": 1}})
+    params = TF.stack_layers(TF.init_params(cfg, SEED, device=dev))
+    rep["qwen3-8b"] = {"layers": cfg.n_layers, "of_layers": full.model.n_layers,
+                       "params": sum(t.numel() for t in _tensors(params)),
+                       "seq_len": arch.shapes["train"]["seq_len"], "batch": 1,
+                       "remat": cfg.remat}
+    bundle = build_step(arch, "train", None, OptimizerConfig())
+
+    def lm_batch(step):
+        d = token_batch(SEED, step, 1, arch.shapes["train"]["seq_len"], cfg.vocab)
+        return (torch.from_numpy(d["tokens"]).to(dev), torch.from_numpy(d["labels"]).to(dev))
+
+    state = [(params, init_opt_state(params))]
+    del params
+    _step_ms_and_peak(dev, bundle, state, [lm_batch(s) for s in range(TRAIN_LM_STEPS)], rep,
+                      "qwen3-8b", fail)
+    torch.cuda.empty_cache()
+    rep["big_phase_s"] = time.perf_counter() - t0
+    log(f"  train phase (parts 3 and 4): {rep['big_phase_s']:.1f} s")
+    fail.raise_any()
+
+
+class Failures:
+    """Checks of a phase gathered, so that one run reports them all; the
+    phase raises at its end if any failed."""
+
+    def __init__(self, phase):
+        self.phase, self.failed = phase, []
+
+    def check(self, cond, what):
+        if not cond:
+            log(f"  FAILED: {what}")
+            self.failed.append(what)
+
+    def raise_any(self):
+        require(not self.failed, f"{self.phase}: {len(self.failed)} checks failed: "
+                                 + "; ".join(self.failed))
 
 
 # ---------------------------------------------------------------------------
@@ -4300,7 +4792,10 @@ def main() -> int:
     log(f"distributed: {elapsed()}")
     path_launches["distributed"] = distributed_phase(dev, store, report, chains)
     log(f"sampler: {elapsed()}")
-    path_launches["sampler"] = sampler_phase(dev, store, report)
+    path_launches["sampler"], node_graph = sampler_phase(dev, store, report)
+    log(f"train: {elapsed()}")
+    path_launches["train"] = train_phase(dev, *node_graph, report)
+    del node_graph
     with tempfile.TemporaryDirectory() as tmp:
         child_out = Path(tmp) / "cpu_breadth.json"
         child = start_cpu_breadth(child_out)
@@ -4322,6 +4817,8 @@ def main() -> int:
                 child.wait()
     log(f"lm: {elapsed()}")
     path_launches["lm"] = lm_phase(dev, report)
+    log(f"train, parts 3 and 4: {elapsed()}")
+    train_big_phase(dev, report)
     for name, (_, _, path) in KERNEL_INFO.items():
         rows[name]["launches"] = path_launches[path][name]
         rows[name]["launches_by_path"] = {p: n[name] for p, n in path_launches.items()}

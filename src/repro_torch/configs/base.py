@@ -1,10 +1,9 @@
 """Architecture config registry (``--arch <id>``), as in the reference
 package.
 
-Each LM architecture has one module exporting ``ARCH`` with its published
+Each architecture has one module exporting ``ARCH`` with its published
 configuration, its shape set and ``reduced_model``, a small variant of the
-same family for tests on the CPU. The GNN and recsys architectures (and
-``all_cells``, the dry run's cells) come with their models' slice.
+same family for tests on the CPU. ``all_cells`` lists every (arch, shape).
 """
 
 from __future__ import annotations
@@ -25,30 +24,31 @@ ARCH_IDS: Tuple[str, ...] = (
     "gat-cora",
     "dcn-v2",
 )
-LM_IDS: Tuple[str, ...] = ARCH_IDS[:5]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     kind: str  # lm | gnn | recsys
-    model: Any  # TransformerConfig (GNNConfig | DCNConfig with their slice)
+    model: Any  # TransformerConfig | GNNConfig | DCNConfig
     shapes: Dict[str, Dict[str, Any]]
     source: str = ""
     reduced_model: Optional[Any] = None  # smoke-test variant
     notes: str = ""
 
 
-_MODULES = {aid: f"repro_torch.configs.{aid.replace('-', '_')}" for aid in LM_IDS}
+_MODULES = {aid: f"repro_torch.configs.{aid.replace('-', '_')}" for aid in ARCH_IDS}
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
     if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"{arch_id}: the GNN and recsys models come with slice 5d of the port")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id]).ARCH
+
+
+def all_cells() -> Tuple[Tuple[str, str], ...]:
+    """Every (arch, shape) cell."""
+    return tuple((aid, shape) for aid in ARCH_IDS for shape in get_config(aid).shapes)
 
 
 # Shared shape sets -----------------------------------------------------------
@@ -85,4 +85,11 @@ GNN_SHAPES: Dict[str, Dict[str, Any]] = {
         d_feat=16,
         n_classes=16,
     ),
+}
+
+RECSYS_SHAPES: Dict[str, Dict[str, Any]] = {
+    "train_batch": dict(step="recsys_train", batch=65536),
+    "serve_p99": dict(step="recsys_serve", batch=512),
+    "serve_bulk": dict(step="recsys_serve", batch=262144),
+    "retrieval_cand": dict(step="recsys_retrieval", batch=1, n_candidates=1000000),
 }

@@ -1,1 +1,2 @@
-"""GNN data: neighbour samplers (the BARQ engine as the data pipeline)."""
+"""GNNs: neighbour samplers (the BARQ engine as the data pipeline), the
+message-passing primitives (``common``) and the four models (``models``)."""

@@ -196,11 +196,36 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, device=None, dtype=_
     }
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+class _SiLU(torch.autograd.Function):
+    """``_silu`` with the derivative ``s (1 + x (1 - s))``, s the sigmoid:
+    differentiating ``_silu`` itself gives 0 * inf = NaN where ``exp(-x)``
+    overflows (x below about -88 in float32)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _silu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return g * (s * (1 + x * (1 - s)))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each
     step in ``x``'s dtype: how the reference's ``jax.nn.silu`` evaluates a
-    bfloat16 tensor (``F.silu`` rounds once and differs in the last bit)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    bfloat16 tensor (``F.silu`` rounds once and differs in the last bit).
+    Under autograd its derivative is the sigmoid's closed form, finite
+    everywhere, as the reference's."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _SiLU.apply(x)
+    return _silu(x)
 
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:

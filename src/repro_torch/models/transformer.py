@@ -4,12 +4,17 @@ on PyTorch.
 
 Covers the five LM architectures (qwen3-8b, deepseek-7b,
 command-r-plus-104b, qwen3-moe-30b-a3b, moonshot-v1-16b-a3b). Parameters
-are dicts of tensors with the reference's names; ``layers`` is a list with
-one dict a layer (the reference stacks them on a leading axis for
-``scan``; ``convert.transformer_params_from_arrays`` unstacks its arrays).
-The layers run in a loop. ``remat`` and ``unroll_layers`` are accepted and
-change nothing here: serving keeps no activations for a backward pass.
-The KV cache is updated in place by ``decode_step``.
+are dicts of tensors with the reference's names. Serving holds ``layers``
+as a list with one dict a layer (``convert.transformer_params_from_arrays``
+unstacks the reference's arrays); training holds them as the reference
+does, one dict of tensors stacked on a leading layer axis (``stack_layers``),
+so AdamW's rules, which read a leaf's rank, and checkpoints see the
+reference's tree. ``forward_hidden`` and ``loss_fn`` take either; the
+layers run in a loop. ``remat`` other than ``"none"`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``; ``"dots"`` keeps
+nothing either, which changes memory, not results); ``unroll_layers`` and
+``seq_parallel`` change nothing on one rank. The KV cache is updated in
+place by ``decode_step``.
 """
 
 from __future__ import annotations
@@ -18,11 +23,13 @@ import dataclasses
 from typing import Any, Dict, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, init_moe, moe_block
 from repro_torch.parallel.sharding import MeshAxes, constrain
+from repro_torch.train.tree import tree_map, value_and_grad
 
 _F32, _BF16, _I32 = torch.float32, torch.bfloat16, torch.int32
 
@@ -150,12 +157,46 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=_I32, device=device).expand(b, s)
 
 
+def stack_layers(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The parameters with ``layers`` stacked on a leading axis, the
+    reference's layout (new tensors; the others are shared)."""
+    def stack(xs):
+        if isinstance(xs[0], dict):
+            return {k: stack([x[k] for x in xs]) for k in xs[0]}
+        return torch.stack(xs)
+
+    return {**params, "layers": stack(list(params["layers"]))}
+
+
+def layer_list(layers, n_layers: int):
+    """One dict a layer: ``layers`` itself where it is a list, else views
+    of the stacked tensors (``unbind``, whose backward stacks the layers'
+    gradients)."""
+    if isinstance(layers, list):
+        return layers
+
+    def split(x):
+        if isinstance(x, dict):
+            return {k: split(v) for k, v in x.items()}
+        return torch.unbind(x, 0)
+
+    def pick(x, i):
+        return {k: pick(v, i) for k, v in x.items()} if isinstance(x, dict) else x[i]
+
+    parts = split(layers)
+    return [pick(parts, i) for i in range(n_layers)]
+
+
 def forward_hidden(params, cfg: TransformerConfig, axes: MeshAxes, tokens: torch.Tensor):
     b, s = tokens.shape
     h = L.embed(params["embed"], tokens)
     positions = _positions(b, s, tokens.device)
-    for lp in params["layers"]:
-        h = _layer_fwd(cfg, axes, h, lp, positions)
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for lp in layer_list(params["layers"], cfg.n_layers):
+        if remat:
+            h = checkpoint(_layer_fwd, cfg, axes, h, lp, positions, use_reentrant=False)
+        else:
+            h = _layer_fwd(cfg, axes, h, lp, positions)
     return L.rmsnorm(params["ln_f"], h)
 
 
@@ -164,6 +205,28 @@ def loss_fn(params, cfg: TransformerConfig, axes: MeshAxes, tokens, labels):
     logits = L.logits_from_hidden(params["embed"], h)
     logits = constrain(logits, axes, "dp", None, "mp")
     return L.cross_entropy(logits, labels, cfg.vocab)
+
+
+def grads_fn(params, cfg: TransformerConfig, axes: MeshAxes, tokens, labels):
+    """(loss, grads) with optional gradient accumulation over microbatches
+    (cfg.microbatches splits the batch axis; peak activation memory divides
+    accordingly). Accumulated gradients are float32, as the reference's."""
+    vg = value_and_grad(loss_fn)
+    if cfg.microbatches <= 1:
+        return vg(params, cfg, axes, tokens, labels)
+    m = cfg.microbatches
+    b = tokens.shape[0]
+    if b % m:
+        raise ValueError(f"grads_fn: batch {b} does not divide into {m} microbatches")
+    tok_m = tokens.reshape(m, b // m, -1)
+    lab_m = labels.reshape(m, b // m, -1)
+    loss_sum = torch.zeros((), dtype=_F32, device=tokens.device)
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device), params)
+    for i in range(m):
+        loss, g = vg(params, cfg, axes, tok_m[i], lab_m[i])
+        grads = tree_map(torch.add, grads, g)
+        loss_sum = loss_sum + loss
+    return loss_sum / m, tree_map(lambda g: g / m, grads)
 
 
 # ---------------------------------------------------------------------------

@@ -71,6 +71,23 @@ def test_entry_points_default_to_the_card():
         LMServer(cfg, init_params(cfg, 0, device="cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         BARQSampler(store, ":knows")
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.steps import _gnn_graph_shape, build_step
+    from repro_torch.models.gnn import models as GNN
+    from repro_torch.models.recsys import dcn as DCN
+
+    gs = get_config("graphsage-reddit")
+    gshape = _gnn_graph_shape(gs, "full_graph_sm", gs.reduced_model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GNN.init(0, gs.reduced_model, gshape)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GNN.make_graph_inputs(gshape)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DCN.init_params(get_config("dcn-v2").reduced_model, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LT.run("graphsage-reddit", "full_graph_sm", 2, "unused")
+    # a bundle allocates nothing: its step runs where its inputs are
+    assert build_step(gs, "full_graph_sm", use_reduced=True).fn
 
 
 @pytest.mark.parametrize("field,value", [

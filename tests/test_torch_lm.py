@@ -95,8 +95,14 @@ def test_configs_are_the_references(arch_id):
 
 @pytest.mark.parametrize("arch_id", ARCH_IDS[5:])
 def test_gnn_and_recsys_configs_wait_for_their_slice(arch_id):
-    with pytest.raises(NotImplementedError, match="5d"):
-        get_config(arch_id)
+    """The GNN and recsys configs have come (slice 5d): each equals the
+    reference's, field for field."""
+    got, want = get_config(arch_id), ref_config(arch_id)
+    assert (got.name, got.kind, got.source, got.shapes) == (want.name, want.kind, want.source,
+                                                           want.shapes)
+    for mine, theirs in ((got.model, want.model), (got.reduced_model, want.reduced_model)):
+        assert type(mine).__name__ == type(theirs).__name__
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
 
 
 def test_qwen3_8b_full_size_is_7_57b_parameters():
