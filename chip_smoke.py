@@ -223,7 +223,20 @@ script exits non-zero:
             TRAIN_LM_LAYERS of its 36 layers for TRAIN_LM_STEPS steps on
             one sequence of 4,096 tokens (token_batch): finite losses, a
             parameter changed, ms a step (CUDA events), peak device memory
-            above the state's, one more step under torch.profiler.
+            above the state's, one more step under torch.profiler;
+  placement (PLACEMENT_BUDGET_S, 90 s, reported against the phase's time)
+            the dry run (``python -m repro_torch.launch.dryrun``, one
+            subprocess a cell, all at once, on the CPU) of PLACEMENT_CELLS on
+            the 256- and 512-rank meshes: each record ``ok``, each rank's
+            argument bytes equal to the closed form from the cell's specs,
+            each record's roofline terms printed; dcn-v2 with the full
+            tables through the sharded step on the smoke mesh over a
+            one-rank NCCL group, its loss (within 1e-6 relative) and new
+            parameters (within 2 lr) the unsharded step's, the two steps
+            timed in turns (PLACEMENT_DCN_TURNS) beside part 3's; the measured
+            graphsage-reddit and dcn-v2 steps over their own smoke-mesh dry
+            runs' lower bounds. None of the engine's kernels is on this path
+            (its launches are counted all the same).
 
 Each phase header carries the seconds since the start. The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -237,6 +250,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -493,6 +507,21 @@ TRAIN_REDUCED_TOL = {"f32": {"loss": 1e-5, "grad_norm": 1e-4, "far": 0.01},
 # train_batch (65,536), and qwen3-8b at full width cut to TRAIN_LM_LAYERS
 # of its 36 layers on one sequence of train_4k's 4,096 tokens
 TRAIN_DCN_STEPS = 3
+# the placement phase: dry runs on the production meshes (arch, shape,
+# knobs, mesh), the measured train cells dry-run on the smoke mesh, the
+# sharded dcn-v2 step's steps on the card, the phase's budget
+PLACEMENT_CELLS = (
+    ("qwen3-8b", "train_4k", {"zero_params": True, "zero_opt": True}, "single"),
+    ("qwen3-8b", "train_4k", {"zero_params": True, "zero_opt": True}, "multi"),
+    ("qwen3-8b", "decode_32k", {}, "single"),
+    ("qwen3-8b", "long_500k", {}, "single"),
+    ("qwen3-moe-30b-a3b", "train_4k", {"moe_impl": "ep_psum"}, "single"),
+    ("dimenet", "ogb_products", {"gnn_impl": "partitioned"}, "single"),
+    ("dcn-v2", "train_batch", {}, "single"),
+)
+PLACEMENT_MEASURED = (("graphsage-reddit", "minibatch_lg"), ("dcn-v2", "train_batch"))
+PLACEMENT_DCN_TURNS = ("plain", "sharded", "sharded", "plain", "plain", "sharded")
+PLACEMENT_BUDGET_S = 90.0
 TRAIN_LM_LAYERS, TRAIN_LM_STEPS = 2, 2
 
 T_START = time.perf_counter()
@@ -3845,6 +3874,240 @@ class Failures:
 
 
 # ---------------------------------------------------------------------------
+# the placement phase: the layouts across ranks, the dry run, the sharded
+# step on the card
+# ---------------------------------------------------------------------------
+
+
+class _ShapeMesh:
+    """A mesh's shape and dimension names: enough for ``MeshAxes`` to lay
+    out a bundle's specs (no process group; rank 0's coordinates)."""
+
+    def __init__(self, shape, names):
+        self.shape, self.mesh_dim_names = tuple(shape), tuple(names)
+
+    def size(self, dim=None):
+        return self.shape[dim] if dim is not None else int(np.prod(self.shape))
+
+    def get_coordinate(self):
+        return [0] * len(self.shape)
+
+
+def _with_shape(arch, shape, knobs):
+    return dataclasses.replace(arch, shapes={shape: {**arch.shapes[shape], **knobs}})
+
+
+def placement_closed_form(arch_id, shape, knobs, mesh_name) -> int:
+    """A rank's argument bytes from the cell's specs: each leaf's dimensions
+    divided by the ranks of their spec entries, times its item size."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import MESHES
+    from repro_torch.launch.steps import build_step
+    from repro_torch.parallel.sharding import names_of
+    from repro_torch.train.tree import leaves
+
+    dims, names = MESHES[mesh_name]
+    sizes = dict(zip(names, dims))
+    b = build_step(_with_shape(get_config(arch_id), shape, knobs), shape, _ShapeMesh(dims, names))
+    total = 0
+    for x, sp in zip(leaves(b.abstract_args), leaves(b.in_shardings)):
+        n = 1
+        for dim, e in zip(x.shape, sp.padded(x.dim())):
+            k = int(np.prod([sizes[a] for a in names_of(e)]))
+            require(dim % k == 0, f"placement: {arch_id} {shape}: {dim} over {e}")
+            n *= dim // k
+        total += n * x.element_size()
+    return total
+
+
+def _dryrun_procs(out: Path):
+    """The dry runs of PLACEMENT_CELLS on their meshes and of the measured
+    train cells on the smoke mesh, all started at once (CPU only)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for arch_id, shape, knobs, mesh in PLACEMENT_CELLS:
+        tag = "-".join(sorted(knobs)) or "base"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch_id, "--shape",
+               shape, "--mesh", mesh, "--out", str(out), "--tag", tag]
+        for k, v in knobs.items():
+            cmd += ["--set", f"{k}={json.dumps(v)}"]
+        path = out / f"{arch_id}__{shape}__{mesh}__{tag}.json"
+        procs[(arch_id, shape, tag, mesh)] = (subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), path)
+    for arch_id, shape in PLACEMENT_MEASURED:
+        code = ("from repro_torch.launch.dryrun import run_cell; "
+                f"run_cell({arch_id!r}, {shape!r}, False, {str(out)!r}, tag='smoke', "
+                "mesh_shape=(1, 1))")
+        path = out / f"{arch_id}__{shape}__single__smoke.json"
+        procs[(arch_id, shape, "smoke", "1x1")] = (subprocess.Popen(
+            [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), path)
+    return procs
+
+
+def placement_sharded_dcn(dev, rep, fail):
+    """Part (b): dcn-v2 with the full tables through the sharded step on the
+    smoke mesh, over a one-rank NCCL group, against the unsharded step from
+    the same state: the loss and every new parameter."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.recsys import dcn as DCN
+    from repro_torch.pipeline.data import recsys_batch
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import leaves, tree_map
+
+    arch = get_config("dcn-v2")
+    cfg = arch.model
+    batch = arch.shapes["train_batch"]["batch"]
+    d = recsys_batch(SEED, 0, batch, cfg.n_dense, cfg.n_sparse,
+                     [cfg.table_rows(i) for i in range(cfg.n_sparse)])
+    args = tuple(torch.from_numpy(d[k]).to(dev) for k in ("dense", "sparse", "labels"))
+    out = rep["dcn_sharded"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        D.engine_group(dev, init_method=f"file://{tmp}/rendezvous")
+        try:
+            mesh = make_smoke_mesh()
+            sharded = build_step(arch, "train_batch", mesh, OptimizerConfig())
+            plain = build_step(arch, "train_batch", None, OptimizerConfig())
+            params = DCN.init_params(cfg, SEED, device=dev)
+            opt = init_opt_state(params)
+            steps = {"plain": (plain, (params, opt)), "sharded": (sharded, tuple(
+                SH.shard_tree(t, sp, sharded.axes)
+                for t, sp in zip((params, opt), sharded.in_shardings[:2])))}
+            # the two steps in turns from copies of one state, on one card
+            ms, outs = {"plain": [], "sharded": []}, {}
+            for which in PLACEMENT_DCN_TURNS:
+                bundle, state = steps[which]
+                state = tree_map(lambda t: t.clone(), state)
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                torch.cuda.synchronize()
+                start.record()
+                new_p, _, m = bundle.fn(*state, *args)
+                end.record()
+                end.synchronize()
+                ms[which].append(start.elapsed_time(end))
+                outs[which] = (new_p, m)
+                del state
+            (new_p, m), (want_p, want_m) = outs["sharded"], outs["plain"]
+            err = max(float((a - b).abs().max()) for a, b in zip(leaves(new_p), leaves(want_p)))
+            out.update(step_ms=ms["sharded"], plain_step_ms=ms["plain"], turns=PLACEMENT_DCN_TURNS,
+                       loss=float(m["loss"]), unsharded_loss=float(want_m["loss"]),
+                       max_param_err=err, collectives=sharded.axes.tally.record(),
+                       mesh=list(mesh.mesh.shape), backend=dist.get_backend())
+            # every collective is over one rank: the same kernels run, but the
+            # table gradients' scatters may add in another order, so a new
+            # parameter is held within AdamW's reach of 2 lr
+            lr = float(m["lr"])
+            fail.check(abs(float(m["loss"]) - float(want_m["loss"]))
+                       <= 1e-6 * abs(float(want_m["loss"])) and err <= 2 * lr,
+                       f"placement: sharded dcn-v2 loss {float(m['loss'])} against "
+                       f"{float(want_m['loss'])}, largest parameter difference {err} (lr {lr})")
+            del params, opt, steps, outs, new_p, want_p
+        finally:
+            dist.destroy_process_group()
+    log(f"  (b) dcn-v2 full tables on the smoke mesh over NCCL, in turns "
+        f"{'/'.join(PLACEMENT_DCN_TURNS)}: sharded step {[round(x, 3) for x in ms['sharded']]} "
+        f"ms, unsharded {[round(x, 3) for x in ms['plain']]} ms (CUDA events), loss "
+        f"{out['loss']:.6f} "
+        f"(unsharded {out['unsharded_loss']:.6f}), largest parameter difference "
+        f"{out['max_param_err']}")
+
+
+def placement_phase(dev, report):
+    """The dry run's placement cells on the production meshes (subprocesses
+    on the CPU) and the measured train steps beside their smoke-mesh dry
+    runs; the sharded dcn-v2 step on the card. Returns the launches."""
+    from repro_torch import kernels as K
+
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    rep = report["placement"] = {"budget_s": PLACEMENT_BUDGET_S}
+    fail = Failures("placement")
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _dryrun_procs(Path(tmp))
+        try:
+            torch.cuda.empty_cache()
+            placement_sharded_dcn(dev, rep, fail)
+            torch.cuda.empty_cache()
+            for key, (proc, path) in procs.items():
+                _, err = proc.communicate(timeout=max(PLACEMENT_BUDGET_S, 1.0))
+                rec = json.loads(path.read_text()) if path.exists() else {"status": "missing",
+                                                                         "error": err[-500:]}
+                recs[key] = rec
+                fail.check(rec.get("status") == "ok",
+                           f"placement: dry run {key}: {rec.get('error', rec.get('status'))}")
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    rep["records"] = {"/".join(k): r for k, r in recs.items()}
+    rep["cells"] = []
+    log("  (a) dry runs on the production meshes (one rank's program on meta tensors "
+        "over a fake group):")
+    for arch_id, shape, knobs, mesh in PLACEMENT_CELLS:
+        tag = "-".join(sorted(knobs)) or "base"
+        rec = recs[(arch_id, shape, tag, mesh)]
+        if rec.get("status") != "ok":
+            continue
+        want = placement_closed_form(arch_id, shape, knobs, mesh)
+        got = rec["memory"]["argument_bytes"]
+        fail.check(got == want, f"placement: {arch_id} {shape} {knobs} {mesh}: argument bytes "
+                                f"{got} against the specs' {want}")
+        rt = rec["roofline"]
+        row = dict(arch=arch_id, shape=shape, knobs=knobs, mesh=mesh, n_chips=rec["n_chips"],
+                   argument_bytes=got, closed_form_bytes=want, temp_bytes=rec["memory"]["temp_bytes"],
+                   flops_per_device=rec["cost"]["flops_per_device"],
+                   bytes_per_device=rec["cost"]["bytes_per_device"],
+                   collective_bytes=rec["collectives"]["total_bytes"],
+                   collective_calls=rec["collectives"]["per_kind_counts"],
+                   compute_s=rt["compute_s"], memory_s=rt["memory_s"],
+                   collective_s=rt["collective_s"], dominant=rt["dominant"],
+                   bound_s=rt["step_time_lower_bound_s"],
+                   useful_flops_ratio=rec.get("useful_flops_ratio"), wall_s=rec["wall_s"])
+        rep["cells"].append(row)
+        log(f"    {arch_id} {shape} {knobs or ''} {mesh} ({rec['n_chips']} ranks): argument "
+            f"{got} B (specs {want}), temp {row['temp_bytes']} B, {row['flops_per_device']:.4e} "
+            f"FLOP, {row['bytes_per_device']:.4e} B, collectives {row['collective_bytes']} B "
+            f"{row['collective_calls']}; compute {rt['compute_s']:.4e} s, memory "
+            f"{rt['memory_s']:.4e} s, collective {rt['collective_s']:.4e} s -> {rt['dominant']}"
+            f"; useful/counted {row['useful_flops_ratio']}")
+    measured = {"graphsage-reddit": report["train"]["graphsage"]["step_device_ms"],
+                "dcn-v2": report["train"]["dcn-v2"]["step_ms"]}
+    rep["measured_vs_bound"] = {}
+    log("  (c) measured train steps against their smoke-mesh dry runs (H100 roofline):")
+    for arch_id, shape in PLACEMENT_MEASURED:
+        rec = recs[(arch_id, shape, "smoke", "1x1")]
+        if rec.get("status") != "ok":
+            continue
+        ms = float(np.median(measured[arch_id]))
+        bound_ms = rec["roofline"]["step_time_lower_bound_s"] * 1e3
+        rep["measured_vs_bound"][arch_id] = dict(shape=shape, step_ms=ms, bound_ms=bound_ms,
+                                                 ratio=ms / bound_ms,
+                                                 dominant=rec["roofline"]["dominant"])
+        log(f"    {arch_id} {shape}: measured {ms:.3f} ms a step (median, CUDA events), dry-run "
+            f"bound {bound_ms:.3f} ms ({rec['roofline']['dominant']}), {ms / bound_ms:.2f}x")
+    log(f"  (b) beside part 3: sharded {[round(x, 3) for x in rep['dcn_sharded']['step_ms']]} "
+        f"ms, unsharded {[round(x, 3) for x in rep['dcn_sharded']['plain_step_ms']]} ms; part "
+        f"3's {[round(x, 3) for x in measured['dcn-v2']]} ms")
+    launches = rep["launches"] = K.launch_counts()
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"  placement phase: {rep['phase_s']:.1f} s against its budget of {PLACEMENT_BUDGET_S:.0f} "
+        f"s; engine kernel launches {sum(launches.values())}")
+    fail.check(rep["phase_s"] <= PLACEMENT_BUDGET_S,
+               f"placement: {rep['phase_s']:.1f} s over its budget of {PLACEMENT_BUDGET_S} s")
+    fail.raise_any()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the lm phase: serving the transformer on the card
 # ---------------------------------------------------------------------------
 
@@ -4819,6 +5082,8 @@ def main() -> int:
     path_launches["lm"] = lm_phase(dev, report)
     log(f"train, parts 3 and 4: {elapsed()}")
     train_big_phase(dev, report)
+    log(f"placement: {elapsed()}")
+    path_launches["placement"] = placement_phase(dev, report)
     for name, (_, _, path) in KERNEL_INFO.items():
         rows[name]["launches"] = path_launches[path][name]
         rows[name]["launches_by_path"] = {p: n[name] for p, n in path_launches.items()}

@@ -1,7 +1,7 @@
 """Report generators, as in the reference package's ``launch/report.py``:
 
-- dry-run records (``launch/engine_dryrun.py``'s JSON files under
-  ``--out``) -> the roofline table and its summary;
+- dry-run records (``launch/dryrun.py``'s and ``launch/engine_dryrun.py``'s
+  JSON files under ``--out``) -> the roofline table and its summary;
 - ``--bench BENCH_PR*.json`` -> the property-path metrics table (frontier
   rounds, dedup ratio, pool traffic);
 - ``--query q6`` / ``--sparql '...'`` runs one query on a generated LSQB

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core.device import resolve_device
 from repro_torch.models.gnn import common as C
 from repro_torch.models.layers import silu
+from repro_torch.parallel import sharding as SH
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -87,6 +88,26 @@ def make_graph_inputs(shape: GraphShape, rng_seed: int = 0, device=None) -> Dict
     return g
 
 
+def graph_input_shapes(shape: GraphShape) -> Dict[str, torch.Tensor]:
+    """The inputs of ``make_graph_inputs`` as meta tensors (the
+    reference's ``graph_input_specs``)."""
+    def meta(size, dtype):
+        return torch.empty(size, dtype=dtype, device="meta")
+
+    s = {
+        "x": meta((shape.n_nodes, shape.d_feat), _F32),
+        "edge_src": meta((shape.n_edges,), _I32),
+        "edge_dst": meta((shape.n_edges,), _I32),
+        "labels": meta((shape.n_nodes,), _I32),
+        "label_mask": meta((shape.n_nodes,), _F32),
+    }
+    if shape.n_triplets:
+        s["trip_kj"] = meta((shape.n_triplets,), _I32)
+        s["trip_ji"] = meta((shape.n_triplets,), _I32)
+        s["pos"] = meta((shape.n_nodes, 3), _F32)
+    return s
+
+
 # ---------------------------------------------------------------------------
 # GraphSAGE (mean aggregator)
 # ---------------------------------------------------------------------------
@@ -101,12 +122,12 @@ def init_graphsage(gen, cfg: GNNConfig, shape: GraphShape, device):
             "w_out": C._dense(gen, (cfg.d_hidden, shape.n_classes), device=device)}
 
 
-def apply_graphsage(params, cfg: GNNConfig, g):
+def apply_graphsage(params, cfg: GNNConfig, g, shards: C.Shards = C.LOCAL):
     x = g["x"]
-    n = x.shape[0]
+    n = x.shape[0] * shards.ranks
     for lp in params["layers"]:
-        msgs = C.gather_src(x, g["edge_src"])
-        agg = C.scatter_mean(msgs, g["edge_dst"], n)
+        msgs = C.gather_src(shards.gather(x), g["edge_src"])
+        agg = C.scatter_mean(msgs, g["edge_dst"], n, shards)
         x = torch.relu(x @ lp["w_self"] + agg @ lp["w_neigh"])
         x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-6)
     return x @ params["w_out"]
@@ -132,23 +153,25 @@ def init_gat(gen, cfg: GNNConfig, shape: GraphShape, device):
     return {"layers": layers}
 
 
-def apply_gat(params, cfg: GNNConfig, g):
+def apply_gat(params, cfg: GNNConfig, g, shards: C.Shards = C.LOCAL):
     x = g["x"]
-    n = x.shape[0]
+    nl = x.shape[0]
+    n = nl * shards.ranks
     n_layers = len(params["layers"])
     src, dst = g["edge_src"], g["edge_dst"]
     ssafe, dsafe = torch.clamp(src, min=0).long(), torch.clamp(dst, min=0).long()
     for i, lp in enumerate(params["layers"]):
         h, d_out = lp["a_src"].shape
-        z = (x @ lp["w"]).reshape(n, h, d_out)
+        z = shards.gather((x @ lp["w"]).reshape(nl, h, d_out))
         s_src = torch.einsum("nhd,hd->nh", z, lp["a_src"])
         s_dst = torch.einsum("nhd,hd->nh", z, lp["a_dst"])
         scores = F.leaky_relu(s_src[ssafe] + s_dst[dsafe], 0.2)  # (E, H)
-        alpha = C.edge_softmax(scores, dst, n)  # (E, H)
+        alpha = C.edge_softmax(scores, dst, n, shards)  # (E, H)
         msgs = z[ssafe] * alpha[:, :, None]  # (E, H, D)
-        agg = C.scatter_sum(msgs.reshape(-1, h * d_out), dst, n).reshape(n, h, d_out)
+        agg = shards.reduce(C.scatter_sum(msgs.reshape(-1, h * d_out), dst, n))
+        agg = agg.reshape(nl, h, d_out)
         if i < n_layers - 1:
-            x = F.elu(agg).reshape(n, h * d_out)
+            x = F.elu(agg).reshape(nl, h * d_out)
         else:
             x = agg.mean(dim=1)
     return x
@@ -169,12 +192,12 @@ def init_gin(gen, cfg: GNNConfig, shape: GraphShape, device):
             "w_out": C._dense(gen, (cfg.d_hidden, shape.n_classes), device=device)}
 
 
-def apply_gin(params, cfg: GNNConfig, g):
+def apply_gin(params, cfg: GNNConfig, g, shards: C.Shards = C.LOCAL):
     x = g["x"]
-    n = x.shape[0]
+    n = x.shape[0] * shards.ranks
     for lp in params["layers"]:
-        msgs = C.gather_src(x, g["edge_src"])
-        agg = C.scatter_sum(msgs, g["edge_dst"], n)
+        msgs = C.gather_src(shards.gather(x), g["edge_src"])
+        agg = shards.reduce(C.scatter_sum(msgs, g["edge_dst"], n))
         h = (1.0 + lp["eps"]) * x + agg
         x = torch.relu(torch.relu(h @ lp["w1"]) @ lp["w2"])
     return x @ params["w_out"]
@@ -225,16 +248,21 @@ def _angular_sbf(angle, dist, n_spherical: int, n_radial: int, cutoff: float = 5
     return (ca[:, :, None] * rb[:, None, :]).reshape(angle.shape[0], -1)
 
 
-def apply_dimenet(params, cfg: GNNConfig, g):
-    node_out = dimenet_node_messages(params, cfg, g)
+def apply_dimenet(params, cfg: GNNConfig, g, shards: C.Shards = C.LOCAL):
+    node_out = dimenet_node_messages(params, cfg, g, shards)
     h = silu(node_out @ params["out_w1"])
     return h @ params["out_w2"]
 
 
-def dimenet_node_messages(params, cfg: GNNConfig, g):
-    """Everything up to (and including) the edge→node scatter."""
-    x = g["x"] @ params["embed_x"]  # (N, d)
-    pos = g["pos"]
+def dimenet_node_messages(params, cfg: GNNConfig, g, shards: C.Shards = C.LOCAL):
+    """Everything up to (and including) the edge→node scatter. With
+    ``shards`` the node, edge and triplet rows are this rank's (triplets
+    index the global edge list): node embeddings and positions, edge
+    vectors and each block's kj messages are all-gathered, and the
+    triplet-to-edge and edge-to-node sums reduce-scattered to this rank's
+    rows."""
+    x = shards.gather(g["x"] @ params["embed_x"])  # (N, d)
+    pos = shards.gather(g["pos"])
     src, dst = g["edge_src"], g["edge_dst"]
     ssafe, dsafe = torch.clamp(src, min=0).long(), torch.clamp(dst, min=0).long()
     evalid = (src >= 0)[:, None]
@@ -248,34 +276,46 @@ def dimenet_node_messages(params, cfg: GNNConfig, g):
 
     kj, ji = torch.clamp(g["trip_kj"], min=0).long(), torch.clamp(g["trip_ji"], min=0).long()
     tvalid = (g["trip_kj"] >= 0) & (g["trip_ji"] >= 0)
+    dvec_all, dist_all = shards.gather(dvec), shards.gather(dist)
     # angle between edge kj and edge ji
-    v1, v2 = dvec[kj], dvec[ji]
+    v1, v2 = dvec_all[kj], dvec_all[ji]
     cosang = torch.sum(v1 * v2, -1) / torch.clamp(
         torch.linalg.vector_norm(v1, dim=-1) * torch.linalg.vector_norm(v2, dim=-1), min=1e-9)
     angle = torch.arccos(torch.clamp(cosang, -1 + 1e-6, 1 - 1e-6))
-    sbf = _angular_sbf(angle, dist[kj], cfg.n_spherical, cfg.n_radial)  # (T, S*R)
+    sbf = _angular_sbf(angle, dist_all[kj], cfg.n_spherical, cfg.n_radial)  # (T, S*R)
 
-    n_edges = src.shape[0]
+    n_edges = src.shape[0] * shards.ranks
     for blk in params["blocks"]:
         # directional message passing: edge kj -> edge ji modulated by angle
-        mk = silu(m @ blk["w_kj"])[kj]  # (T, d)
+        mk = shards.gather(silu(m @ blk["w_kj"]))[kj]  # (T, d)
         sb = sbf @ blk["w_sbf"]  # (T, n_bilinear)
         inter = torch.einsum("tb,bde,td->te", sb, blk["w_bil"], mk)  # (T, d)
         inter = torch.where(tvalid[:, None], inter, 0.0)
-        agg = torch.zeros((n_edges, inter.shape[1]), dtype=inter.dtype,
-                          device=inter.device).index_add(0, ji, inter)  # (E, d)
+        agg = shards.reduce(torch.zeros((n_edges, inter.shape[1]), dtype=inter.dtype,
+                                        device=inter.device).index_add(0, ji, inter))  # (E, d)
         upd = m + silu((agg + rbf @ blk["w_rbf"]) @ blk["w_upd1"])
         m = silu(upd @ blk["w_upd2"]) * evalid
 
-    return C.scatter_sum(m, dst, x.shape[0])
+    return shards.reduce(C.scatter_sum(m, dst, x.shape[0]))
 
 
-def dimenet_loss_partitioned(params, cfg: GNNConfig, g, mesh, axis_names):
-    """The reference's edge-partitioned DimeNet (a ``shard_map`` over the
-    mesh) places state across ranks: it comes with slice 5e."""
-    raise NotImplementedError(
-        "dimenet_loss_partitioned: the edge-partitioned loss across ranks comes with "
-        "slice 5e of the port")
+EDGE_KEYS = ("edge_src", "edge_dst", "trip_kj", "trip_ji")
+
+
+def dimenet_loss_partitioned(params, cfg: GNNConfig, g, axes: SH.MeshAxes, entry):
+    """The reference's edge-partitioned DimeNet (DistDGL-style locality),
+    one rank's program: node features, positions and labels whole on every
+    rank; this rank's block of the edge and triplet arrays (split over the
+    mesh ``entry``, every axis in the reference), with the locality
+    contract that its triplets index its own edge block. All directional
+    message passing is local; the one collective is the sum of the (N, d)
+    node partials over the entry, whose gradient is summed too. The loss
+    after it is the same on every rank, so each returns its share (over the
+    entry's ranks), and the gradients sum over them."""
+    node_out = C.Shards(axes, entry).psum(dimenet_node_messages(params, cfg, g))
+    h = silu(node_out @ params["out_w1"])
+    loss = C.cross_entropy_nodes(h @ params["out_w2"], g["labels"], g.get("label_mask"))
+    return loss / axes.size(entry)
 
 
 # ---------------------------------------------------------------------------
@@ -303,10 +343,19 @@ def init(gen: Union[int, torch.Generator], cfg: GNNConfig, shape: GraphShape, de
     return _INIT[cfg.kind](_generator(gen, dev), cfg, shape, dev)
 
 
-def apply(params, cfg: GNNConfig, g):
-    return _APPLY[cfg.kind](params, cfg, g)
+def param_shapes(cfg: GNNConfig, shape: GraphShape):
+    """The parameter tree as meta tensors (nothing allocated)."""
+    return init(torch.Generator(), cfg, shape, device="meta")
 
 
-def loss(params, cfg: GNNConfig, g):
-    logits = apply(params, cfg, g)
-    return C.cross_entropy_nodes(logits, g["labels"], g.get("label_mask"))
+def apply(params, cfg: GNNConfig, g, shards: C.Shards = C.LOCAL):
+    """Logits of the nodes; with ``shards``, of this rank's node rows."""
+    return _APPLY[cfg.kind](params, cfg, g, shards)
+
+
+def loss(params, cfg: GNNConfig, g, shards: C.Shards = C.LOCAL):
+    """The masked node cross entropy; with ``shards`` (node and edge rows
+    split over a mesh entry, the reference's ``dp+mp`` layout), this rank's
+    share of it: its node rows' sum over every rank's count."""
+    logits = apply(params, cfg, g, shards)
+    return C.cross_entropy_nodes(logits, g["labels"], g.get("label_mask"), shards)

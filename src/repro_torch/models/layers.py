@@ -27,6 +27,8 @@ NEG = -1e30  # the mask value of a score
 
 
 def _dense_init(gen: torch.Generator, shape, scale=None, device=None, dtype=_F32):
+    if device is not None and torch.device(device).type == "meta":  # shapes only
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.randn(shape, generator=gen, dtype=_F32, device=device) * scale

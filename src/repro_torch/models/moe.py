@@ -15,9 +15,15 @@ C - 1); where expert 0's last slot holds a kept token, that token's
 expert-0 output is then lost. The port computes that token's output, and
 is held to the reference where the reference keeps it.
 
-``impl="ep_psum"`` (expert parallelism) is the single-shard path on one
-rank, numerically the same as the scatter path; over more ranks it comes
-with the expert-parallel serving slice.
+Over a mesh the experts are split over mp and the tokens, whole on every
+rank of the model axis, over dp. Each rank routes every token, places only
+the assignments to its own experts and returns a partial output that sums
+over mp (the caller's all-reduce; shared experts are split over ``d_ff``
+like an MLP). ``impl="ep_psum"`` ranks and caps the assignments among the
+rank's own tokens, as the reference's ``shard_map`` does; ``"scatter"``
+among all the data-parallel ranks' tokens, as its global capacity scatter
+does: the per-expert counts of the earlier ranks are all-gathered and
+offset the slots, and the capacity is that of the global batch.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense_init, silu
-from repro_torch.parallel.sharding import MeshAxes, constrain
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.sharding import MeshAxes
 
 _F32, _I64 = torch.float32, torch.int64
 
@@ -70,14 +77,33 @@ def init_moe(gen: torch.Generator, d_model: int, cfg: MoEConfig, device=None,
 
 
 def moe_block(p, cfg: MoEConfig, axes: MeshAxes, x: torch.Tensor) -> torch.Tensor:
-    """x: (b, s, d) -> (b, s, d)."""
-    if cfg.impl == "ep_psum" and axes.world > 1:
-        raise NotImplementedError(
-            "moe_block: expert parallelism over more than one rank comes with the "
-            "expert-parallel serving slice")
+    """x: (b, s, d) -> (b, s, d); over a mesh, this rank's partial output."""
     if cfg.impl not in ("scatter", "ep_psum"):
         raise ValueError(f"moe_block: unknown impl {cfg.impl!r}")
-    return _moe_block_scatter(p, cfg, axes, x)
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    _, top_p, top_e = route(p, cfg, xt)
+    slot = expert_slots(top_e, cfg.n_experts)
+    n_tokens = b * s
+    tokens = axes.resolve("dp") if axes.batch_split else None
+    if cfg.impl == "scatter" and axes.size(tokens) > 1:
+        # slots among every data-parallel rank's tokens, in rank order
+        flat = top_e.reshape(-1)
+        counts = torch.zeros(cfg.n_experts, dtype=flat.dtype, device=flat.device)
+        counts = counts.scatter_add_(0, flat, torch.ones_like(flat))
+        every = SH.all_gather(counts[None], axes, tokens, 0)
+        before = every[: axes.index(tokens)].sum(0)
+        slot = slot + before[top_e.reshape(-1)]
+        n_tokens *= axes.size(tokens)
+    if cfg.n_experts % axes.size(axes.mp):
+        raise ValueError(f"experts: {cfg.n_experts} do not divide over {axes.size(axes.mp)} ranks "
+                         f"of {axes.mp!r}")
+    e_local = cfg.n_experts // axes.size(axes.mp)
+    out = _dispatch(xt, top_p, top_e, slot, capacity(n_tokens, cfg), p["experts"],
+                    axes.index(axes.mp) * e_local, e_local)
+    if cfg.n_shared_experts:
+        out = out + _shared(p, xt)
+    return out.reshape(b, s, d)
 
 
 def route(p, cfg: MoEConfig, xt: torch.Tensor):
@@ -108,46 +134,38 @@ def expert_slots(top_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     return torch.empty(nk, dtype=_I64, device=top_e.device).scatter_(0, order, rank_sorted)
 
 
-def _moe_block_scatter(p, cfg: MoEConfig, axes: MeshAxes, x: torch.Tensor) -> torch.Tensor:
-    b, s, d = x.shape
-    n = b * s
-    e, k = cfg.n_experts, cfg.top_k
-    cap = capacity(n, cfg)
+def _dispatch(xt, top_p, top_e, slot, cap: int, we, e_lo: int, e_local: int) -> torch.Tensor:
+    """The assignments to experts [e_lo, e_lo + e_local) with a slot below
+    ``cap`` through those experts' FFNs (``we``: their stacked weights),
+    added into their tokens weighted by their router probabilities."""
+    n, d = xt.shape
+    k = top_e.shape[1]
+    flat_e = top_e.reshape(-1) - e_lo
+    keep = (flat_e >= 0) & (flat_e < e_local) & (slot < cap)
+    token_idx = torch.arange(n, device=xt.device).repeat_interleave(k)
 
-    xt = x.reshape(n, d)
-    _, top_p, top_e = route(p, cfg, xt)
-    flat_e = top_e.reshape(-1)
-    slot = expert_slots(top_e, e)
-    keep = slot < cap
-    token_idx = torch.arange(n, device=x.device).repeat_interleave(k)
-
-    # kept assignments into their (expert, slot) rows; the dropped ones into
-    # one row past the buffers, discarded (no host read of the count)
-    dump = e * cap
+    # kept assignments into their (expert, slot) rows; the others into one
+    # row past the buffers, discarded (no host read of the count)
+    dump = e_local * cap
     dest = torch.where(keep, flat_e * cap + slot, dump)
-    buf = torch.zeros((dump + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((dump + 1, d), dtype=xt.dtype, device=xt.device)
     buf.index_put_((dest,), xt[token_idx])
-    buf = constrain(buf[:dump].reshape(e, cap, d), axes, "mp", None, None)  # expert-parallel
+    buf = buf[:dump].reshape(e_local, cap, d)
 
-    we = p["experts"]
-    g = silu(torch.bmm(buf, we["w_gate"].to(x.dtype)))
-    u = torch.bmm(buf, we["w_up"].to(x.dtype))
-    y = torch.bmm(g * u, we["w_down"].to(x.dtype))
-    y = constrain(y, axes, "mp", None, None)
+    g = silu(torch.bmm(buf, we["w_gate"].to(xt.dtype)))
+    u = torch.bmm(buf, we["w_up"].to(xt.dtype))
+    y = torch.bmm(g * u, we["w_down"].to(xt.dtype))
 
     # combine: each assignment's expert output weighted by its router prob,
     # added into its token in assignment order
     safe = torch.where(keep, dest, 0)
     out_flat = y.reshape(dump, d)[safe]
-    w = torch.where(keep, top_p.reshape(-1), 0.0).to(x.dtype)
+    w = torch.where(keep, top_p.reshape(-1), 0.0).to(xt.dtype)
     parts = (out_flat * w[:, None]).reshape(n, k, d)
-    out = torch.zeros((n, d), dtype=x.dtype, device=x.device)
+    out = torch.zeros((n, d), dtype=xt.dtype, device=xt.device)
     for j in range(k):
         out = out + parts[:, j]
-
-    if cfg.n_shared_experts:
-        out = out + _shared(p, xt)
-    return out.reshape(b, s, d)
+    return out
 
 
 def _shared(p, xt: torch.Tensor) -> torch.Tensor:

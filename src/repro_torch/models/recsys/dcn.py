@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.recsys.embedding import embedding_bag, init_table, qr_embedding_lookup
-from repro_torch.parallel.sharding import MeshAxes, constrain
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.sharding import MeshAxes, Spec, constrain
 
 _F32 = torch.float32
 
@@ -102,24 +103,49 @@ def init_params(cfg: DCNConfig, gen: Union[int, torch.Generator], device=None) -
     return {"tables": tables, "cross": cross, "mlp": mlp, "w_out": w_out}
 
 
+def param_shapes(cfg: DCNConfig) -> Dict:
+    """The parameter tree as meta tensors (nothing allocated)."""
+    return init_params(cfg, torch.Generator(), device="meta")
+
+
 def param_specs(cfg: DCNConfig, axes: MeshAxes):
-    """The reference row-shards the big tables over the model axis: layouts
-    across ranks come with slice 5e."""
-    raise NotImplementedError("dcn.param_specs: tables sharded across ranks come with slice 5e "
-                              "of the port")
+    """Tables of 16,384 rows or more split by rows over mp; the rest (the
+    small tables, the quotient-remainder sub-tables, the dense layers)
+    replicated."""
+    def rule(path, leaf):
+        if path and path[0] == "tables" and leaf.dim() == 2:
+            return Spec(axes.mp, None) if leaf.shape[0] >= 16384 else Spec(None, None)
+        return Spec(*([None] * leaf.dim()))
+
+    return SH.tree_spec(param_shapes(cfg), rule)
 
 
 def features(params, cfg: DCNConfig, axes: MeshAxes, dense, sparse) -> torch.Tensor:
-    """dense: (B, 13) float32; sparse: (B, 26) int32 -> (B, d_interact)."""
-    embs = []
+    """dense: (B, 13) float32; sparse: (B, 26) int32 -> (B, d_interact).
+    Over a mesh the rows are this rank's batch; a table split over mp is
+    looked up in this rank's rows (zeros elsewhere), and one all-reduce over
+    mp adds the split tables' lookups, its gradient summed over mp too (the
+    rank's loss is a share, as everything after it is replicated)."""
+    mp = axes.size(axes.mp)
+    embs, split = [], []
     for i in range(cfg.n_sparse):
         idx = sparse[:, i] % cfg.table_rows(i)
         t = params["tables"][f"t{i}"]
         if isinstance(t, dict):  # quotient-remainder compressed table
             e = qr_embedding_lookup(t["q"], t["r"], idx, _QR_COLLISIONS)
+        elif mp > 1 and t.shape[0] * mp >= 16384:  # this rank's rows of a split table
+            local = idx.long() - axes.index(axes.mp) * t.shape[0]
+            mine = (local >= 0) & (local < t.shape[0])
+            e = torch.where(mine[:, None], embedding_bag(t, torch.where(mine, local, 0)), 0.0)
+            split.append(i)
         else:
             e = embedding_bag(t, idx)  # (B, dim) bag of 1
         embs.append(e.to(_F32))
+    if split:
+        summed = SH.all_reduce(torch.stack([embs[i] for i in split]), axes, axes.mp,
+                               grad="all_reduce")
+        for j, i in enumerate(split):
+            embs[i] = summed[j]
     x = torch.cat([torch.log1p(torch.abs(dense))] + embs, dim=-1)
     return constrain(x, axes, "dp", None)
 
@@ -142,9 +168,15 @@ def logits(params, cfg: DCNConfig, axes: MeshAxes, dense, sparse) -> torch.Tenso
 
 
 def loss_fn(params, cfg: DCNConfig, axes: MeshAxes, dense, sparse, labels) -> torch.Tensor:
+    """The mean logistic loss; over a mesh, this rank's share: its batch's
+    sum over the global batch, over the mp ranks that repeat it."""
     lg = logits(params, cfg, axes, dense, sparse).to(_F32)
     y = labels.to(_F32)
-    return torch.mean(torch.clamp(lg, min=0) - lg * y + torch.log1p(torch.exp(-torch.abs(lg))))
+    per = torch.clamp(lg, min=0) - lg * y + torch.log1p(torch.exp(-torch.abs(lg)))
+    if axes.world == 1:
+        return torch.mean(per)
+    dp = axes.size(axes.resolve("dp"))
+    return per.sum() / (per.numel() * dp * axes.size(axes.mp))
 
 
 # -- retrieval scoring: 1 query vs n_candidates ------------------------------------
@@ -160,9 +192,15 @@ def query_embedding(params, cfg: DCNConfig, axes: MeshAxes, dense, sparse) -> to
 
 def retrieval_scores(params, cfg: DCNConfig, axes: MeshAxes, dense, sparse,
                      candidates: torch.Tensor) -> torch.Tensor:
-    """candidates: (n_cand, d_q) item tower embeddings. Scores = one
-    batched matmul + top-k (the 100 best, descending), never a loop."""
+    """candidates: (n_cand, d_q) item tower embeddings; over a mesh, this
+    rank's block of them (split over every axis). Scores = one batched
+    matmul + top-k (the 100 best, descending), never a loop: each rank's
+    best 100, all-gathered, and the best 100 of those."""
     q = query_embedding(params, cfg, axes, dense, sparse)  # (B, d_q)
     cands = constrain(candidates, axes, "dp+mp", None)
     scores = q @ cands.T  # (B, n_cand)
-    return torch.topk(scores, 100, dim=-1).values
+    every = axes.resolve("dp+mp")
+    if axes.size(every) == 1:
+        return torch.topk(scores, 100, dim=-1).values
+    best = torch.topk(scores, min(100, scores.shape[-1]), dim=-1).values
+    return torch.topk(SH.all_gather(best, axes, every, 1), 100, dim=-1).values

@@ -14,6 +14,13 @@ overwrite its device tensors) at once. A bfloat16 leaf, which numpy cannot
 hold, is written as its 16-bit patterns, with ``bfloat16`` in the
 manifest. Either package's checkpoints restore in the other where their
 trees match (dict keys, list indices, shapes).
+
+A checkpoint always holds the full arrays. A state split over a mesh
+passes its ``shardings`` (the ``MeshAxes`` and the tree of ``Spec``s):
+``save`` all-gathers the shards (every rank calls it) and the mesh's first
+rank writes; ``restore`` reads the full arrays on every rank and keeps its
+shard of each (elastic restore: any mesh, or one rank, reads any
+checkpoint).
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.parallel import sharding as SH
 from repro_torch.train.tree import flatten_with_paths, unflatten
+from repro_torch.train.tree import leaves as tree_leaves
 
 
 def _flatten(tree) -> List[Tuple[str, torch.Tensor]]:
@@ -68,8 +77,15 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree, extra: Optional[Dict] = None) -> None:
+    def save(self, step: int, tree, extra: Optional[Dict] = None, shardings=None) -> None:
+        """Write ``tree`` (this rank's shards under ``shardings``, a pair
+        (axes, specs), where given) as step ``step``."""
         self.wait()
+        if shardings is not None:
+            axes, specs = shardings
+            tree = SH.gather_tree(tree, specs, axes)
+            if axes.index(axes.names) != 0:
+                return
         host = [(k, *_to_host(v)) for k, v in _flatten(tree)]
         if self.async_save:
             self._thread = threading.Thread(
@@ -134,21 +150,32 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int], like_tree):
+    def restore(self, step: Optional[int], like_tree, shardings=None):
         """Restore into the structure of ``like_tree`` (shapes must match):
-        each leaf in its like's dtype, on its like's device."""
+        each leaf in its like's dtype, on its like's device. With
+        ``shardings`` (axes, specs) the likes are this rank's shards and
+        each leaf is cut to its shard of the full array (re-sharding for
+        the current mesh)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:09d}")
+        flat = _flatten(like_tree)
+        specs = [None] * len(flat) if shardings is None else tree_leaves(shardings[1])
+        if len(specs) != len(flat):
+            raise ValueError(f"restore: {len(flat)} leaves against {len(specs)} specs")
         leaves = []
         with np.load(os.path.join(path, "proc00.npz")) as data:
-            for key, like in _flatten(like_tree):
+            for (key, like), sp in zip(flat, specs):
                 arr = data[key]
-                if tuple(arr.shape) != tuple(like.shape):
+                want = tuple(arr.shape) if sp is None else SH.shard_shape(
+                    arr.shape, sp, shardings[0], key)
+                if want != tuple(like.shape):
                     raise ValueError(
                         f"checkpoint leaf {key} shape {arr.shape} != expected "
                         f"{tuple(like.shape)}")
+                if sp is not None:
+                    arr = arr[SH.local_slices(arr.shape, sp, shardings[0], key)]
                 leaves.append(_like_leaf(arr, like))
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)

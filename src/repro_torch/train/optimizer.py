@@ -58,22 +58,36 @@ def init_opt_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, axes=None, specs=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32, added in leaf
-    order."""
-    total = None
-    for x in leaves(tree):
-        sq = torch.sum(torch.square(x.to(_F32)))
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    order. Over a mesh (``axes``, with the leaves' ``specs``) the leaves
+    are this rank's shards: each shard's squares are counted once, by its
+    first holder (a leaf replicated over an axis is counted on coordinate 0
+    of it), and one all-reduce over the mesh adds the ranks' sums."""
+    if axes is None or axes.world == 1:
+        total = None
+        for x in leaves(tree):
+            sq = torch.sum(torch.square(x.to(_F32)))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    from repro_torch.parallel import sharding as SH
+
+    total = torch.zeros((), dtype=_F32, device=leaves(tree)[0].device)
+    for x, sp in zip(leaves(tree), leaves(specs)):
+        if SH.replica_mask(sp, axes):
+            total = total + torch.sum(torch.square(x.to(_F32)))
+    return torch.sqrt(SH.all_reduce(total, axes, axes.names))
 
 
 def adamw_update(cfg: OptimizerConfig, params, grads, state,
-                 decay_mask: Optional[Callable[[Tuple[str, ...]], bool]] = None):
+                 decay_mask: Optional[Callable[[Tuple[str, ...]], bool]] = None,
+                 gnorm: Optional[torch.Tensor] = None):
     """Returns (new_params, new_state, metrics); metrics are the gradient's
-    norm before clipping and the step's learning rate."""
+    norm before clipping and the step's learning rate. ``gnorm`` is the
+    norm where the caller has it (``grads`` a slice of the gradients, as
+    under ZeRO-1)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(cfg, step)
     stepf = step.to(_F32)

@@ -12,7 +12,9 @@
     up to ``max_restarts`` times (``fault_hook`` injects them in tests).
 
 A step's metrics (device scalars) come to the host in one copy, the
-step's one host read.
+step's one host read. A state split over a mesh passes its
+``state_shardings`` (the ``MeshAxes`` and the state's tree of ``Spec``s):
+checkpoints then hold the full arrays and restore re-shards them.
 """
 
 from __future__ import annotations
@@ -64,9 +66,11 @@ class Trainer:
         train_step: Callable,
         init_state: Callable[[], Any],
         batches: Callable[[int], Any],  # step -> batch (deterministic, resumable)
+        state_shardings=None,
         fault_hook: Optional[Callable[[int], None]] = None,
     ):
         self.cfg = cfg
+        self.state_shardings = state_shardings
         self.train_step = train_step
         self.init_state = init_state
         self.batches = batches
@@ -96,7 +100,7 @@ class Trainer:
         latest = self.ckpt.latest_step()
         state = self.init_state()
         if latest is not None:
-            state, manifest = self.ckpt.restore(latest, state)
+            state, manifest = self.ckpt.restore(latest, state, self.state_shardings)
             log.info("restored checkpoint at step %d", latest)
             return state, int(manifest["step"])
         return state, 0
@@ -134,12 +138,12 @@ class Trainer:
             if (step + 1) % self.cfg.log_every == 0:
                 log.info("step %d: %s (%.3fs)", step + 1, last_metrics, dt)
             if (step + 1) % self.cfg.ckpt_every == 0 or self._preempted:
-                self.ckpt.save(step + 1, state)
+                self.ckpt.save(step + 1, state, shardings=self.state_shardings)
                 if self._preempted:
                     self.ckpt.wait()
                     log.warning("exiting after preemption checkpoint at %d", step + 1)
                     return {"step": step + 1, "preempted": True, **last_metrics}
-        self.ckpt.save(self.cfg.total_steps, state)
+        self.ckpt.save(self.cfg.total_steps, state, shardings=self.state_shardings)
         self.ckpt.wait()
         return {"step": self.cfg.total_steps, "preempted": False, **last_metrics}
 

@@ -150,5 +150,29 @@ def test_qr_lookup_and_retrieval_match_the_reference():
 
 
 def test_param_specs_wait_for_5e():
-    with pytest.raises(NotImplementedError, match="5e"):
-        D.param_specs(get_config("dcn-v2").model, MeshAxes())
+    """The dcn specs (which once raised, naming 5e) against the reference's
+    on both production meshes' axes, leaf by leaf: tables of 16,384 rows or
+    more split by rows over mp (at their padded sizes), the rest
+    replicated; the full tables, a cut at 20,000 rows (some split) and the
+    reduced 1,000 (none)."""
+    from jax.sharding import AbstractMesh, PartitionSpec
+
+    for max_rows in (0, 20000, 1000):
+        _specs_match(max_rows, AbstractMesh, PartitionSpec)
+
+
+def _specs_match(max_rows, AbstractMesh, PartitionSpec):
+    rcfg = dataclasses.replace(ref_config("dcn-v2").model, max_table_rows=max_rows)
+    cfg = dataclasses.replace(get_config("dcn-v2").model, max_table_rows=max_rows)
+    for names in (("data", "model"), ("pod", "data", "model")):
+        raxes = RAxes.for_mesh(AbstractMesh((2,) * len(names), names))
+        flat, _ = jax.tree_util.tree_flatten_with_path(
+            RD.param_specs(rcfg, raxes), is_leaf=lambda x: isinstance(x, PartitionSpec))
+        want = {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): tuple(sp)
+                for path, sp in flat}
+        got = {"/".join(path): tuple(sp) for path, sp in
+               flatten_with_paths(D.param_specs(cfg, MeshAxes(dp=names[:-1])))}
+        assert got == want
+        split = sorted(k for k, v in got.items() if v == ("model", None))
+        n = sum(cfg.table_rows(i) >= 16384 for i in range(cfg.n_sparse))
+        assert len(split) == n and (n > 0) == (max_rows != 1000)

@@ -1,6 +1,7 @@
 """The distributed join's dry run (``repro_torch.launch.engine_dryrun``), the
-H100 roofline terms, the report's dry-run, bench and query modes against
-the reference's, and the engine configs."""
+model dry run (``repro_torch.launch.dryrun``), the H100 roofline terms, the
+report's dry-run, bench and query modes against the reference's, and the
+engine configs."""
 
 import dataclasses
 import inspect
@@ -122,3 +123,61 @@ def test_engine_configs_match_reference(name):
 
     assert dataclasses.asdict(getattr(PC, name)) == dataclasses.asdict(getattr(RC, name))
     assert PC.DIST_JOIN_SHAPES == RC.DIST_JOIN_SHAPES
+
+
+# the keys of the reference's dry-run record of an LM cell
+# (``src/repro/launch/dryrun.py``'s ``run_cell``)
+REFERENCE_KEYS = {"arch", "shape", "mesh", "status", "description", "n_chips", "lower_s",
+                  "compile_s", "scan_body_extrapolated", "overrides", "memory", "cost",
+                  "collectives", "roofline", "hw", "model_flops_global", "useful_flops_ratio",
+                  "wall_s"}
+
+
+def test_model_dry_run_record_has_the_reference_keys_and_renders(tmp_path):
+    """A reduced qwen3-8b ``train_4k`` on a fake (2, 2) group: the
+    reference's keys (and sub-keys), null ``compile_s`` / ``code_bytes``,
+    traced layers, collectives in both directions; ``report.py`` renders it
+    as it renders the reference's records."""
+    from repro.launch import report as RR
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell("qwen3-8b", "train_4k", False, str(tmp_path),
+                          overrides=dict(global_batch=4, seq_len=32), use_reduced=True,
+                          mesh_shape=(2, 2))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert REFERENCE_KEYS <= rec.keys()
+    assert {"argument_bytes", "output_bytes", "temp_bytes", "code_bytes"} <= rec["memory"].keys()
+    assert rec["cost"].keys() == {"flops_per_device", "bytes_per_device", "global_flops"}
+    assert rec["collectives"].keys() == {"per_kind_bytes", "per_kind_counts", "total_bytes"}
+    assert rec["compile_s"] is None and rec["memory"]["code_bytes"] is None
+    assert rec["scan_body_extrapolated"] is False and rec["n_chips"] == 4
+    assert rec["collectives"]["per_kind_counts"]["all-reduce"] > 0
+    assert rec["hw"]["peak_flops"] == RL.PEAK_BF16_FLOPS_PER_S
+    assert rec["roofline"]["compute_s"] == rec["cost"]["flops_per_device"] / 989e12
+    want_useful = 6.0 * get_reduced("qwen3-8b").param_count() * 4 * 32
+    assert rec["model_flops_global"] == want_useful
+    assert rec["useful_flops_ratio"] == want_useful / (rec["cost"]["flops_per_device"] * 4)
+    recs = PR.load(str(tmp_path))
+    # the port writes the null compile time as a dash where the reference prints None
+    assert PR.roofline_table(recs, "single") == RR.roofline_table(recs, "single").replace(
+        "| None |", "| — |")
+    assert PR.summary(recs) == RR.summary(recs)
+    assert json.loads((tmp_path / "qwen3-8b__train_4k__single.json").read_text()) == rec
+
+
+def test_model_dry_run_records_a_failure(tmp_path):
+    """A layout that does not divide fails the cell with the leaf named, as
+    the reference records a failed compile."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell("qwen3-8b", "train_4k", False, str(tmp_path),
+                          overrides=dict(global_batch=4, seq_len=32), use_reduced=True,
+                          mesh_shape=(1, 3))
+    assert rec["status"] == "failed" and "does not divide" in rec["error"]
+    assert "traceback" in rec
+
+
+def get_reduced(arch_id):
+    from repro_torch.configs import get_config
+
+    return get_config(arch_id).reduced_model

@@ -88,6 +88,11 @@ def test_entry_points_default_to_the_card():
         LT.run("graphsage-reddit", "full_graph_sm", 2, "unused")
     # a bundle allocates nothing: its step runs where its inputs are
     assert build_step(gs, "full_graph_sm", use_reduced=True).fn
+    from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
+
+    for make in (make_smoke_mesh, make_production_mesh):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 @pytest.mark.parametrize("field,value", [

@@ -296,22 +296,43 @@ def test_moe_load_balance_loss():
     assert abs(got - want) <= 1e-6
 
 
-def test_more_than_one_rank_waits_for_its_slice(monkeypatch):
-    """constrain is the identity on one rank; over more ranks, sharded
-    layouts and expert parallelism raise, naming the slice."""
-    import torch.distributed as dist
+def test_more_than_one_rank_waits_for_its_slice(tmp_path):
+    """``constrain`` and ``ep_psum`` (which once raised over more ranks,
+    naming the slice) on a fake two-rank group, a (1, 2) mesh: ``constrain``
+    is the identity on a tensor that is its spec's shard and raises on one
+    that is not; ``ep_psum`` on rank 0 computes only its four experts'
+    assignments (the partial that, summed over the ranks, is the block's
+    output: the rank's part of the one-rank output, exactly) and makes the
+    one all-reduce over mp."""
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_mesh
 
     axes = SH.MeshAxes.for_mesh(None)
     x = torch.ones(2, 3)
     assert SH.constrain(x, axes, "dp", None) is x
     assert axes.resolve("dp+mp") == ("data", "model") and axes == SH.MeshAxes()
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    two = SH.MeshAxes.for_mesh(object())
-    with pytest.raises(NotImplementedError, match="slice"):
-        SH.constrain(x, two, "dp", None)
     rcfg, cfg, jp, tp, xj, xt = _moe_case(8.0)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TM.moe_block(tp, dataclasses.replace(cfg, impl="ep_psum"), two, xt)
+    cfg = dataclasses.replace(cfg, impl="ep_psum")
+    one = TM.moe_block(tp, cfg, axes, xt)
+    with fake_group(2):
+        two = SH.MeshAxes.for_mesh(make_mesh((1, 2), ("data", "model"), device="cpu"))
+        assert two.world == 2 and two.index("model") == 0
+        assert SH.constrain(x, two, None, "mp", full=(2, 6)) is x
+        with pytest.raises(ValueError, match="shard"):
+            SH.constrain(x, two, None, "mp", full=(2, 8))
+        half = {**tp, "experts": {k: v[: cfg.n_experts // 2] for k, v in tp["experts"].items()}}
+        got = TM.moe_block(half, cfg, two, xt)
+        two.tally.reset()
+        y = TF._leave(got, two, False)
+        assert two.tally.calls["all-reduce"] == 1 and y.shape == got.shape
+    # rank 0's partial: the tokens' outputs from experts 0-3 only
+    _, top_p, top_e = TM.route(tp, cfg, xt.reshape(-1, xt.shape[-1]))
+    slot = TM.expert_slots(top_e, cfg.n_experts)
+    want = TM._dispatch(xt.reshape(-1, xt.shape[-1]), top_p, top_e, slot,
+                        TM.capacity(top_e.shape[0], cfg), half["experts"], 0,
+                        cfg.n_experts // 2).reshape(got.shape)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, one)
 
 
 # ---------------------------------------------------------------------------

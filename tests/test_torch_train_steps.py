@@ -127,24 +127,42 @@ def test_train_step_matches_the_reference(arch_id):
 
 
 def test_bundles_of_every_cell_build_and_refuse_what_5e_holds():
-    """Every (arch, shape) cell builds a bundle at the full configs; the
-    reference's ZeRO and partitioned-DimeNet knobs raise, naming 5e."""
+    """Every (arch, shape) cell builds a bundle at the full configs, and so
+    do the reference's ZeRO knobs (which once raised, naming 5e) on every
+    LM's ``train_4k`` and ``gnn_impl="partitioned"`` on every DimeNet shape:
+    one rank's layouts are the whole tensors, ZeRO changes nothing there,
+    and the partitioned loss takes the node arrays whole. Over the
+    production meshes the layouts are held against the reference's in
+    ``tests/test_torch_layouts.py``."""
     from repro_torch.configs import all_cells
     from repro.configs import all_cells as ref_cells
+    from repro_torch.parallel.sharding import shard_shape
+    from repro_torch.train.tree import leaves as tree_leaves
 
     assert all_cells() == ref_cells()
     for arch_id, shape in all_cells():
-        assert build_step(get_config(arch_id), shape).description
-    lm = get_config("qwen3-8b")
-    for knob in ("zero_params", "zero_opt"):
-        arch = dataclasses.replace(lm, shapes={"t": {**lm.shapes["train_4k"], knob: True}})
-        with pytest.raises(NotImplementedError, match="5e"):
-            build_step(arch, "t")
+        b = build_step(get_config(arch_id), shape)
+        assert b.description and len(b.abstract_args) == len(b.in_shardings)
+        for x, sp in zip(tree_leaves(b.abstract_args), tree_leaves(b.in_shardings)):
+            assert x.device.type == "meta" and shard_shape(x.shape, sp, b.axes) == x.shape
+    for arch_id in ("qwen3-8b", "deepseek-7b", "command-r-plus-104b", "qwen3-moe-30b-a3b",
+                    "moonshot-v1-16b-a3b"):
+        lm = get_config(arch_id)
+        base = build_step(lm, "train_4k")
+        for knobs in ({"zero_params": True}, {"zero_opt": True},
+                      {"zero_params": True, "zero_opt": True}):
+            arch = dataclasses.replace(lm, shapes={"t": {**lm.shapes["train_4k"], **knobs}})
+            b = build_step(arch, "t")
+            assert [x.shape for x in tree_leaves(b.abstract_args)] == [
+                x.shape for x in tree_leaves(base.abstract_args)]
     dn = get_config("dimenet")
-    arch = dataclasses.replace(dn, shapes={"m": {**dn.shapes["molecule"],
-                                                 "gnn_impl": "partitioned"}})
-    with pytest.raises(NotImplementedError, match="5e"):
-        build_step(arch, "m")
+    for shape in dn.shapes:
+        arch = dataclasses.replace(dn, shapes={shape: {**dn.shapes[shape],
+                                                       "gnn_impl": "partitioned"}})
+        gspecs = build_step(arch, shape).in_shardings[2]
+        for k, sp in gspecs.items():
+            edge = k in ("edge_src", "edge_dst", "trip_kj", "trip_ji")
+            assert tuple(sp)[:1] == ((("data", "model"),) if edge else (None,)), (k, sp)
     gs = get_config("graphsage-reddit")
     shape = _gnn_graph_shape(gs, "minibatch_lg", gs.model)
     assert (shape.n_nodes, shape.n_edges) == (169984, 168960) == (_pad512(169_984),
